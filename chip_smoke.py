@@ -1,0 +1,558 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``lameness_tpu_torch``) on one GPU.
+
+Run from the repository root:  python3 chip_smoke.py
+
+Phases, each failing loudly (no exception is swallowed):
+  1. setup: card name and power limit, versions, TF32 off, build the
+     kernels from csrc/ with nvcc (one process per source, in parallel);
+  2. kernels: K1-K3 against their plain PyTorch versions at the engine's
+     shapes, in float32 and bfloat16, with device times (torch.profiler)
+     beside the bound, the plain version's and a PyTorch library call's as
+     yardsticks;
+  3. engine: a small engine on the card against the same engine's plain
+     path on the CPU (same weights, same frames), then the full-width
+     default engine (YOLOv8-n 640, SAM ViT-B 1024², DINOv2 ViT-B/14 224,
+     TCN + GaitTransformer) on B seeded synthetic 720p clips of 125 frames,
+     with each kernel's launch count over that run, end-to-end and stage
+     times, and a torch.profiler breakdown of one batch (device busy
+     share, device time by kernel and by launching op).
+The line before the last is the kernel record (JSON); the last line is
+``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
+without a CUDA device or outside the repository.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+BATCH = 2                  # clips per engine batch on the full-width run
+REPEATS = 3                # timed engine runs after warmup
+SEED = 0
+
+# float32 / bfloat16 agreement, elementwise |kernel - plain| <= atol +
+# rtol·|plain|.  f32: both sum in f32 in other orders (4096-key rows);
+# bf16: the output is rounded to bf16 (eps 2^-7), and both round the
+# softmax weights to bf16 before PV, the kernel before normalising them
+# (on the tensor cores), the plain version after (as the JAX kernels do).
+TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 1.6e-2)}
+
+# H100 SXM dense peaks (NVIDIA data sheet) for the bound of each kernel
+PEAK_BYTES_S = 3.35e12
+PEAK_FLOPS_S = {"bfloat16": 989e12, "float32": 67e12}
+
+# output keys of lameness_tpu/pipeline/engine.py::_detect/_sam/_dino/
+# _heads_stage with heuristic pose (the JAX engine's default output dict)
+ENGINE_KEYS = {
+    "det_boxes", "det_scores", "det_classes", "det_valid", "primary_boxes",
+    "primary_scores", "primary_valid", "masks", "mask_iou_pred",
+    "mask_area_frac", "embeddings", "keypoints", "pose_boxes", "locomotion",
+    "seq_features", "seq_mask", "tcn_probability", "tcn_uncertainty",
+    "gait_probability", "gait_uncertainty", "gait_saliency"}
+
+
+def log(*args) -> None:
+    print(*args, flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 1
+# ---------------------------------------------------------------------------
+def setup():
+    import torch
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    log(f"card: {smi}")
+    log(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
+        f"cuda {torch.version.cuda}  device {torch.cuda.get_device_name(0)}"
+        f"  count {torch.cuda.device_count()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"tf32: matmul {torch.backends.cuda.matmul.allow_tf32}  cudnn "
+        f"{torch.backends.cudnn.allow_tf32}")
+    from lameness_tpu_torch.ops import _cuda
+    t0 = time.perf_counter()
+    secs = _cuda.build()
+    log(f"kernel build: {time.perf_counter() - t0:.2f} s wall "
+        + json.dumps({k: round(v, 2) for k, v in secs.items()}))
+    for name in _cuda.SOURCES:
+        path = _cuda.BUILD_DIR / f"{name}.log"
+        if path.exists():
+            lines = path.read_text().splitlines()
+            regs = [int(ln.split("Used ")[1].split()[0]) for ln in lines
+                    if "registers" in ln]
+            spills = [ln.strip() for ln in lines
+                      if "spill" in ln and "0 bytes spill stores" not in ln]
+            log(f"  ptxas {name}: {len(regs)} kernels, registers "
+                f"{min(regs, default=0)}-{max(regs, default=0)}, "
+                f"{len(spills)} with spills {spills[:2]}")
+    return smi
+
+
+# ---------------------------------------------------------------------------
+# phase 2
+# ---------------------------------------------------------------------------
+def cuda_ms(fn, reps: int) -> float:
+    """ms per call from CUDA events around ``reps`` back-to-back calls: for
+    a small kernel this is the host's launch rate, not the card's time."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int, tries: int = 3) -> float:
+    """Device ms per call: the summed duration of every kernel and copy
+    that ``reps`` calls put on the card (torch.profiler), without the host
+    gaps between launches.  The profiler has been seen to record no device
+    event in a session now and then: it is asked again, and after ``tries``
+    empty sessions the CUDA-event time per call is used, with a note."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA)
+        if busy_us > 0:
+            return busy_us / reps / 1e3
+    log("  (torch.profiler recorded no device time: CUDA-event time per "
+        "call instead)")
+    return cuda_ms(fn, reps)
+
+
+def agree(name, dtype, out, ref):
+    """max |out - ref| and whether it is inside TOL[dtype]."""
+    import torch
+    atol, rtol = TOL[dtype]
+    err = (out.float() - ref.float()).abs()
+    ok = bool(torch.isfinite(out.float()).all()) and bool(
+        (err <= atol + rtol * ref.float().abs()).all())
+    mx = float(err.max())
+    log(f"  {name:22s} {dtype:8s} max_abs_err {mx:.3e}  tol atol {atol:g} "
+        f"rtol {rtol:g}  {'ok' if ok else 'FAIL'}")
+    return mx, ok
+
+
+def kernel_inputs(kernel: str, dtype, batch: int, gen):
+    """Inputs at the shapes the full-width engine gives each kernel for a
+    batch of ``batch`` clips (EngineSpec() defaults)."""
+    import torch
+    from lameness_tpu_torch.ops import sam_attention as sa
+    dev = torch.device("cuda")
+
+    def rnd(*shape, std=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * std
+                ).to(dtype)
+    if kernel == "attention":                 # DINO: B·5 frames, 12 heads
+        n_img, s, h, d = batch * 5, 257, 12, 64
+        q, k, v = (rnd(n_img, s, h, d).transpose(1, 2) for _ in range(3))
+        return (q, k, v)
+    if kernel == "sam_window_attention":      # B·11 frames x 25 windows
+        bw, n, h, d, win = batch * 11 * 25, 196, 12, 64, 14
+        qkv = rnd(bw, n, 3, h, d)
+        q4, k4, v4 = qkv.unbind(2)
+        rh4, rw4 = sa.project_rel_tables_hl(
+            q4, rnd(2 * win - 1, d, std=0.1), rnd(2 * win - 1, d, std=0.1),
+            win)
+        return (q4, k4, v4, rh4, rw4)
+    bh, g, d = batch * 11 * 12, 64, 64        # global: B·11 frames x 12
+    q, k, v = (rnd(bh, g * g, d) for _ in range(3))
+    rel_h, rel_w = sa.project_rel_tables(
+        q, rnd(2 * g - 1, d, std=0.1), rnd(2 * g - 1, d, std=0.1), g)
+    return (q, k, v, rel_h, rel_w)
+
+
+def kernel_work(kernel: str, args):
+    """(flops, bytes) the function needs for these inputs: QK and PV
+    products, each input read once and the output written once."""
+    q = args[0]
+    el = q.element_size()
+    if kernel == "attention":
+        b, h, s, d = q.shape
+        heads, nq, nk = b * h, s, s
+        extra = 0
+    elif kernel == "sam_window_attention":
+        bw, n, h, d = q.shape
+        heads, nq, nk = bw * h, n, n
+        extra = 2 * args[3].numel() * el
+    else:
+        heads, nq, d = q.shape
+        nk = nq
+        extra = (args[3].numel() + args[4].numel()) * el
+    flops = 4.0 * heads * nq * nk * d
+    nbytes = 4.0 * heads * nq * d * el + extra
+    return flops, nbytes
+
+
+def plain_and_library(kernel: str, args, library: bool):
+    """The plain version (CUDA tensors, so called directly), or with
+    ``library`` one PyTorch call computing the same function: SDPA, given
+    the materialised bias for K2/K3 (a yardstick only: the port never
+    calls it).  The K3 plain version is chunked over heads to bound its
+    f32 scores."""
+    import torch
+    import torch.nn.functional as F
+    from lameness_tpu_torch.ops import attention as at
+    from lameness_tpu_torch.ops import sam_attention as sa
+    if kernel == "attention":
+        q, k, v = args
+        if library:
+            return lambda: F.scaled_dot_product_attention(q, k, v)
+        return lambda: at.reference_attention(q, k, v)
+    if kernel == "sam_window_attention":
+        q4, k4, v4, rh4, rw4 = args
+        bw, n, h, d = q4.shape
+        if not library:
+            return lambda: sa.window_attention_reference(q4, k4, v4, rh4, rw4)
+        qh, kh, vh = (t.transpose(1, 2) for t in (q4, k4, v4))
+        bias = (rh4.transpose(1, 2)[..., :, None]
+                + rw4.transpose(1, 2)[..., None, :]).reshape(bw, h, n, n)
+        return lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                                      attn_mask=bias)
+    q, k, v, rel_h, rel_w = args
+    bh, n, d = q.shape
+    chunk = 24
+
+    def plain():
+        return torch.cat([sa.sam_attention_reference(
+            q[i:i + chunk], k[i:i + chunk], v[i:i + chunk],
+            rel_h[i:i + chunk], rel_w[i:i + chunk])
+            for i in range(0, bh, chunk)])
+    if not library:
+        return plain
+    bias = (rel_h[..., :, None] + rel_w[..., None, :]).reshape(bh, 1, n, n)
+
+    def library():
+        return F.scaled_dot_product_attention(
+            q[:, None], k[:, None], v[:, None], attn_mask=bias)[:, 0]
+    return library
+
+
+KERNEL_META = {
+    "attention": ("lameness_tpu_torch/csrc/attention.cu",
+                  "lameness_tpu/ops/attention.py:50"),
+    "sam_window_attention": ("lameness_tpu_torch/csrc/sam_window_attention.cu",
+                             "lameness_tpu/ops/sam_attention.py:586"),
+    "sam_global_attention": ("lameness_tpu_torch/csrc/sam_global_attention.cu",
+                             "lameness_tpu/ops/sam_attention.py:216"),
+}
+
+
+def check_kernels(batch: int = BATCH):
+    """Phase 2: returns {kernel: record} and whether every check passed."""
+    import torch
+    from lameness_tpu_torch.ops import attention as at
+    from lameness_tpu_torch.ops import sam_attention as sa
+    wrappers = {"attention": at.flash_attention,
+                "sam_window_attention": sa.sam_window_attention_v3,
+                "sam_global_attention": sa.sam_global_attention}
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    records, all_ok = {}, True
+    for name, fn in wrappers.items():
+        rec = {"name": name, "route": "cuda", "source": KERNEL_META[name][0],
+               "replaces": KERNEL_META[name][1]}
+        for dtype_name in ("float32", "bfloat16"):
+            dtype = getattr(torch, dtype_name)
+            args = kernel_inputs(name, dtype, batch, gen)
+            out = fn(*args)
+            plain = plain_and_library(name, args, library=False)
+            ref = plain()
+            torch.cuda.synchronize()
+            err, ok = agree(name, dtype_name, out, ref)
+            all_ok &= ok
+            rec[f"max_abs_err_{dtype_name}"] = err
+            if dtype_name != "bfloat16":
+                continue
+            # times at the engine's working dtype (bf16 under the policy)
+            reps = 20 if name != "sam_global_attention" else 5
+            rec["max_abs_err"] = err
+            rec["ms"] = device_ms(lambda: fn(*args), reps)
+            rec["call_ms"] = cuda_ms(lambda: fn(*args), reps)
+            rec["plain_ms"] = device_ms(plain, 3)
+            library = plain_and_library(name, args, library=True)
+            rec["library_ms"] = device_ms(library, 3)
+            del library
+            flops, nbytes = kernel_work(name, args)
+            t_bytes = nbytes / PEAK_BYTES_S * 1e3
+            t_ops = flops / PEAK_FLOPS_S[dtype_name] * 1e3
+            rec["bound_ms"] = max(t_bytes, t_ops)
+            rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+            rec["shape"] = [list(a.shape) for a in args]
+            log(f"  {name:22s} device ms {rec['ms']:.4f} (per call "
+                f"{rec['call_ms']:.4f})  plain {rec['plain_ms']:.4f}  library "
+                f"{rec['library_ms']:.4f}  bound {rec['bound_ms']:.4f}"
+                f" ({rec['bound_by']}; {flops / 1e9:.2f} GFLOP, "
+                f"{nbytes / 1e6:.1f} MB)")
+            del args, out, ref
+            torch.cuda.empty_cache()
+        records[name] = rec
+    return records, all_ok
+
+
+# ---------------------------------------------------------------------------
+# phase 3
+# ---------------------------------------------------------------------------
+def leaves(tree, prefix=""):
+    """Flatten the output dict (``locomotion`` is a dict of its own)."""
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            yield from leaves(val, f"{prefix}{key}.")
+        else:
+            yield prefix + key, np.asarray(val)
+
+
+def check_small_engine(devices=("cpu", "cuda")):
+    """The tiny engine (make_test_engine geometry + a 128² SAM) on the card
+    in f32 against its plain path on the CPU, same weights and frames.  The
+    CPU path is what tests/test_torch_engine.py holds against the JAX
+    engine; the gates are that test's."""
+    import torch
+    from lameness_tpu_torch.pipeline.engine import make_test_engine
+    from lameness_tpu_torch.models.gait_transformer import GaitTransformer
+    from lameness_tpu_torch.models.tcn import TCN
+    from lameness_tpu_torch.weights import seeded_state_dict
+    rng = np.random.default_rng(SEED)
+    frames = rng.integers(0, 256, (2, 15, 90, 160, 3), dtype=np.uint8)
+    outs = {}
+    for dev in devices:
+        gen = torch.Generator().manual_seed(SEED)
+        eng = make_test_engine(device=dev, with_sam=True, generator=gen)
+        # dropout 0: the CPU and CUDA generators draw different masks
+        eng.tcn = TCN(input_dim=44, dropout=0.0, device=dev)
+        eng.gait = GaitTransformer(input_dim=44, dropout=0.0, device=dev)
+        eng.load_state_dicts({"tcn": seeded_state_dict(eng.tcn, gen),
+                              "gait": seeded_state_dict(eng.gait, gen)})
+        outs[dev] = dict(leaves(eng.process_clip_batch(frames)))
+    cpu, gpu = outs[devices[0]], outs[devices[1]]
+    ok = set(cpu) == set(gpu)
+    worst = {}
+    for key in sorted(cpu):
+        a, b = cpu[key], gpu[key]
+        ok &= a.shape == b.shape and a.dtype == b.dtype
+        if key == "masks":
+            worst[key] = float((a == b).mean())
+            ok &= worst[key] >= 0.995
+        elif a.dtype == bool or np.issubdtype(a.dtype, np.integer):
+            worst[key] = float((a != b).mean())
+            ok &= worst[key] == 0.0
+        else:
+            worst[key] = float(np.abs(a.astype(np.float64) - b).max())
+            tol = 1e-3 if key == "mask_iou_pred" else 1e-4
+            ok &= worst[key] <= tol
+    floats = {k: v for k, v in worst.items()
+              if k != "masks" and cpu[k].dtype.kind == "f"}
+    top = max(floats, key=floats.get)
+    log(f"small engine {devices[1]} vs {devices[0]}: mask agreement "
+        f"{worst['masks']:.5f}; int/bool mismatch share "
+        f"{max(v for k, v in worst.items() if k not in floats and k != 'masks'):.3g}"
+        f"; float max_abs_err {floats[top]:.3e} ({top})")
+    log(f"small engine agreement: {'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def check_outputs(out, s, batch: int) -> bool:
+    """The JAX engine's key set, finite values, the expected shapes."""
+    ok = set(out) == ENGINE_KEYS
+    if not ok:
+        log(f"key mismatch: extra {sorted(set(out) - ENGINE_KEYS)} missing "
+            f"{sorted(ENGINE_KEYS - set(out))}")
+    flat = dict(leaves(out))
+    for key, arr in flat.items():
+        if arr.dtype.kind == "f" and not np.isfinite(arr).all():
+            log(f"non-finite output {key}")
+            ok = False
+    td, tp = len(s.det_idx), len(s.pose_idx)
+    shapes = {"det_boxes": (batch, td, s.max_det, 4),
+              "det_classes": (batch, td, s.max_det),
+              "primary_boxes": (batch, td, 4),
+              "masks": (batch, td, s.sam_mask_size, s.sam_mask_size),
+              "mask_iou_pred": (batch, td),
+              "keypoints": (batch, tp, 20, 3),
+              "seq_features": (batch, 125, 44),
+              "tcn_probability": (batch,), "gait_saliency": (batch, 125),
+              "locomotion.lameness_score": (batch,)}
+    for key, shape in shapes.items():
+        if key not in flat or flat[key].shape != shape:
+            log(f"shape {key}: {flat.get(key, np.empty(0)).shape} != {shape}")
+            ok = False
+    log(f"engine outputs: {'ok' if ok else 'FAIL'}  ("
+        + ", ".join(f"{k} {v.shape} {v.dtype}" for k, v in sorted(
+            flat.items()) if not k.startswith("locomotion.")) + ")")
+    return ok
+
+
+def time_stages(eng, frames, reps: int):
+    """Median host-clock ms of each stage, synchronised, on packed device
+    frames (the transfer is timed as its own row)."""
+    import torch
+    times = {k: [] for k in ("transfer", "detect", "sam", "dino", "heads")}
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    with torch.no_grad():
+        for _ in range(reps):
+            def timed(name, fn):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn()
+                torch.cuda.synchronize()
+                times[name].append((time.perf_counter() - t0) * 1e3)
+                return out
+            dev = timed("transfer", lambda: eng.to_device(frames))
+            det = timed("detect", lambda: eng._detect_stage(dev))
+            timed("sam", lambda: eng._sam_stage(dev, det["primary_boxes"]))
+            timed("dino", lambda: eng._dino_stage(dev))
+            timed("heads", lambda: eng._heads_stage(
+                det["primary_boxes"], det["primary_scores"], gen))
+    return {k: float(np.median(v)) for k, v in times.items()}
+
+
+def profile_batch(eng, frames, top: int = 12) -> None:
+    """One process_clip_batch under torch.profiler: the device's busy share
+    of the wall time (kernels and copies; the profiler's own host overhead
+    lengthens the wall, so the idle share is an upper bound) and the device
+    time by kernel name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.process_clip_batch(frames)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        log("profile: no device events recorded (device idle share not "
+            "measured)")
+        return
+    busy_us = sum(e.self_device_time_total for e in dev)
+    log(f"profile: wall {wall_us / 1e3:.1f} ms, device busy "
+        f"{busy_us / 1e3:.1f} ms ({100 * busy_us / wall_us:.1f}%), idle "
+        f"share <= {100 * (1 - busy_us / wall_us):.1f}%")
+    log("  device time by kernel (the top ones, then the port's own):")
+    ranked = sorted(dev, key=lambda e: -e.self_device_time_total)
+    for e in ranked[:top] + [e for e in ranked[top:] if "lameness::" in e.key]:
+        log(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  "
+            f"{e.key[:90]}")
+    # the same time by the host op that launched it (kernels of the port's
+    # own wrappers have no aten op above them)
+    ops = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CPU
+           and e.self_device_time_total > 0]
+    log("  device time by launching op:")
+    for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:top]:
+        log(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  "
+            f"{e.key[:90]}")
+
+
+def run_engine(batch: int = BATCH):
+    """Full-width default engine on ``batch`` synthetic 720p clips."""
+    import torch
+    from lameness_tpu_torch.core.config import Config
+    from lameness_tpu_torch.ops._cuda import KERNELS
+    from lameness_tpu_torch.pipeline.engine import EngineSpec, LamenessEngine
+    gen = torch.Generator().manual_seed(SEED)
+    t0 = time.perf_counter()
+    eng = LamenessEngine(Config(), EngineSpec(), generator=gen)
+    torch.cuda.synchronize()
+    log(f"engine init {time.perf_counter() - t0:.2f} s  dtype "
+        f"{eng.spec.dtype}  precision {json.dumps(eng.precision)}")
+    t0 = time.perf_counter()
+    warm = eng.warmup(batch=batch)
+    log(f"warmup {time.perf_counter() - t0:.2f} s  {json.dumps(warm)}")
+    s = eng.spec
+    rng = np.random.default_rng(SEED)
+    frames = rng.integers(0, 256, (batch, s.clip_frames, s.frame_height,
+                                   s.frame_width, 3), dtype=np.uint8)
+
+    # the counted run: every launch count from 0, one call of the entry point
+    for k in KERNELS.values():
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    out = eng.process_clip_batch(
+        frames, generator=torch.Generator(device="cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    launches = {name: k.launches for name, k in KERNELS.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"launches in one process_clip_batch (B={batch}): "
+        f"{json.dumps(launches)}")
+
+    e2e = []
+    for _ in range(REPEATS):
+        t0 = time.perf_counter()
+        eng.process_clip_batch(frames)
+        torch.cuda.synchronize()
+        e2e.append(time.perf_counter() - t0)
+    stages = time_stages(eng, frames, REPEATS)
+    log("engine e2e s/batch " + json.dumps([round(t, 4) for t in e2e])
+        + f"  clips/s {batch / float(np.median(e2e)):.3f}  peak mem "
+        f"{peak_gb:.2f} GB")
+    log("stage ms (median of " + str(REPEATS) + "): "
+        + json.dumps({k: round(v, 3) for k, v in stages.items()}))
+    profile_batch(eng, frames)
+
+    ok = check_outputs(out, s, batch)
+    for name, n in launches.items():
+        if n <= 0:
+            log(f"kernel {name} was not launched on the main path")
+            ok = False
+    return launches, ok
+
+
+def main() -> int:
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 2
+    try:
+        import lameness_tpu_torch  # noqa: F401
+    except ImportError as exc:
+        print(f"chip_smoke: lameness_tpu_torch not importable ({exc}); run "
+              f"from the repository root", file=sys.stderr)
+        return 3
+    smi = setup()
+    log("== phase 2: kernels against their plain versions")
+    records, ok_k = check_kernels()
+    log("== phase 3: engine")
+    ok_small = check_small_engine()
+    launches, ok_e = run_engine()
+    for name, rec in records.items():
+        rec["launches"] = launches.get(name, 0)
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    kern = {"kernels": [{k: rec[k] for k in keys}
+                        for rec in records.values()]}
+    if not (ok_k and ok_small and ok_e):
+        log("chip_smoke: FAILED")
+        return 1
+    log(smi)
+    log(json.dumps(kern))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,129 @@
+#!/usr/bin/env python3
+"""Rehearse the port's CUDA kernels on the CPU, without a GPU or nvcc.
+
+Compiles ``lameness_tpu_torch/csrc/*.cu`` with g++ as plain C++ against the
+host emulation in ``lameness_tpu_torch/csrc/emulate/`` (one std::thread per
+CUDA thread; ``mma.sync``, ``ldmatrix``, ``cp.async`` and shuffles emulated
+with their fragment layouts), loads the library with ctypes and holds each
+kernel's C entry point against its plain PyTorch version at small shapes,
+in float32 and bfloat16.  A launch takes seconds and the emulation is only
+as faithful as its headers: the GPU stays the proof (chip_smoke.py); this
+catches indexing, fragment and masking faults before a run there.
+
+    python scripts/emulate_cuda_kernels.py        # exit 0 when all agree
+"""
+from __future__ import annotations
+
+import ctypes
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+from lameness_tpu_torch.ops import _cuda  # noqa: E402
+from lameness_tpu_torch.ops import attention as at  # noqa: E402
+from lameness_tpu_torch.ops import sam_attention as sa  # noqa: E402
+
+EMU = _cuda.CSRC / "emulate"
+OUT = _cuda.BUILD_DIR / "emulate"
+# |kernel - plain| <= atol + rtol·|plain|, as on the card
+TOL = {torch.float32: (2e-5, 0.0), torch.bfloat16: (1e-2, 1.6e-2)}
+
+
+def build() -> ctypes.CDLL:
+    """g++ each source (one process per file, all together) and link."""
+    src = OUT / "src"
+    shutil.rmtree(OUT, ignore_errors=True)
+    src.mkdir(parents=True)
+    for f in _cuda.CSRC.glob("*.cuh"):
+        shutil.copy(f, src / f.name)
+    shutil.copy(EMU / "mma.cuh", src / "mma.cuh")     # the emulated twin
+    units = [EMU / "shared.cpp"]
+    for name in _cuda.SOURCES:
+        units.append(src / f"{name}.cpp")
+        shutil.copy(_cuda.CSRC / f"{name}.cu", units[-1])
+    flags = ["-std=c++20", "-O2", "-fPIC", f"-I{EMU}", f"-I{src}"]
+    procs = [subprocess.Popen(["g++", *flags, "-c", str(u), "-o",
+                               str(OUT / f"{u.stem}.o")])
+             for u in units]
+    if any(p.wait() for p in procs):
+        raise SystemExit("emulation build failed")
+    lib = OUT / "libemulated.so"
+    subprocess.run(["g++", "-shared", "-o", str(lib),
+                    *(str(OUT / f"{u.stem}.o") for u in units), "-lpthread"],
+                   check=True)
+    return ctypes.CDLL(str(lib))
+
+
+def call(lib, kernel, args) -> None:
+    fn = getattr(lib, kernel.symbol)
+    fn.argtypes, fn.restype = kernel.argtypes, ctypes.c_int
+    err = fn(*args, None)
+    if err:
+        raise RuntimeError(f"{kernel.symbol}: error {err}")
+
+
+def main() -> int:
+    lib = build()
+    gen = torch.Generator().manual_seed(0)
+
+    def rnd(*shape, dtype):
+        return torch.randn(*shape, generator=gen).to(dtype)
+    ok = True
+
+    def report(name, dtype, shape, out, ref):
+        nonlocal ok
+        atol, rtol = TOL[dtype]
+        err = (out.float() - ref.float()).abs()
+        good = bool((err <= atol + rtol * ref.float().abs()).all())
+        ok &= good
+        print(f"{name} {str(dtype):14s} {shape}  max_abs_err "
+              f"{float(err.max()):.3e}  {'ok' if good else 'FAIL'}")
+
+    for dtype in (torch.bfloat16, torch.float32):
+        # K1: head-last views, S not a multiple of the 64-row blocks
+        for b, h, s, d in ((1, 2, 70, 32), (2, 1, 33, 64), (1, 1, 5, 80),
+                           (1, 1, 257, 64), (1, 1, 130, 128)):
+            qkv = rnd(b, s, 3, h, d, dtype=dtype)
+            q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+            out = torch.empty(b, s, h, d, dtype=dtype).transpose(1, 2)
+            call(lib, at.KERNEL, at.attention_args(q, k, v, out, d ** -0.5))
+            report("K1", dtype, (b, h, s, d), out,
+                   at.reference_attention(q, k, v))
+        # K2: windows with pad tokens (unmasked), fused-qkv slices
+        for bw, win, nh, hd in ((2, 7, 2, 32), (1, 14, 2, 64)):
+            qkv = rnd(bw, win * win, 3, nh, hd, dtype=dtype)
+            q4, k4, v4 = qkv.unbind(2)
+            rh4, rw4 = sa.project_rel_tables_hl(
+                q4, rnd(2 * win - 1, hd, dtype=dtype),
+                rnd(2 * win - 1, hd, dtype=dtype), win)
+            out = torch.empty(bw, win * win, nh * hd, dtype=dtype)
+            call(lib, sa.WINDOW_KERNEL,
+                 sa.window_args(q4, k4, v4, rh4, rw4, out))
+            report("K2", dtype, (bw, win, nh, hd), out,
+                   sa.window_attention_reference(q4, k4, v4, rh4, rw4))
+        # K3: rectangular grids (per-score bias gather) and GW = 64 (the
+        # key tile is one grid row: rel_w in registers)
+        for bh, gh, gw, d in ((2, 6, 11, 32), (1, 12, 16, 64),
+                              (1, 3, 64, 32), (2, 2, 64, 64)):
+            q, k, v = (rnd(bh, gh * gw, d, dtype=dtype) for _ in range(3))
+            rh, rw = sa.project_rel_tables(
+                q, rnd(2 * gh - 1, d, dtype=dtype),
+                rnd(2 * gw - 1, d, dtype=dtype), gh, gw)
+            rh, rw = rh.contiguous(), rw.contiguous()
+            out = torch.empty_like(q)
+            call(lib, sa.GLOBAL_KERNEL,
+                 sa.global_args(q, k, v, rh, rw, out))
+            report("K3", dtype, (bh, gh, gw, d), out,
+                   sa.sam_attention_reference(q, k, v, rh, rw))
+    print("emulated kernels:", "ok" if ok else "FAILED")
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

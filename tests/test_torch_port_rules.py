@@ -1,0 +1,70 @@
+"""Rules of the PyTorch/CUDA port (``lameness_tpu_torch``, ``chip_smoke.py``):
+no JAX and nothing of the JAX package, the card by default, and the
+PERF.md kernel table."""
+import ast
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "lameness_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "scripts" / "emulate_cuda_kernels.py"]
+
+
+def test_import_leaves_jax_out():
+    code = ("import sys, lameness_tpu_torch.pipeline.engine, "
+            "lameness_tpu_torch.weights; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'flax', 'lameness_tpu')]; "
+            "print(bad); sys.exit(1 if bad else 0)")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
+def test_no_jax_imports(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "flax", "lameness_tpu"), \
+                f"{path.name}:{node.lineno} imports {name}"
+
+
+def test_engine_needs_cuda_unless_cpu(monkeypatch):
+    from lameness_tpu_torch.models.tcn import TCN
+    from lameness_tpu_torch.pipeline.engine import EngineSpec, LamenessEngine
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LamenessEngine(spec=EngineSpec(use_sam_model=False))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TCN()
+    eng = LamenessEngine(spec=EngineSpec(use_sam_model=False),
+                         device="cpu", init_models=False)
+    assert eng.device.type == "cpu"
+
+
+def test_perf_md_lists_all_nine_kernels():
+    text = (ROOT / "PERF.md").read_text()
+    for kid, where in [("K1", "ops/attention.py:50"),
+                       ("K2", "ops/sam_attention.py:586"),
+                       ("K3", "ops/sam_attention.py:216"),
+                       ("K4", "sam_attention.py:32"),
+                       ("K5", "sam_attention.py:137"),
+                       ("K6", "sam_attention.py:492"),
+                       ("K7", "sam_attention.py:309"),
+                       ("K8", "sam_attention.py:398"),
+                       ("K9", "sam_attention.py:688")]:
+        assert re.search(rf"\|\s*{kid}\s*\|[^\n]*{re.escape(where)}", text), \
+            kid
