@@ -6,23 +6,28 @@ Run from the repository root:  python3 chip_smoke.py
 Phases, each failing loudly (no exception is swallowed):
   1. setup: card name and power limit, versions, TF32 off, build the
      kernels from csrc/ with nvcc (one process per source, in parallel);
-  2. kernels: K1-K3 against their plain PyTorch versions at the engine's
+  2. kernels: K1-K9 against their plain PyTorch versions at the engine's
      shapes, in float32 and bfloat16, with device times (torch.profiler)
      beside the bound, the plain version's and a PyTorch library call's as
      yardsticks;
   3. engine: a small engine on the card against the same engine's plain
-     path on the CPU (same weights, same frames), then the full-width
-     default engine (YOLOv8-n 640, SAM ViT-B 1024², DINOv2 ViT-B/14 224,
-     TCN + GaitTransformer) on B seeded synthetic 720p clips of 125 frames,
-     with each kernel's launch count over that run, end-to-end and stage
-     times, and a torch.profiler breakdown of one batch (device busy
-     share, device time by kernel and by launching op).
+     path on the CPU (same weights, same frames), under each kernel
+     selection; then the full-width engine (YOLOv8-n 640, SAM ViT-B 1024²,
+     DINOv2 ViT-B/14 224, TCN + GaitTransformer) on B seeded synthetic 720p
+     clips of 125 frames, by default (K1, K2, K3) and under the switches
+     LAMENESS_WIN_KERNEL / LAMENESS_GLB_KERNEL = v1/v1 (K7, K4), v2/v2 (K8,
+     K5) and v5/v3 (K9, K6).  Each run reports its launch counts (held
+     against the expected ones), end-to-end times and a torch.profiler
+     breakdown of one batch (device busy share, device time by kernel and
+     by launching op); the default run its stage times too, and each other
+     selection its agreement with the default run (masks, SAM embeddings).
 The line before the last is the kernel record (JSON); the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 without a CUDA device or outside the repository.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -41,6 +46,32 @@ SEED = 0
 # softmax weights to bf16 before PV, the kernel before normalising them
 # (on the tensor cores), the plain version after (as the JAX kernels do).
 TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 1.6e-2)}
+
+# The kernel selections of phase 3: the switches set, and the launches
+# expected in one process_clip_batch of B = 2 (every other kernel 0): 12 DINO
+# layers; 8 windowed SAM layers, layers 0-1 split into content and shared pad
+# windows (10); 4 global layers.
+SWITCHES = ("LAMENESS_WIN_KERNEL", "LAMENESS_GLB_KERNEL")
+SELECTIONS = (
+    ("default", {}, {"K1": 12, "K2": 10, "K3": 4}),
+    ("WIN=v1 GLB=v1", {"LAMENESS_WIN_KERNEL": "v1",
+                       "LAMENESS_GLB_KERNEL": "v1"},
+     {"K1": 12, "K7": 10, "K4": 4}),
+    ("WIN=v2 GLB=v2", {"LAMENESS_WIN_KERNEL": "v2",
+                       "LAMENESS_GLB_KERNEL": "v2"},
+     {"K1": 12, "K8": 10, "K5": 4}),
+    ("WIN=v5 GLB=v3", {"LAMENESS_WIN_KERNEL": "v5",
+                       "LAMENESS_GLB_KERNEL": "v3"},
+     {"K1": 12, "K9": 10, "K6": 4}),
+)
+# A selection's SAM image embeddings against the default's, as
+# ||a - b||_2 / ||b||_2 over the batch.  Both run in bf16 (eps 2^-8) and
+# round in different places: the augmented kernels round the projected
+# tables to bf16 before they enter a score, and every kernel's output is
+# rounded to bf16 (kernel-level agreement is within 1.6e-2 relative, TOL);
+# 12 encoder layers carry the differences on.  A wrong bias or a wrong
+# head would move the embeddings by O(1).
+EMB_RTOL = 5e-2
 
 # H100 SXM dense peaks (NVIDIA data sheet) for the bound of each kernel
 PEAK_BYTES_S = 3.35e12
@@ -114,12 +145,13 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int, tries: int = 3) -> float:
+def device_ms(fn, reps: int, only: str = "", tries: int = 3) -> float:
     """Device ms per call: the summed duration of every kernel and copy
     that ``reps`` calls put on the card (torch.profiler), without the host
-    gaps between launches.  The profiler has been seen to record no device
-    event in a session now and then: it is asked again, and after ``tries``
-    empty sessions the CUDA-event time per call is used, with a note."""
+    gaps between launches; with ``only``, of the kernels whose name holds
+    it.  The profiler has been seen to record no device event in a session
+    now and then: it is asked again, and after ``tries`` empty sessions the
+    CUDA-event time per call of the whole call is used, with a note."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -130,7 +162,8 @@ def device_ms(fn, reps: int, tries: int = 3) -> float:
                 fn()
             torch.cuda.synchronize()
         busy_us = sum(e.self_device_time_total for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA)
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and only in e.key)
         if busy_us > 0:
             return busy_us / reps / 1e3
     log("  (torch.profiler recorded no device time: CUDA-event time per "
@@ -146,14 +179,41 @@ def agree(name, dtype, out, ref):
     ok = bool(torch.isfinite(out.float()).all()) and bool(
         (err <= atol + rtol * ref.float().abs()).all())
     mx = float(err.max())
-    log(f"  {name:22s} {dtype:8s} max_abs_err {mx:.3e}  tol atol {atol:g} "
+    log(f"  {name:24s} {dtype:8s} max_abs_err {mx:.3e}  tol atol {atol:g} "
         f"rtol {rtol:g}  {'ok' if ok else 'FAIL'}")
     return mx, ok
 
 
-def kernel_inputs(kernel: str, dtype, batch: int, gen):
+# id, launch-count record (ops/_cuda.py KERNELS), entry, operand layout,
+# source, and the TPU kernel it replaces (lameness_tpu/ops/...)
+KERNEL_TABLE = (
+    ("K1", "attention", "flash_attention", "dino", "attention.cu",
+     "attention.py:50"),
+    ("K2", "sam_window_attention_v3", "sam_window_attention_v3", "window_hl",
+     "sam_window_attention.cu", "sam_attention.py:586"),
+    ("K3", "sam_global_attention_v4", "sam_global_attention_v4", "global",
+     "sam_global_attention.cu", "sam_attention.py:216"),
+    ("K4", "sam_global_attention_v1", "sam_global_attention_v1", "global",
+     "sam_global_attention_v1.cu", "sam_attention.py:32"),
+    ("K5", "sam_global_attention_v2", "sam_global_attention_v2", "global",
+     "sam_global_attention_v2.cu", "sam_attention.py:137"),
+    ("K6", "sam_global_attention_v3", "sam_global_attention_v3", "global_hl",
+     "sam_global_attention_v3.cu", "sam_attention.py:492"),
+    ("K7", "sam_window_attention_v1", "sam_window_attention_v1", "window_hm",
+     "sam_window_attention_v1.cu", "sam_attention.py:309"),
+    ("K8", "sam_window_attention_v2", "sam_window_attention_v2", "window_hm",
+     "sam_window_attention_v2.cu", "sam_attention.py:398"),
+    ("K9", "sam_window_attention_v5", "sam_window_attention_v5", "window_hl",
+     "sam_window_attention_v5.cu", "sam_attention.py:688"),
+)
+
+
+def kernel_inputs(layout: str, dtype, batch: int, gen):
     """Inputs at the shapes the full-width engine gives each kernel for a
-    batch of ``batch`` clips (EngineSpec() defaults)."""
+    batch of ``batch`` clips (EngineSpec() defaults): B·5 DINO frames,
+    B·11 SAM frames of 25 windows (14x14, 12 heads of 64) and of one 64x64
+    global grid.  q, k, v are views of a fused qkv tensor where the engine
+    reads them so."""
     import torch
     from lameness_tpu_torch.ops import sam_attention as sa
     dev = torch.device("cuda")
@@ -161,149 +221,155 @@ def kernel_inputs(kernel: str, dtype, batch: int, gen):
     def rnd(*shape, std=1.0):
         return (torch.randn(*shape, generator=gen, device=dev) * std
                 ).to(dtype)
-    if kernel == "attention":                 # DINO: B·5 frames, 12 heads
+    if layout == "dino":
         n_img, s, h, d = batch * 5, 257, 12, 64
-        q, k, v = (rnd(n_img, s, h, d).transpose(1, 2) for _ in range(3))
-        return (q, k, v)
-    if kernel == "sam_window_attention":      # B·11 frames x 25 windows
+        return tuple(rnd(n_img, s, h, d).transpose(1, 2) for _ in range(3))
+    if layout in ("window_hl", "window_hm"):
         bw, n, h, d, win = batch * 11 * 25, 196, 12, 64, 14
-        qkv = rnd(bw, n, 3, h, d)
-        q4, k4, v4 = qkv.unbind(2)
-        rh4, rw4 = sa.project_rel_tables_hl(
-            q4, rnd(2 * win - 1, d, std=0.1), rnd(2 * win - 1, d, std=0.1),
-            win)
-        return (q4, k4, v4, rh4, rw4)
-    bh, g, d = batch * 11 * 12, 64, 64        # global: B·11 frames x 12
-    q, k, v = (rnd(bh, g * g, d) for _ in range(3))
-    rel_h, rel_w = sa.project_rel_tables(
-        q, rnd(2 * g - 1, d, std=0.1), rnd(2 * g - 1, d, std=0.1), g)
-    return (q, k, v, rel_h, rel_w)
+        q4, k4, v4 = rnd(bw, n, 3, h, d).unbind(2)
+        tables = (rnd(2 * win - 1, d, std=0.1), rnd(2 * win - 1, d, std=0.1))
+        if layout == "window_hl":
+            return (q4, k4, v4) + sa.project_rel_tables_hl(q4, *tables, win)
+        q, k, v = (t.transpose(1, 2) for t in (q4, k4, v4))
+        rh, rw = sa.project_rel_tables(q.reshape(bw * h, n, d), *tables, win)
+        return (q, k, v) + tuple(t.reshape(bw, h, n, win) for t in (rh, rw))
+    g, d = 64, 64
+    tables = (rnd(2 * g - 1, d, std=0.1), rnd(2 * g - 1, d, std=0.1))
+    if layout == "global_hl":
+        q4, k4, v4 = rnd(batch * 11, g * g, 3, 12, d).unbind(2)
+        return (q4, k4, v4) + sa.project_rel_tables_hl(q4, *tables, g)
+    q, k, v = (rnd(batch * 11 * 12, g * g, d) for _ in range(3))
+    return (q, k, v) + sa.project_rel_tables(q, *tables, g)
 
 
-def kernel_work(kernel: str, args):
-    """(flops, bytes) the function needs for these inputs: QK and PV
-    products, each input read once and the output written once."""
+def kernel_work(layout: str, args):
+    """(flops, bytes) of the function, whatever computes it: QK and PV
+    products over the head dim, each input (q, k, v, the projected tables)
+    read once and the output written once.  K3-K6 share one count, and K2,
+    K7, K8, K9 another: the augmented width is not counted."""
     q = args[0]
-    el = q.element_size()
-    if kernel == "attention":
-        b, h, s, d = q.shape
-        heads, nq, nk = b * h, s, s
-        extra = 0
-    elif kernel == "sam_window_attention":
-        bw, n, h, d = q.shape
-        heads, nq, nk = bw * h, n, n
-        extra = 2 * args[3].numel() * el
+    if layout in ("window_hl", "global_hl"):
+        b, n, h, d = q.shape
+    elif layout == "global":
+        (b, n, d), h = q.shape, 1
     else:
-        heads, nq, d = q.shape
-        nk = nq
-        extra = (args[3].numel() + args[4].numel()) * el
-    flops = 4.0 * heads * nq * nk * d
-    nbytes = 4.0 * heads * nq * d * el + extra
-    return flops, nbytes
+        b, h, n, d = q.shape
+    el = q.element_size()
+    extra = sum(t.numel() for t in args[3:]) * el
+    return 4.0 * b * h * n * n * d, 4.0 * b * h * n * d * el + extra
 
 
-def plain_and_library(kernel: str, args, library: bool):
-    """The plain version (CUDA tensors, so called directly), or with
-    ``library`` one PyTorch call computing the same function: SDPA, given
-    the materialised bias for K2/K3 (a yardstick only: the port never
-    calls it).  The K3 plain version is chunked over heads to bound its
-    f32 scores."""
+def plain_version(kid: str, args):
+    """The plain version on these inputs (the augmented operands built here,
+    outside the timed call).  The global ones run in chunks of 24 heads to
+    bound their f32 scores."""
     import torch
-    import torch.nn.functional as F
     from lameness_tpu_torch.ops import attention as at
     from lameness_tpu_torch.ops import sam_attention as sa
-    if kernel == "attention":
-        q, k, v = args
-        if library:
-            return lambda: F.scaled_dot_product_attention(q, k, v)
-        return lambda: at.reference_attention(q, k, v)
-    if kernel == "sam_window_attention":
-        q4, k4, v4, rh4, rw4 = args
-        bw, n, h, d = q4.shape
-        if not library:
-            return lambda: sa.window_attention_reference(q4, k4, v4, rh4, rw4)
-        qh, kh, vh = (t.transpose(1, 2) for t in (q4, k4, v4))
-        bias = (rh4.transpose(1, 2)[..., :, None]
-                + rw4.transpose(1, 2)[..., None, :]).reshape(bw, h, n, n)
-        return lambda: F.scaled_dot_product_attention(qh, kh, vh,
-                                                      attn_mask=bias)
-    q, k, v, rel_h, rel_w = args
-    bh, n, d = q.shape
-    chunk = 24
+    ref = sa.augmented_attention_reference
 
-    def plain():
-        return torch.cat([sa.sam_attention_reference(
-            q[i:i + chunk], k[i:i + chunk], v[i:i + chunk],
-            rel_h[i:i + chunk], rel_w[i:i + chunk])
-            for i in range(0, bh, chunk)])
-    if not library:
-        return plain
-    bias = (rel_h[..., :, None] + rel_w[..., None, :]).reshape(bh, 1, n, n)
-
-    def library():
-        return F.scaled_dot_product_attention(
-            q[:, None], k[:, None], v[:, None], attn_mask=bias)[:, 0]
-    return library
+    def chunked(fn, tensors, size):
+        return lambda: torch.cat([fn(*(t[i:i + size] for t in tensors))
+                                  for i in range(0, tensors[0].shape[0],
+                                                 size)])
+    if kid == "K1":
+        return lambda: at.reference_attention(*args)
+    if kid == "K2":
+        return lambda: sa.window_attention_reference(*args)
+    if kid in ("K3", "K4"):
+        return chunked(sa.sam_attention_reference, args, 24)
+    if kid == "K5":
+        qa, ka, rw = sa.global_v2_operands(args[0], args[1], *args[3:])
+        return chunked(ref, (qa, ka, args[2], rw), 24)
+    if kid == "K7":
+        return lambda: sa.window_attention_hm_reference(*args)
+    if kid == "K8":
+        qa, ka = sa.window_v2_operands(args[0], args[1], *args[3:])
+        return lambda: ref(qa, ka, args[2])
+    q4, k4, v4, rh4, rw4 = args
+    b, n, h, d = q4.shape
+    if kid == "K6":
+        qa, ka, rw = sa.global_v3_operands(q4, k4, rh4, rw4)
+        return chunked(lambda *t: ref(*(x.transpose(1, 2) for x in t)
+                                      ).transpose(1, 2).reshape(-1, n, h * d),
+                       (qa, ka, v4, rw), 2)
+    qa, ka = sa.window_v5_operands(q4, k4, rh4, rw4)              # K9
+    return lambda: ref(*(x.transpose(1, 2) for x in (qa, ka, v4)),
+                       fold=True).transpose(1, 2).reshape(b, n, h * d)
 
 
-KERNEL_META = {
-    "attention": ("lameness_tpu_torch/csrc/attention.cu",
-                  "lameness_tpu/ops/attention.py:50"),
-    "sam_window_attention": ("lameness_tpu_torch/csrc/sam_window_attention.cu",
-                             "lameness_tpu/ops/sam_attention.py:586"),
-    "sam_global_attention": ("lameness_tpu_torch/csrc/sam_global_attention.cu",
-                             "lameness_tpu/ops/sam_attention.py:216"),
-}
+def library_call(layout: str, args):
+    """One PyTorch call computing the same function: SDPA over (heads, N, ·)
+    views, given the bias materialised from the tables for the SAM kernels
+    (a yardstick only: the port never calls it)."""
+    import torch.nn.functional as F
+    q, k, v = args[:3]
+    bias = None
+    if layout in ("window_hl", "global_hl"):
+        q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+        rh, rw = (t.transpose(1, 2) for t in args[3:])
+    elif layout == "window_hm":
+        rh, rw = args[3:]
+    elif layout == "global":
+        q, k, v = (t[:, None] for t in (q, k, v))
+        rh, rw = (t.reshape(t.shape[0], 1, -1, t.shape[-1]) for t in args[3:])
+    if layout != "dino":
+        b, h, n = q.shape[:3]
+        bias = (rh[..., :, None] + rw[..., None, :]).reshape(b, h, n, n)
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias)
 
 
 def check_kernels(batch: int = BATCH):
-    """Phase 2: returns {kernel: record} and whether every check passed."""
+    """Phase 2: returns {id: record} and whether every check passed."""
     import torch
     from lameness_tpu_torch.ops import attention as at
     from lameness_tpu_torch.ops import sam_attention as sa
-    wrappers = {"attention": at.flash_attention,
-                "sam_window_attention": sa.sam_window_attention_v3,
-                "sam_global_attention": sa.sam_global_attention}
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     records, all_ok = {}, True
-    for name, fn in wrappers.items():
-        rec = {"name": name, "route": "cuda", "source": KERNEL_META[name][0],
-               "replaces": KERNEL_META[name][1]}
+    for kid, name, entry, layout, source, replaces in KERNEL_TABLE:
+        fn = getattr(at if kid == "K1" else sa, entry)
+        rec = {"name": name, "route": "cuda",
+               "source": f"lameness_tpu_torch/csrc/{source}",
+               "replaces": f"lameness_tpu/ops/{replaces}"}
         for dtype_name in ("float32", "bfloat16"):
             dtype = getattr(torch, dtype_name)
-            args = kernel_inputs(name, dtype, batch, gen)
+            args = kernel_inputs(layout, dtype, batch, gen)
             out = fn(*args)
-            plain = plain_and_library(name, args, library=False)
+            plain = plain_version(kid, args)
             ref = plain()
             torch.cuda.synchronize()
-            err, ok = agree(name, dtype_name, out, ref)
+            err, ok = agree(f"{kid} {entry}", dtype_name, out, ref)
             all_ok &= ok
-            rec[f"max_abs_err_{dtype_name}"] = err
             if dtype_name != "bfloat16":
+                del args, out, ref, plain
                 continue
-            # times at the engine's working dtype (bf16 under the policy)
-            reps = 20 if name != "sam_global_attention" else 5
+            # times at the engine's working dtype (bf16 under the policy):
+            # the kernel's own device time inside its entry, and the entry's
+            # (augmented operands built) beside it
+            reps = 5 if layout.startswith("global") else 20
             rec["max_abs_err"] = err
-            rec["ms"] = device_ms(lambda: fn(*args), reps)
+            rec["ms"] = device_ms(lambda: fn(*args), reps, only="lameness::")
+            rec["entry_ms"] = device_ms(lambda: fn(*args), reps)
             rec["call_ms"] = cuda_ms(lambda: fn(*args), reps)
             rec["plain_ms"] = device_ms(plain, 3)
-            library = plain_and_library(name, args, library=True)
+            library = library_call(layout, args)
             rec["library_ms"] = device_ms(library, 3)
             del library
-            flops, nbytes = kernel_work(name, args)
+            flops, nbytes = kernel_work(layout, args)
             t_bytes = nbytes / PEAK_BYTES_S * 1e3
             t_ops = flops / PEAK_FLOPS_S[dtype_name] * 1e3
             rec["bound_ms"] = max(t_bytes, t_ops)
             rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-            rec["shape"] = [list(a.shape) for a in args]
-            log(f"  {name:22s} device ms {rec['ms']:.4f} (per call "
-                f"{rec['call_ms']:.4f})  plain {rec['plain_ms']:.4f}  library "
-                f"{rec['library_ms']:.4f}  bound {rec['bound_ms']:.4f}"
-                f" ({rec['bound_by']}; {flops / 1e9:.2f} GFLOP, "
-                f"{nbytes / 1e6:.1f} MB)")
-            del args, out, ref
-            torch.cuda.empty_cache()
-        records[name] = rec
+            log(f"  {kid} {entry:24s} device ms {rec['ms']:.4f} (entry "
+                f"{rec['entry_ms']:.4f}, per call {rec['call_ms']:.4f})  "
+                f"plain {rec['plain_ms']:.4f}  library "
+                f"{rec['library_ms']:.4f}  bound {rec['bound_ms']:.4f} "
+                f"({rec['bound_by']}; {flops / 1e9:.2f} GFLOP, "
+                f"{nbytes / 1e6:.1f} MB)  shapes "
+                f"{[tuple(a.shape) for a in args]}")
+            del args, out, ref, plain
+        torch.cuda.empty_cache()
+        records[kid] = rec
     return records, all_ok
 
 
@@ -331,8 +397,11 @@ def check_small_engine(devices=("cpu", "cuda")):
     from lameness_tpu_torch.weights import seeded_state_dict
     rng = np.random.default_rng(SEED)
     frames = rng.integers(0, 256, (2, 15, 90, 160, 3), dtype=np.uint8)
+    from lameness_tpu_torch.ops._cuda import KERNELS
     outs = {}
     for dev in devices:
+        for k in KERNELS.values():
+            k.launches = 0
         gen = torch.Generator().manual_seed(SEED)
         eng = make_test_engine(device=dev, with_sam=True, generator=gen)
         # dropout 0: the CPU and CUDA generators draw different masks
@@ -341,6 +410,8 @@ def check_small_engine(devices=("cpu", "cuda")):
         eng.load_state_dicts({"tcn": seeded_state_dict(eng.tcn, gen),
                               "gait": seeded_state_dict(eng.gait, gen)})
         outs[dev] = dict(leaves(eng.process_clip_batch(frames)))
+    log("small engine launches: " + json.dumps(
+        {name: k.launches for name, k in KERNELS.items() if k.launches}))
     cpu, gpu = outs[devices[0]], outs[devices[1]]
     ok = set(cpu) == set(gpu)
     worst = {}
@@ -463,11 +534,50 @@ def profile_batch(eng, frames, top: int = 12) -> None:
             f"{e.key[:90]}")
 
 
+@contextlib.contextmanager
+def switches(env):
+    """The kernel switches set to ``env`` (the others unset), restored
+    afterwards."""
+    saved = {k: os.environ.get(k) for k in SWITCHES}
+    try:
+        for k in SWITCHES:
+            os.environ.pop(k, None)
+        os.environ.update(env)
+        yield
+    finally:
+        for k, val in saved.items():
+            if val is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = val
+
+
+def counted_run(eng, frames):
+    """One process_clip_batch with every launch count from 0: the counts,
+    the outputs and the SAM image embeddings of the batch (copied to the
+    host in this run only)."""
+    import torch
+    from lameness_tpu_torch.ops._cuda import KERNELS
+    captured = []
+    hook = eng.sam.vision_encoder.register_forward_hook(
+        lambda mod, inp, out: captured.append(out.float().cpu()))
+    for k in KERNELS.values():
+        k.launches = 0
+    out = eng.process_clip_batch(
+        frames, generator=torch.Generator(device="cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    launches = {name: k.launches for name, k in KERNELS.items()}
+    hook.remove()
+    return launches, out, captured[0]
+
+
 def run_engine(batch: int = BATCH):
-    """Full-width default engine on ``batch`` synthetic 720p clips."""
+    """The full-width default engine on ``batch`` synthetic 720p clips, then
+    the same engine (same weights, same frames) under each other kernel
+    selection.  Returns the launches of each selection and whether every
+    check passed."""
     import torch
     from lameness_tpu_torch.core.config import Config
-    from lameness_tpu_torch.ops._cuda import KERNELS
     from lameness_tpu_torch.pipeline.engine import EngineSpec, LamenessEngine
     gen = torch.Generator().manual_seed(SEED)
     t0 = time.perf_counter()
@@ -476,45 +586,55 @@ def run_engine(batch: int = BATCH):
     log(f"engine init {time.perf_counter() - t0:.2f} s  dtype "
         f"{eng.spec.dtype}  precision {json.dumps(eng.precision)}")
     t0 = time.perf_counter()
-    warm = eng.warmup(batch=batch)
+    with switches({}):
+        warm = eng.warmup(batch=batch)
     log(f"warmup {time.perf_counter() - t0:.2f} s  {json.dumps(warm)}")
     s = eng.spec
     rng = np.random.default_rng(SEED)
     frames = rng.integers(0, 256, (batch, s.clip_frames, s.frame_height,
                                    s.frame_width, 3), dtype=np.uint8)
-
-    # the counted run: every launch count from 0, one call of the entry point
-    for k in KERNELS.values():
-        k.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    out = eng.process_clip_batch(
-        frames, generator=torch.Generator(device="cuda").manual_seed(SEED))
-    torch.cuda.synchronize()
-    launches = {name: k.launches for name, k in KERNELS.items()}
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    log(f"launches in one process_clip_batch (B={batch}): "
-        f"{json.dumps(launches)}")
-
-    e2e = []
-    for _ in range(REPEATS):
-        t0 = time.perf_counter()
-        eng.process_clip_batch(frames)
-        torch.cuda.synchronize()
-        e2e.append(time.perf_counter() - t0)
-    stages = time_stages(eng, frames, REPEATS)
-    log("engine e2e s/batch " + json.dumps([round(t, 4) for t in e2e])
-        + f"  clips/s {batch / float(np.median(e2e)):.3f}  peak mem "
-        f"{peak_gb:.2f} GB")
-    log("stage ms (median of " + str(REPEATS) + "): "
-        + json.dumps({k: round(v, 3) for k, v in stages.items()}))
-    profile_batch(eng, frames)
-
-    ok = check_outputs(out, s, batch)
-    for name, n in launches.items():
-        if n <= 0:
-            log(f"kernel {name} was not launched on the main path")
+    record = {kid: name for kid, name, *_ in KERNEL_TABLE}
+    ok, by_selection, ref = True, {}, None
+    for sel, env, expected in SELECTIONS:
+        with switches(env):
+            torch.cuda.reset_peak_memory_stats()
+            launches, out, emb = counted_run(eng, frames)
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            e2e = []
+            for _ in range(REPEATS):
+                t0 = time.perf_counter()
+                eng.process_clip_batch(frames)
+                torch.cuda.synchronize()
+                e2e.append(time.perf_counter() - t0)
+            log(f"== engine, {sel}: launches in one process_clip_batch "
+                f"(B={batch}) {json.dumps(launches)}")
+            log("engine e2e s/batch " + json.dumps([round(t, 4) for t in e2e])
+                + f"  clips/s {batch / float(np.median(e2e)):.3f}  peak mem "
+                f"{peak_gb:.2f} GB")
+            if ref is None:
+                stages = time_stages(eng, frames, REPEATS)
+                log("stage ms (median of " + str(REPEATS) + "): "
+                    + json.dumps({k: round(v, 3) for k, v in stages.items()}))
+            profile_batch(eng, frames, top=12 if ref is None else 8)
+        want = {record[kid]: expected.get(kid, 0) for kid in record}
+        if launches != want:
+            log(f"launches {launches} != expected {want}")
             ok = False
-    return launches, ok
+        ok &= check_outputs(out, s, batch)
+        by_selection[sel] = launches
+        if ref is None:
+            ref = out, emb
+            continue
+        agreement = float((out["masks"] == ref[0]["masks"]).mean())
+        rel = float(torch.linalg.vector_norm(emb - ref[1])
+                    / torch.linalg.vector_norm(ref[1]))
+        good = agreement >= 0.995 and rel <= EMB_RTOL
+        ok &= good
+        log(f"{sel} vs default: mask agreement {agreement:.5f} (gate "
+            f">= 0.995); SAM embeddings relative L2 error {rel:.3e} (gate "
+            f"<= {EMB_RTOL:g}), max abs {float((emb - ref[1]).abs().max()):.3e}"
+            f"  {'ok' if good else 'FAIL'}")
+    return by_selection, ok
 
 
 def main() -> int:
@@ -535,10 +655,16 @@ def main() -> int:
     log("== phase 2: kernels against their plain versions")
     records, ok_k = check_kernels()
     log("== phase 3: engine")
-    ok_small = check_small_engine()
+    ok_small = True
+    for sel, env, _ in SELECTIONS:
+        with switches(env):
+            log(f"small engine, {sel}:")
+            ok_small &= check_small_engine()
     launches, ok_e = run_engine()
-    for name, rec in records.items():
-        rec["launches"] = launches.get(name, 0)
+    for kid, rec in records.items():
+        # each kernel's count on its own path (K1 runs on every one)
+        rec["launches"] = max(counts[rec["name"]]
+                              for counts in launches.values())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kern = {"kernels": [{k: rec[k] for k in keys}

@@ -1,16 +1,36 @@
-// One online-softmax attention routine, shared by the port's three kernels:
-//   K1 attention.cu            softmax(q k^T scale) v                (DINO)
-//   K2 sam_window_attention.cu + decomposed rel-pos bias, 14x14 windows
-//   K3 sam_global_attention.cu + decomposed rel-pos bias, 64x64 grid
+// One online-softmax attention routine, shared by the port's nine kernels:
+//   K1 attention.cu               softmax(q k^T scale) v               (DINO)
+//   K2 sam_window_attention.cu    + decomposed rel-pos bias, 14x14 windows,
+//                                 head-last views of the qkv output
+//   K7 sam_window_attention_v1.cu the same function, head-major windows
+//   K3 sam_global_attention.cu    + decomposed rel-pos bias, 64x64 grid
+//   K4 sam_global_attention_v1.cu the same function and layout
+//   K5 sam_global_attention_v2.cu augmented operands: [q*scale | rh] against
+//                                 [k | spread^T], + rw[t, j % gw]; head-major
+//   K6 sam_global_attention_v3.cu the same, head-last
+//   K8 sam_window_attention_v2.cu augmented operands: [q*scale | rh | rw]
+//                                 against [k | spread^T | mod^T]; head-major
+//   K9 sam_window_attention_v5.cu the same, head-last
 // Each .cu keeps its own C entry point; this header holds the device code and
-// the host-side dispatch over dtype and head dim.
+// the host-side dispatch over dtype and widths.
+//
+// Widths: QK^T contracts over DQK columns and PV over DV.  K1-K4 and K7 have
+// DQK == DV == the head dim.  The augmented kernels (K5, K6, K8, K9) read
+// qk_width columns of q and k (the augmented width, a multiple of 8) and
+// contract over the next instantiated multiple of 16; the columns past
+// qk_width read as zeros in shared memory, so padding never adds to a score.
+//
+// Bias: RH adds rh[t, j / gw], RW adds rw[t, j % gw] to every score, read
+// from the q-projected tables and never materialised.  K2-K4 and K7 take
+// both; K5 and K6 only RW (rh rides in the augmented contraction); K1, K8
+// and K9 none (K8 and K9 carry both tables in the contraction).
 //
 // Common to both dtypes:
 //   * a block owns 64 query rows of one (batch, head) and walks the keys in
 //     tiles with an online softmax, so no (N, N) score or bias tensor ever
-//     reaches device memory; all accumulation is f32;
-//   * the decomposed bias bias[t, j] = rh[t, j / gw] + rw[t, j % gw] is read
-//     from the q-projected tables per score element, never materialised;
+//     reaches device memory; all accumulation is f32.  The softmax
+//     denominator is applied after PV (the plain versions of K2-K8 divide
+//     before PV, as the TPU kernels do; inside the bf16 tolerance);
 //   * keys past n_k are masked to -inf here, so callers pad nothing;
 //   * tensors are addressed through strides (batch index b splits into
 //     b / heads and b % heads), so head-last views of a fused qkv output are
@@ -23,13 +43,13 @@
 //   memory by cp.async; QK^T and PV on the tensor cores (mma.sync m16n8k16,
 //   bf16 in, f32 accumulate), P kept in registers as the A operand of PV;
 //   the bias tables of the block's rows staged once in shared memory (on
-//   the 64x64 grid the rw part then lives in registers: kBiasRowTile); the
+//   the 64x64 grid the rw part then lives in registers: ROW_TILE); the
 //   softmax in the exp2 domain, row max and sum across the 4 lanes of a
 //   row by shuffles; K and V fragments by ldmatrix.  Left for later: wgmma
 //   and TMA, warp specialisation, and keeping a window's K/V for all its q
-//   blocks (K2).
+//   blocks (K2, K7-K9).
 // float32 (exact reference path): attention_f32_kernel, plain FMA loops with
-//   a 4x2 (scores) and 4x(D/16) (output) register tile per thread, one
+//   a 4x2 (scores) and 4x(DV/16) (output) register tile per thread, one
 //   thread per row for the softmax, no tensor cores.
 #pragma once
 
@@ -52,8 +72,9 @@ struct AttnArgs {
   const void* rw;  // (.., n_q, gw) projected column table, or null
   int n_q;
   int n_k;
-  int heads;  // batch index b -> (b / heads, b % heads)
-  int gw;     // key j -> bias row j / gw, bias column j % gw
+  int heads;     // batch index b -> (b / heads, b % heads)
+  int gw;        // key j -> bias row j / gw, bias column j % gw
+  int qk_width;  // columns of q and k in memory (<= DQK, a multiple of 8)
   int n_qblocks;  // blocks per (batch, head): ceil(n_q / 64)
   float scale;
   // element strides {outer, head, token}; the feature axis has stride 1
@@ -77,27 +98,29 @@ constexpr int kThreads = 256;
 constexpr int kBlockQ = 64;
 constexpr int kBlockK = 32;
 
-template <int D>
+template <int DQK, int DV>
 constexpr size_t f32_smem_bytes() {
-  // sQ[kBlockQ][D+1], sK[kBlockK][D+1], sV[kBlockK][D], sP[kBlockQ][kBlockK+1],
-  // sRow[kBlockQ]
-  return sizeof(float) * ((size_t)kBlockQ * (D + 1) + (size_t)kBlockK * (D + 1) +
-                          (size_t)kBlockK * D + (size_t)kBlockQ * (kBlockK + 1) +
-                          kBlockQ);
+  // sQ[kBlockQ][DQK+1], sK[kBlockK][DQK+1], sV[kBlockK][DV],
+  // sP[kBlockQ][kBlockK+1], sRow[kBlockQ]
+  return sizeof(float) *
+         ((size_t)kBlockQ * (DQK + 1) + (size_t)kBlockK * (DQK + 1) +
+          (size_t)kBlockK * DV + (size_t)kBlockQ * (kBlockK + 1) + kBlockQ);
 }
 
-template <int D, bool BIAS>
+template <int DQK, int DV, bool RH, bool RW>
 __global__ void __launch_bounds__(kThreads)
     attention_f32_kernel(const AttnArgs a) {
-  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
-  constexpr int QP = D + 1;        // padded rows: conflict-free column reads
+  static_assert(DQK % 16 == 0 && DV % 16 == 0,
+                "widths must be multiples of 16");
+  static_assert(RW || !RH, "rh comes with rw");
+  constexpr int QP = DQK + 1;      // padded rows: conflict-free column reads
   constexpr int PP = kBlockK + 1;
-  constexpr int DJ = D / 16;       // output columns per thread
+  constexpr int DJ = DV / 16;      // output columns per thread
   extern __shared__ float smem[];
   float* sQ = smem;
   float* sK = sQ + kBlockQ * QP;
   float* sV = sK + kBlockK * QP;
-  float* sP = sV + kBlockK * D;
+  float* sP = sV + kBlockK * DV;
   float* sRow = sP + kBlockQ * PP;
 
   const int tid = threadIdx.x;
@@ -114,14 +137,12 @@ __global__ void __launch_bounds__(kThreads)
   float* o = static_cast<float*>(a.o) + offset(a.o_s, outer, head);
   const float* rh = nullptr;
   const float* rw = nullptr;
-  if (BIAS) {
-    rh = static_cast<const float*>(a.rh) + offset(a.rh_s, outer, head);
-    rw = static_cast<const float*>(a.rw) + offset(a.rw_s, outer, head);
-  }
+  if (RH) rh = static_cast<const float*>(a.rh) + offset(a.rh_s, outer, head);
+  if (RW) rw = static_cast<const float*>(a.rw) + offset(a.rw_s, outer, head);
 
-  for (int i = tid; i < kBlockQ * D; i += kThreads) {
-    const int r = i / D, d = i % D, t = q0 + r;
-    sQ[r * QP + d] = t < a.n_q ? q[t * a.q_s[2] + d] : 0.f;
+  for (int i = tid; i < kBlockQ * DQK; i += kThreads) {
+    const int r = i / DQK, d = i % DQK, t = q0 + r;
+    sQ[r * QP + d] = t < a.n_q && d < a.qk_width ? q[t * a.q_s[2] + d] : 0.f;
   }
 
   float acc[4][DJ];
@@ -133,11 +154,14 @@ __global__ void __launch_bounds__(kThreads)
   float m_run = -INFINITY, l_run = 0.f;
 
   for (int k0 = 0; k0 < a.n_k; k0 += kBlockK) {
-    for (int i = tid; i < kBlockK * D; i += kThreads) {
-      const int c = i / D, d = i % D, t = k0 + c;
-      const bool ok = t < a.n_k;
-      sK[c * QP + d] = ok ? k[t * a.k_s[2] + d] : 0.f;
-      sV[c * D + d] = ok ? v[t * a.v_s[2] + d] : 0.f;
+    for (int i = tid; i < kBlockK * DQK; i += kThreads) {
+      const int c = i / DQK, d = i % DQK, t = k0 + c;
+      sK[c * QP + d] =
+          t < a.n_k && d < a.qk_width ? k[t * a.k_s[2] + d] : 0.f;
+    }
+    for (int i = tid; i < kBlockK * DV; i += kThreads) {
+      const int c = i / DV, d = i % DV, t = k0 + c;
+      sV[c * DV + d] = t < a.n_k ? v[t * a.v_s[2] + d] : 0.f;
     }
     __syncthreads();
 
@@ -146,7 +170,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int i = 0; i < 4; ++i) s[i][0] = s[i][1] = 0.f;
 #pragma unroll 8
-    for (int d = 0; d < D; ++d) {
+    for (int d = 0; d < DQK; ++d) {
       const float k_a = sK[tx * QP + d];
       const float k_b = sK[(tx + 16) * QP + d];
 #pragma unroll
@@ -165,9 +189,11 @@ __global__ void __launch_bounds__(kThreads)
         float val = -INFINITY;
         if (key < a.n_k) {
           val = s[i][j] * a.scale;
-          if (BIAS && t < a.n_q)
+          if (RH && t < a.n_q)
             val += rh[t * a.rh_s[2] + key / a.gw] +
                    rw[t * a.rw_s[2] + key % a.gw];
+          else if (RW && t < a.n_q)
+            val += rw[t * a.rw_s[2] + key % a.gw];
         }
         sP[r * PP + c] = val;
       }
@@ -203,7 +229,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int c = 0; c < kBlockK; ++c) {
       float vv[DJ];
 #pragma unroll
-      for (int j = 0; j < DJ; ++j) vv[j] = sV[c * D + tx + 16 * j];
+      for (int j = 0; j < DJ; ++j) vv[j] = sV[c * DV + tx + 16 * j];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const float p = sP[(ty * 4 + i) * PP + c];
@@ -235,47 +261,49 @@ constexpr int kMmaBlockQ = 64;     // 16 query rows per warp
 constexpr int kMmaBlockK = 64;     // keys per tile: 8 n-tiles of QK^T
 
 // bf16 row pitch of the Q/K/V tiles: 16 bytes of padding make the fragment
-// loads of 8 rows x 4 lanes hit 32 distinct banks
+// loads of 8 rows x 4 lanes hit 32 distinct banks (for every width used)
 template <int D>
 __host__ __device__ constexpr int mma_pitch() {
   return D + 8;
 }
 
 // sQ, then two stages of (sK, sV), then the f32 bias rows (runtime size)
-template <int D>
+template <int DQK, int DV>
 constexpr size_t mma_tile_bytes() {
-  return sizeof(__nv_bfloat16) * (size_t)mma_pitch<D>() *
-         (kMmaBlockQ + 4 * kMmaBlockK);
+  return sizeof(__nv_bfloat16) *
+         ((size_t)mma_pitch<DQK>() * (kMmaBlockQ + 2 * kMmaBlockK) +
+          (size_t)mma_pitch<DV>() * 2 * kMmaBlockK);
 }
 
 inline size_t mma_bias_bytes(int gh, int gw) {
   return sizeof(float) * (size_t)kMmaBlockQ * (gh + 1 + gw + 1);
 }
 
-// How the bf16 kernel adds the bias:
-constexpr int kNoBias = 0;
-// per score, rh[t, j / gw] + rw[t, j % gw] gathered from shared memory
-constexpr int kBiasGather = 1;
-// gw == kMmaBlockK (the 64x64 grid of the 1024^2 canvas): a key tile is one
-// grid row, so kh is the tile index and kw the column in the tile; each
-// lane's rw values are the same in every tile and stay in registers
-constexpr int kBiasRowTile = 2;
-
-template <int D, int BIAS>
+// ROW_TILE: gw == kMmaBlockK (the 64x64 grid of the 1024^2 canvas): a key
+// tile is one grid row, so kh is the tile index and kw the column in the
+// tile; each lane's rw values are the same in every tile and stay in
+// registers.  Otherwise rh and rw are gathered per score from shared memory.
+template <int DQK, int DV, bool RH, bool RW, bool ROW_TILE>
 __global__ void __launch_bounds__(kMmaThreads)
     attention_mma_kernel(const AttnArgs a) {
-  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
+  static_assert(DQK % 16 == 0 && DV % 16 == 0,
+                "widths must be multiples of 16");
+  static_assert(RW || (!RH && !ROW_TILE), "rh and the row tile need rw");
   using T = __nv_bfloat16;
-  constexpr int LD = mma_pitch<D>();
-  constexpr int CH = D / 8;        // 16-byte chunks per row
-  constexpr int KD = D / 16;       // k-steps of QK^T over the head dim
-  constexpr int ND = D / 8;        // n-tiles of the output
+  constexpr int LDQ = mma_pitch<DQK>();
+  constexpr int LDV = mma_pitch<DV>();
+  constexpr int CHQ = DQK / 8;     // 16-byte chunks per q/k row
+  constexpr int KD = DQK / 16;     // k-steps of QK^T
+  constexpr int ND = DV / 8;       // n-tiles of the output
   constexpr int NT = kMmaBlockK / 8;   // n-tiles of the scores
+  constexpr int STAGE = kMmaBlockK * (LDQ + LDV);   // one (sK, sV) stage
+  // augmented widths: q/k chunks past qk_width are zero-filled
+  constexpr bool PADDED = DQK != DV;
   extern __shared__ __align__(16) unsigned char mma_smem[];
   T* sQ = reinterpret_cast<T*>(mma_smem);
-  T* sKV = sQ + kMmaBlockQ * LD;   // stage s: K at 2s, V at 2s + 1
-  float* sRH = reinterpret_cast<float*>(sKV + 4 * kMmaBlockK * LD);
-  const int gh = BIAS != kNoBias ? a.n_k / a.gw : 0;
+  T* sKV = sQ + kMmaBlockQ * LDQ;   // stage s: K at s·STAGE, V after it
+  float* sRH = reinterpret_cast<float*>(sKV + 2 * STAGE);
+  const int gh = RH ? a.n_k / a.gw : 0;
   const int rhp = gh + 1, rwp = a.gw + 1;   // odd pitches: fewer conflicts
   float* sRW = sRH + kMmaBlockQ * rhp;
 
@@ -292,34 +320,42 @@ __global__ void __launch_bounds__(kMmaThreads)
   const T* v = static_cast<const T*>(a.v) + offset(a.v_s, outer, head);
   T* o = static_cast<T*>(a.o) + offset(a.o_s, outer, head);
 
-  // Q and the first K/V tile: one cp.async group
-  for (int i = tid; i < kMmaBlockQ * CH; i += kMmaThreads) {
-    const int r = i / CH, c = (i % CH) * 8, tok = q0 + r;
-    const bool ok = tok < a.n_q;
-    cp_async_16(sQ + r * LD + c, q + (ok ? tok : 0) * a.q_s[2] + c, ok);
+  // Q and the first K/V tile: one cp.async group.  Chunks past the rows
+  // (or past qk_width) are zero-filled and read nothing.
+  for (int i = tid; i < kMmaBlockQ * CHQ; i += kMmaThreads) {
+    const int r = i / CHQ, c = (i % CHQ) * 8, tok = q0 + r;
+    const bool ok = tok < a.n_q && (!PADDED || c < a.qk_width);
+    cp_async_16(sQ + r * LDQ + c, q + (ok ? tok * a.q_s[2] + c : 0), ok);
   }
   auto load_kv = [&](int stage, int k0) {
-    T* sK = sKV + 2 * stage * kMmaBlockK * LD;
-    T* sV = sK + kMmaBlockK * LD;
-    for (int i = tid; i < kMmaBlockK * CH; i += kMmaThreads) {
-      const int r = i / CH, c = (i % CH) * 8, tok = k0 + r;
+    T* sK = sKV + stage * STAGE;
+    T* sV = sK + kMmaBlockK * LDQ;
+    // one pass issues a K chunk and, for the first DV columns, the V chunk
+    for (int i = tid; i < kMmaBlockK * CHQ; i += kMmaThreads) {
+      const int r = i / CHQ, c = (i % CHQ) * 8, tok = k0 + r;
       const bool ok = tok < a.n_k;
       const long long tk = ok ? tok : 0;
-      cp_async_16(sK + r * LD + c, k + tk * a.k_s[2] + c, ok);
-      cp_async_16(sV + r * LD + c, v + tk * a.v_s[2] + c, ok);
+      const bool in_k = !PADDED || c < a.qk_width;
+      cp_async_16(sK + r * LDQ + c, k + tk * a.k_s[2] + (in_k ? c : 0),
+                  ok && in_k);
+      if (!PADDED || c < DV)
+        cp_async_16(sV + r * LDV + c, v + tk * a.v_s[2] + c, ok);
     }
   };
   load_kv(0, 0);
   cp_async_commit();
 
-  if (BIAS != kNoBias) {   // the block's bias rows, f32, in the exp2 domain
+  // the block's bias rows, f32, in the exp2 domain
+  if (RH) {
     const T* rh = static_cast<const T*>(a.rh) + offset(a.rh_s, outer, head);
-    const T* rw = static_cast<const T*>(a.rw) + offset(a.rw_s, outer, head);
     for (int i = tid; i < kMmaBlockQ * gh; i += kMmaThreads) {
       const int r = i / gh, c = i % gh, tok = q0 + r;
       sRH[r * rhp + c] =
           tok < a.n_q ? to_f32(rh[tok * a.rh_s[2] + c]) * kLog2e : 0.f;
     }
+  }
+  if (RW) {
+    const T* rw = static_cast<const T*>(a.rw) + offset(a.rw_s, outer, head);
     for (int i = tid; i < kMmaBlockQ * a.gw; i += kMmaThreads) {
       const int r = i / a.gw, c = i % a.gw, tok = q0 + r;
       sRW[r * rwp + c] =
@@ -331,7 +367,7 @@ __global__ void __launch_bounds__(kMmaThreads)
   const float scale2 = a.scale * kLog2e;
   const float inv_gw = 1.f / (float)a.gw;
   uint32_t qf[KD][4];
-  float rw_reg[2][NT][2];   // kBiasRowTile: rw of this lane's rows and keys
+  float rw_reg[2][NT][2];   // ROW_TILE: rw of this lane's rows and keys
   float acc[ND][4];
 #pragma unroll
   for (int j = 0; j < ND; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
@@ -352,13 +388,13 @@ __global__ void __launch_bounds__(kMmaThreads)
     if (it == 0) {
 #pragma unroll
       for (int kk = 0; kk < KD; ++kk) {
-        const T* p = sQ + row0 * LD + kk * 16 + 2 * t4;
+        const T* p = sQ + row0 * LDQ + kk * 16 + 2 * t4;
         qf[kk][0] = *reinterpret_cast<const uint32_t*>(p);
-        qf[kk][1] = *reinterpret_cast<const uint32_t*>(p + 8 * LD);
+        qf[kk][1] = *reinterpret_cast<const uint32_t*>(p + 8 * LDQ);
         qf[kk][2] = *reinterpret_cast<const uint32_t*>(p + 8);
-        qf[kk][3] = *reinterpret_cast<const uint32_t*>(p + 8 * LD + 8);
+        qf[kk][3] = *reinterpret_cast<const uint32_t*>(p + 8 * LDQ + 8);
       }
-      if (BIAS == kBiasRowTile) {
+      if (ROW_TILE) {
 #pragma unroll
         for (int h = 0; h < 2; ++h)
 #pragma unroll
@@ -368,8 +404,8 @@ __global__ void __launch_bounds__(kMmaThreads)
               rw_reg[h][n][j] = sRW[(row0 + 8 * h) * rwp + n * 8 + 2 * t4 + j];
       }
     }
-    const T* sK = sKV + 2 * stage * kMmaBlockK * LD;
-    const T* sV = sK + kMmaBlockK * LD;
+    const T* sK = sKV + stage * STAGE;
+    const T* sV = sK + kMmaBlockK * LDQ;
 
     // scores S = Q K^T: 16 rows x 64 keys per warp; one ldmatrix gives the
     // K fragments of n-tiles n, n+1 at one k-step
@@ -378,7 +414,7 @@ __global__ void __launch_bounds__(kMmaThreads)
     for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
     for (int n = 0; n < NT; n += 2) {
-      const T* krow = sK + (n * 8 + (lane / 16) * 8 + lane % 8) * LD +
+      const T* krow = sK + (n * 8 + (lane / 16) * 8 + lane % 8) * LDQ +
                       ((lane / 8) % 2) * 8;
 #pragma unroll
       for (int kk = 0; kk < KD; ++kk) {
@@ -392,7 +428,7 @@ __global__ void __launch_bounds__(kMmaThreads)
     // scale, bias and mask, in the exp2 domain
     const int k0 = it * kMmaBlockK;
     float rh_tile[2] = {0.f, 0.f};
-    if (BIAS == kBiasRowTile) {
+    if (ROW_TILE && RH) {
       rh_tile[0] = sRH[row0 * rhp + it];
       rh_tile[1] = sRH[(row0 + 8) * rhp + it];
     }
@@ -406,16 +442,24 @@ __global__ void __launch_bounds__(kMmaThreads)
           continue;
         }
         float b_lo = 0.f, b_hi = 0.f;
-        if (BIAS == kBiasRowTile) {
-          b_lo = rh_tile[0] + rw_reg[0][n][j];
-          b_hi = rh_tile[1] + rw_reg[1][n][j];
-        } else if (BIAS == kBiasGather) {
+        if (ROW_TILE) {
+          b_lo = rw_reg[0][n][j];
+          b_hi = rw_reg[1][n][j];
+          if (RH) {
+            b_lo = rh_tile[0] + b_lo;
+            b_hi = rh_tile[1] + b_hi;
+          }
+        } else if (RW) {
           // exact for key < 2^22: (key + 0.5) / gw is >= 0.5 / gw from an
           // integer
           const int kh = (int)(((float)key + 0.5f) * inv_gw);
           const int kw = key - kh * a.gw;
-          b_lo = sRH[row0 * rhp + kh] + sRW[row0 * rwp + kw];
-          b_hi = sRH[(row0 + 8) * rhp + kh] + sRW[(row0 + 8) * rwp + kw];
+          b_lo = sRW[row0 * rwp + kw];
+          b_hi = sRW[(row0 + 8) * rwp + kw];
+          if (RH) {
+            b_lo = sRH[row0 * rhp + kh] + b_lo;
+            b_hi = sRH[(row0 + 8) * rhp + kh] + b_hi;
+          }
         }
         s[n][j] = fmaf(s[n][j], scale2, b_lo);
         s[n][2 + j] = fmaf(s[n][2 + j], scale2, b_hi);
@@ -458,7 +502,7 @@ __global__ void __launch_bounds__(kMmaThreads)
                               pack_bf16x2(s[2 * c + 1][0], s[2 * c + 1][1]),
                               pack_bf16x2(s[2 * c + 1][2], s[2 * c + 1][3])};
       // one transposed ldmatrix gives the V fragments of n-tiles j, j+1
-      const T* vrow = sV + (c * 16 + ((lane / 8) % 2) * 8 + lane % 8) * LD +
+      const T* vrow = sV + (c * 16 + ((lane / 8) % 2) * 8 + lane % 8) * LDV +
                       (lane / 16) * 8;
 #pragma unroll
       for (int j = 0; j < ND; j += 2) {
@@ -503,45 +547,86 @@ cudaError_t launch_kernel(K kernel, const AttnArgs& a, int blocks,
   return cudaGetLastError();
 }
 
-template <int D, bool BIAS>
+template <int DQK, int DV, bool RH, bool RW>
 cudaError_t launch_d(AttnArgs a, int batch, int dtype, cudaStream_t stream) {
   if (dtype == 0) {
     a.n_qblocks = (a.n_q + kBlockQ - 1) / kBlockQ;
-    return launch_kernel(attention_f32_kernel<D, BIAS>, a,
-                         batch * a.n_qblocks, kThreads, f32_smem_bytes<D>(),
-                         stream);
+    return launch_kernel(attention_f32_kernel<DQK, DV, RH, RW>, a,
+                         batch * a.n_qblocks, kThreads,
+                         f32_smem_bytes<DQK, DV>(), stream);
   }
   a.n_qblocks = (a.n_q + kMmaBlockQ - 1) / kMmaBlockQ;
   const int blocks = batch * a.n_qblocks;
-  if (!BIAS)
-    return launch_kernel(attention_mma_kernel<D, kNoBias>, a, blocks,
-                         kMmaThreads, mma_tile_bytes<D>(), stream);
-  const size_t smem = mma_tile_bytes<D>() + mma_bias_bytes(a.n_k / a.gw, a.gw);
-  if (a.gw == kMmaBlockK)
-    return launch_kernel(attention_mma_kernel<D, kBiasRowTile>, a, blocks,
-                         kMmaThreads, smem, stream);
-  return launch_kernel(attention_mma_kernel<D, kBiasGather>, a, blocks,
-                       kMmaThreads, smem, stream);
+  if constexpr (!RW) {
+    return launch_kernel(attention_mma_kernel<DQK, DV, false, false, false>,
+                         a, blocks, kMmaThreads, mma_tile_bytes<DQK, DV>(),
+                         stream);
+  } else {
+    const size_t smem = mma_tile_bytes<DQK, DV>() +
+                        mma_bias_bytes(RH ? a.n_k / a.gw : 0, a.gw);
+    if (a.gw == kMmaBlockK)
+      return launch_kernel(attention_mma_kernel<DQK, DV, RH, true, true>, a,
+                           blocks, kMmaThreads, smem, stream);
+    return launch_kernel(attention_mma_kernel<DQK, DV, RH, true, false>, a,
+                         blocks, kMmaThreads, smem, stream);
+  }
 }
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t as int; an
-// unsupported head dim or dtype is cudaErrorInvalidValue (the Python
-// wrappers reject those before calling).  The bf16 kernel reads 16-byte
-// chunks: the wrappers also check that pointers and strides allow that.
+inline bool bad_shape(const AttnArgs& a, int batch, int dtype, bool bias) {
+  return batch <= 0 || a.n_q <= 0 || a.n_k <= 0 ||
+         (dtype != 0 && dtype != 1) ||
+         (bias && (a.gw <= 0 || a.n_k % a.gw != 0));
+}
+
+// K1-K4, K7: DQK == DV == head_dim; BIAS adds rh and rw.  dtype: 0 =
+// float32, 1 = bfloat16.  Returns a cudaError_t as int; an unsupported head
+// dim or dtype is cudaErrorInvalidValue (the Python wrappers reject those
+// before calling).  The bf16 kernel reads 16-byte chunks: the wrappers also
+// check that pointers and strides allow that.
 template <bool BIAS>
-int launch(const AttnArgs& a, int batch, int head_dim, int dtype,
-           void* stream) {
+int launch(AttnArgs a, int batch, int head_dim, int dtype, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (batch <= 0 || a.n_q <= 0 || a.n_k <= 0 || (dtype != 0 && dtype != 1))
-    return (int)cudaErrorInvalidValue;
-  if (BIAS && (a.gw <= 0 || a.n_k % a.gw != 0))
+  if (bad_shape(a, batch, dtype, BIAS)) return (int)cudaErrorInvalidValue;
+  a.qk_width = head_dim;
+  switch (head_dim) {
+    case 16: return (int)launch_d<16, 16, BIAS, BIAS>(a, batch, dtype, st);
+    case 32: return (int)launch_d<32, 32, BIAS, BIAS>(a, batch, dtype, st);
+    case 64: return (int)launch_d<64, 64, BIAS, BIAS>(a, batch, dtype, st);
+    case 80: return (int)launch_d<80, 80, BIAS, BIAS>(a, batch, dtype, st);
+    case 128: return (int)launch_d<128, 128, BIAS, BIAS>(a, batch, dtype, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// K5, K6 (RW) and K8, K9: q and k hold a.qk_width columns; QK^T runs over
+// the head dim plus the smallest instantiated extra width that holds the
+// rest: 16 or 32 (windows: 2·win <= 32), or 64 with RW (a grid of <= 64
+// rows).
+template <bool RW, int DV>
+cudaError_t launch_augmented_dv(const AttnArgs& a, int batch, int dtype,
+                                cudaStream_t st) {
+  const int extra = a.qk_width - DV;
+  if (extra <= 16) return launch_d<DV + 16, DV, false, RW>(a, batch, dtype, st);
+  if (extra <= 32) return launch_d<DV + 32, DV, false, RW>(a, batch, dtype, st);
+  if constexpr (RW) {
+    if (extra <= 64)
+      return launch_d<DV + 64, DV, false, RW>(a, batch, dtype, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <bool RW>
+int launch_augmented(const AttnArgs& a, int batch, int head_dim, int dtype,
+                     void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bad_shape(a, batch, dtype, RW) || a.qk_width <= head_dim ||
+      a.qk_width % 8 != 0)
     return (int)cudaErrorInvalidValue;
   switch (head_dim) {
-    case 16: return (int)launch_d<16, BIAS>(a, batch, dtype, st);
-    case 32: return (int)launch_d<32, BIAS>(a, batch, dtype, st);
-    case 64: return (int)launch_d<64, BIAS>(a, batch, dtype, st);
-    case 80: return (int)launch_d<80, BIAS>(a, batch, dtype, st);
-    case 128: return (int)launch_d<128, BIAS>(a, batch, dtype, st);
+    case 16: return (int)launch_augmented_dv<RW, 16>(a, batch, dtype, st);
+    case 32: return (int)launch_augmented_dv<RW, 32>(a, batch, dtype, st);
+    case 64: return (int)launch_augmented_dv<RW, 64>(a, batch, dtype, st);
+    case 80: return (int)launch_augmented_dv<RW, 80>(a, batch, dtype, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -550,6 +635,34 @@ inline void copy_strides(long long* dst, const long long* src) {
   dst[0] = src[0];
   dst[1] = src[1];
   dst[2] = src[2];
+}
+
+// The arguments of the SAM entries (K2-K9): tensors q, k, v, rh, rw, o with
+// their {outer, head, token} strides in that order in `strides` (18 values;
+// rh and rw may be null, their strides then unused).
+inline AttnArgs sam_args(const void* q, const void* k, const void* v,
+                         const void* rh, const void* rw, void* o, int tokens,
+                         int heads, int gw, float scale,
+                         const long long* strides) {
+  AttnArgs a = {};
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.o = o;
+  a.rh = rh;
+  a.rw = rw;
+  a.n_q = tokens;
+  a.n_k = tokens;
+  a.heads = heads;
+  a.gw = gw;
+  a.scale = scale;
+  copy_strides(a.q_s, strides + 0);
+  copy_strides(a.k_s, strides + 3);
+  copy_strides(a.v_s, strides + 6);
+  copy_strides(a.rh_s, strides + 9);
+  copy_strides(a.rw_s, strides + 12);
+  copy_strides(a.o_s, strides + 15);
+  return a;
 }
 
 }  // namespace lameness

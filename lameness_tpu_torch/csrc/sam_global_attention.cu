@@ -26,23 +26,8 @@ extern "C" int lameness_sam_global_attention(
     const void* q, const void* k, const void* v, const void* rel_h,
     const void* rel_w, void* o, int batch_heads, int tokens, int head_dim,
     int gw, const long long* strides, int dtype, void* stream) {
-  lameness::AttnArgs a = {};
-  a.q = q;
-  a.k = k;
-  a.v = v;
-  a.o = o;
-  a.rh = rel_h;
-  a.rw = rel_w;
-  a.n_q = tokens;
-  a.n_k = tokens;
-  a.heads = 1;
-  a.gw = gw;
-  a.scale = 1.0f / sqrtf((float)head_dim);
-  lameness::copy_strides(a.q_s, strides + 0);
-  lameness::copy_strides(a.k_s, strides + 3);
-  lameness::copy_strides(a.v_s, strides + 6);
-  lameness::copy_strides(a.rh_s, strides + 9);
-  lameness::copy_strides(a.rw_s, strides + 12);
-  lameness::copy_strides(a.o_s, strides + 15);
-  return lameness::launch<true>(a, batch_heads, head_dim, dtype, stream);
+  return lameness::launch<true>(
+      lameness::sam_args(q, k, v, rel_h, rel_w, o, tokens, 1, gw,
+                         1.0f / sqrtf((float)head_dim), strides),
+      batch_heads, head_dim, dtype, stream);
 }

@@ -25,23 +25,8 @@ extern "C" int lameness_sam_window_attention(
     const void* rw, void* o, int windows, int heads, int tokens,
     int head_dim, int win, const long long* strides, int dtype,
     void* stream) {
-  lameness::AttnArgs a = {};
-  a.q = q;
-  a.k = k;
-  a.v = v;
-  a.o = o;
-  a.rh = rh;
-  a.rw = rw;
-  a.n_q = tokens;
-  a.n_k = tokens;
-  a.heads = heads;
-  a.gw = win;
-  a.scale = 1.0f / sqrtf((float)head_dim);
-  lameness::copy_strides(a.q_s, strides + 0);
-  lameness::copy_strides(a.k_s, strides + 3);
-  lameness::copy_strides(a.v_s, strides + 6);
-  lameness::copy_strides(a.rh_s, strides + 9);
-  lameness::copy_strides(a.rw_s, strides + 12);
-  lameness::copy_strides(a.o_s, strides + 15);
-  return lameness::launch<true>(a, windows * heads, head_dim, dtype, stream);
+  return lameness::launch<true>(
+      lameness::sam_args(q, k, v, rh, rw, o, tokens, heads, win,
+                         1.0f / sqrtf((float)head_dim), strides),
+      windows * heads, head_dim, dtype, stream);
 }

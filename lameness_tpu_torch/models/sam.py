@@ -3,15 +3,18 @@
 global attention with decomposed relative positions), the box prompt
 encoder and the two-way-transformer mask decoder.
 
-Channels-last at the public functions, as in the JAX package.  The
-encoder's windowed layers run kernel K2 and its global layers kernel K3 on
-the card (``ops/sam_attention.py``); the decoder's small attentions stay
-plain PyTorch, as they are plain jnp in the JAX package.  Parameter names
-mirror the flax tree, so ``weights.from_jax_params`` converts one to one.
+Channels-last at the public functions, as in the JAX package.  By default
+the encoder's windowed layers run kernel K2 and its global layers kernel K3
+on the card; the JAX package's switches select K4-K9 instead
+(:class:`VisionAttention`, ``ops/sam_attention.py``).  The decoder's small
+attentions stay plain PyTorch, as they are plain jnp in the JAX package.
+Parameter names mirror the flax tree, so ``weights.from_jax_params``
+converts one to one.
 """
 from __future__ import annotations
 
 import math
+import os
 from typing import Any, Dict, Sequence, Tuple
 
 import torch
@@ -19,9 +22,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..core.device import resolve_device
-from ..ops.sam_attention import (project_rel_tables, project_rel_tables_hl,
-                                 sam_global_attention,
-                                 sam_window_attention_v3)
+from ..ops import sam_attention as sa
 
 
 def _promote(x: torch.Tensor, w: torch.Tensor) -> Tuple[torch.Tensor,
@@ -62,9 +63,19 @@ class MlpBlock(nn.Module):
 
 class VisionAttention(nn.Module):
     """x (B, H, W, C) -> (B, H, W, C).  ``input_size`` is the rel-pos table
-    grid; a window (H == W == input_size <= 16) takes K2 on head-last views
-    of the qkv output, anything else the global K3 path.  Smaller runtime
-    grids centre-slice the tables (exact, no interpolation)."""
+    grid; smaller runtime grids centre-slice the tables (exact, no
+    interpolation).  The kernel follows ``lameness_tpu/models/sam.py``'s
+    fused paths and its switches, read at each call:
+
+    - a window (H == W == input_size <= 16): ``LAMENESS_WIN_KERNEL``
+      (default ``v3``) ``v3`` takes K2 and ``v5`` K9 on head-last views of
+      the qkv output, unless hd + 2·H > 128 (the TPU's one 128-lane group
+      per head), which falls back to ``v1``; any other value takes the
+      head-major :func:`sam_window_attention` (K8 for ``v2``, else K7);
+    - any other grid: ``LAMENESS_GLB_KERNEL=v3`` with hd + H <= 128 takes K6
+      on head-last views; anything else the head-major
+      :func:`sam_global_attention` (K3 by default, K4 for ``v1``, K5 for
+      any other value, ``v3`` with hd + H > 128 included)."""
 
     def __init__(self, dim: int, heads: int, input_size: Tuple[int, int]):
         super().__init__()
@@ -89,15 +100,33 @@ class VisionAttention(nn.Module):
         rel_h = self.rel_pos_h[sh - h:sh + h - 1]
         rel_w = self.rel_pos_w[sw - w:sw + w - 1]
         if h == w == sh and h <= 16:
-            rh4, rw4 = project_rel_tables_hl(q, rel_h, rel_w, h)
-            out = sam_window_attention_v3(q, k, v, rh4, rw4)
+            win_kernel = os.environ.get("LAMENESS_WIN_KERNEL", "v3")
+            if hd + 2 * h > 128 and win_kernel in ("v3", "v5"):
+                win_kernel = "v1"
+            if win_kernel in ("v3", "v5"):
+                rh4, rw4 = sa.project_rel_tables_hl(q, rel_h, rel_w, h)
+                fn = sa.sam_window_attention_v5 if win_kernel == "v5" \
+                    else sa.sam_window_attention_v3
+                out = fn(q, k, v, rh4, rw4)
+                return self.proj(out.view(b, h, w, self.dim))
+            qf = q.permute(0, 2, 1, 3).reshape(b * nh, h * w, hd)
+            rh, rw = sa.project_rel_tables(qf, rel_h, rel_w, h)
+            # (B, nH, N, hd) views of the qkv output, read in place
+            of = sa.sam_window_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                rh.reshape(b, nh, h * w, h), rw.reshape(b, nh, h * w, h))
+            out = of.transpose(1, 2)                  # (B, N, nH, hd)
+            return self.proj(out.reshape(b, h, w, self.dim))
+        if os.environ.get("LAMENESS_GLB_KERNEL") == "v3" and hd + h <= 128:
+            rh4, rw4 = sa.project_rel_tables_hl(q, rel_h, rel_w, h, w)
+            out = sa.sam_global_attention_v3(q, k, v, rh4, rw4)
             return self.proj(out.view(b, h, w, self.dim))
 
         def heads_first(t):
             return t.permute(0, 2, 1, 3).reshape(b * nh, h * w, hd)
         qf, kf, vf = heads_first(q), heads_first(k), heads_first(v)
-        rh, rw = project_rel_tables(qf, rel_h, rel_w, h, w)
-        of = sam_global_attention(qf, kf, vf, rh, rw)
+        rh, rw = sa.project_rel_tables(qf, rel_h, rel_w, h, w)
+        of = sa.sam_global_attention(qf, kf, vf, rh, rw)
         out = of.view(b, nh, h * w, hd).permute(0, 2, 1, 3)
         return self.proj(out.reshape(b, h, w, self.dim))
 

@@ -23,7 +23,10 @@ import torch
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("attention", "sam_window_attention", "sam_global_attention")
+SOURCES = ("attention", "sam_window_attention", "sam_global_attention",
+           "sam_global_attention_v1", "sam_global_attention_v2",
+           "sam_global_attention_v3", "sam_window_attention_v1",
+           "sam_window_attention_v2", "sam_window_attention_v5")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -34,6 +37,10 @@ KERNELS: Dict[str, "CudaKernel"] = {}
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 80, 128)     # instantiated in csrc/attention.cuh
+# the augmented kernels (K5, K6, K8, K9): head dims, and the most columns
+# past the head dim (16 or 32 for windows, 64 with rw: see attention.cuh)
+AUG_HEAD_DIMS = (16, 32, 64, 80)
+AUG_EXTRA = {False: 32, True: 64}
 
 
 def _nvcc() -> str:
@@ -167,3 +174,12 @@ def check_head_dim(name: str, d: int) -> None:
     if d not in HEAD_DIMS:
         raise ValueError(f"{name}: head dim {d} not built "
                          f"(supported: {HEAD_DIMS})")
+
+
+def check_augmented_dims(name: str, d: int, width: int, rw: bool) -> None:
+    """Raise unless an augmented kernel is built for head dim ``d`` and
+    ``width`` (the padded augmented width) columns of qa and ka."""
+    if d not in AUG_HEAD_DIMS or not 0 < width - d <= AUG_EXTRA[rw]:
+        raise ValueError(f"{name}: head dim {d} with augmented width {width} "
+                         f"not built (head dims {AUG_HEAD_DIMS}, at most "
+                         f"{AUG_EXTRA[rw]} columns past the head dim)")

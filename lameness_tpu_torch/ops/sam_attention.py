@@ -1,39 +1,76 @@
-"""SAM ViTDet attention with the decomposed rel-pos bias: kernels K2, K3.
+"""SAM ViTDet attention with the decomposed rel-pos bias: kernels K2-K9.
 
-Port of ``lameness_tpu/ops/sam_attention.py`` (its default paths).  The
-bias of a score is bias[t, kh·GW + kw] = rh[t, kh] + rw[t, kw], from the
-q-projected tables of :func:`project_rel_tables` /
-:func:`project_rel_tables_hl`.
+Port of ``lameness_tpu/ops/sam_attention.py``, every entry with its JAX
+namesake's signature, layout and switch.  The bias of a score is
+bias[t, kh·GW + kw] = rh[t, kh] + rw[t, kw], from the q-projected tables of
+:func:`project_rel_tables` / :func:`project_rel_tables_hl`.
 
-- :func:`sam_window_attention_v3` (K2, ``csrc/sam_window_attention.cu``):
-  head-last (BW, N, nH, hd) windows, pad tokens unmasked.
-- :func:`sam_global_attention` (K3, ``csrc/sam_global_attention.cu``):
-  (BH, N, D) over the whole grid, the (N, N) bias never materialised.
+Windows (pad tokens of edge windows take part unmasked, as in ViTDet):
+- head-last (BW, N, nH, hd) -> (BW, N, nH·hd): :func:`sam_window_attention_v3`
+  (K2) and :func:`sam_window_attention_v5` (K9);
+- head-major (BW, nH, N, hd) -> (BW, nH, N, hd): :func:`sam_window_attention`,
+  which sends ``LAMENESS_WIN_KERNEL=v2`` to :func:`sam_window_attention_v2`
+  (K8) and anything else to :func:`sam_window_attention_v1` (K7).
 
-On a CPU tensor each runs its plain version (:func:`window_attention_reference`,
-:func:`sam_attention_reference`); on a CUDA tensor it launches its kernel or
-raises.
+Global attention over the whole (GH, GW) grid:
+- (BH, N, D): :func:`sam_global_attention`, which sends
+  ``LAMENESS_GLB_KERNEL`` unset or ``v4`` to :func:`sam_global_attention_v4`
+  (K3), ``v1`` to :func:`sam_global_attention_v1` (K4) and anything else to
+  :func:`sam_global_attention_v2` (K5);
+- head-last (B, N, nH, hd) -> (B, N, nH·hd): :func:`sam_global_attention_v3`
+  (K6).
+
+The switches are read at each call, as the JAX package reads them at each
+trace.  K2, K3, K4 and K7 add the bias per score.  K5, K6, K8 and K9 take
+augmented operands, built here as the JAX entries build them: q·scale and the
+tables rounded to the compute dtype, exact one-hot selector columns on the k
+side, so that qa·kaᵀ carries the bias (K5 and K6 add rw[t, j mod GW] per
+score); the width is zero-padded to a multiple of 8 (16-byte bf16 rows).
+
+On a CPU tensor each entry runs its plain version; on a CUDA tensor it
+launches its kernel (``csrc/<entry>.cu``) or raises.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import os
+from typing import List, Optional
 
 import numpy as np
 import torch
 
-from ._cuda import (DTYPE_CODES, CudaKernel, check_chunked_rows,
-                    check_head_dim, check_operands, strides_array)
+from ._cuda import (DTYPE_CODES, CudaKernel, check_augmented_dims,
+                    check_chunked_rows, check_head_dim, check_operands,
+                    strides_array)
 
 _vp, _ci = ctypes.c_void_p, ctypes.c_int
-WINDOW_KERNEL = CudaKernel(
-    "sam_window_attention", "sam_window_attention",
-    "lameness_sam_window_attention",
-    [_vp] * 6 + [_ci] * 5 + [_vp, _ci])
-GLOBAL_KERNEL = CudaKernel(
-    "sam_global_attention", "sam_global_attention",
-    "lameness_sam_global_attention",
-    [_vp] * 6 + [_ci] * 4 + [_vp, _ci])
+_WINDOW_ARGS = [_vp] * 6 + [_ci] * 5 + [_vp, _ci]
+_GLOBAL_ARGS = [_vp] * 6 + [_ci] * 4 + [_vp, _ci]
+_AUGMENTED_ARGS = [_vp] * 5 + [_ci] * 6 + [_vp, _ci]
+WINDOW_KERNEL = CudaKernel(                                      # K2
+    "sam_window_attention_v3", "sam_window_attention",
+    "lameness_sam_window_attention", _WINDOW_ARGS)
+GLOBAL_KERNEL = CudaKernel(                                      # K3
+    "sam_global_attention_v4", "sam_global_attention",
+    "lameness_sam_global_attention", _GLOBAL_ARGS)
+GLOBAL_V1_KERNEL = CudaKernel(                                   # K4
+    "sam_global_attention_v1", "sam_global_attention_v1",
+    "lameness_sam_global_attention_v1", _GLOBAL_ARGS)
+GLOBAL_V2_KERNEL = CudaKernel(                                   # K5
+    "sam_global_attention_v2", "sam_global_attention_v2",
+    "lameness_sam_global_attention_v2", _AUGMENTED_ARGS)
+GLOBAL_V3_KERNEL = CudaKernel(                                   # K6
+    "sam_global_attention_v3", "sam_global_attention_v3",
+    "lameness_sam_global_attention_v3", _AUGMENTED_ARGS)
+WINDOW_V1_KERNEL = CudaKernel(                                   # K7
+    "sam_window_attention_v1", "sam_window_attention_v1",
+    "lameness_sam_window_attention_v1", _WINDOW_ARGS)
+WINDOW_V2_KERNEL = CudaKernel(                                   # K8
+    "sam_window_attention_v2", "sam_window_attention_v2",
+    "lameness_sam_window_attention_v2", _AUGMENTED_ARGS)
+WINDOW_V5_KERNEL = CudaKernel(                                   # K9
+    "sam_window_attention_v5", "sam_window_attention_v5",
+    "lameness_sam_window_attention_v5", _AUGMENTED_ARGS)
 
 
 def _rel_index(g: int) -> torch.Tensor:
@@ -72,6 +109,9 @@ def project_rel_tables_hl(q4: torch.Tensor, rel_pos_h: torch.Tensor,
     return rh4, rw4
 
 
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
 def _biased_softmax_pv(s: torch.Tensor, bias: torch.Tensor, v: torch.Tensor,
                        dtype: torch.dtype) -> torch.Tensor:
     p = torch.softmax(s + bias, dim=-1).to(dtype).float()
@@ -92,7 +132,7 @@ def window_attention_reference(q4, k4, v4, rh4, rw4) -> torch.Tensor:
 
 
 def sam_attention_reference(q, k, v, rel_h, rel_w) -> torch.Tensor:
-    """Plain K3: materialises the full (BH, N, N) bias."""
+    """Plain K3 and K4: materialises the full (BH, N, N) bias."""
     bh, n, d = q.shape
     bias = (rel_h.float()[..., :, None] + rel_w.float()[..., None, :]
             ).reshape(bh, n, n)
@@ -100,49 +140,134 @@ def sam_attention_reference(q, k, v, rel_h, rel_w) -> torch.Tensor:
     return _biased_softmax_pv(s, bias, v.float(), q.dtype).to(q.dtype)
 
 
+def window_attention_hm_reference(q, k, v, rel_h, rel_w) -> torch.Tensor:
+    """Plain K7: head-major windows (BW, nH, N, D), each (window, head) a
+    grid of win x win tokens for :func:`sam_attention_reference`."""
+    bw, nh, n, d = q.shape
+    win = rel_h.shape[-1]
+
+    def flat(t):
+        return t.reshape(bw * nh, n, t.shape[-1])
+    tables = (t.reshape(bw * nh, win, win, win) for t in (rel_h, rel_w))
+    out = sam_attention_reference(flat(q), flat(k), flat(v), *tables)
+    return out.reshape(bw, nh, n, d)
+
+
+def augmented_attention_reference(qa, ka, v, rw=None, fold: bool = False
+                                  ) -> torch.Tensor:
+    """Plain K5, K6, K8, K9 over (..., N, ·) operands:
+    softmax(qa·kaᵀ (+ rw[t, j mod GW])) @ v with f32 scores, the weights
+    rounded to v's dtype before PV.  They are normalised before PV as the
+    TPU kernels of K5, K6 and K8 do, or with ``fold`` after it (K9)."""
+    s = qa.float() @ ka.float().transpose(-1, -2)
+    if rw is not None:
+        reps = s.shape[-1] // rw.shape[-1]
+        s = s + rw.float().repeat(*([1] * (rw.dim() - 1)), reps)
+    if not fold:
+        p = torch.softmax(s, dim=-1).to(v.dtype).float()
+        return (p @ v.float()).to(v.dtype)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    out = (p.to(v.dtype).float() @ v.float()) / p.sum(dim=-1, keepdim=True)
+    return out.to(v.dtype)
+
+
+# ---------------------------------------------------------------------------
+# augmented operands
+# ---------------------------------------------------------------------------
+def _selectors(n: int, g: int, rows: int, mod: bool, like: torch.Tensor
+               ) -> torch.Tensor:
+    """(N, rows) one-hot in like's dtype: [j, r] = 1 iff j // g == r (the
+    spreadᵀ of the kh index), or with ``mod`` iff j % g == r (modᵀ)."""
+    j = torch.arange(n, device=like.device)[:, None]
+    key = j % g if mod else j // g
+    return (key == torch.arange(rows, device=like.device)).to(like.dtype)
+
+
+def _augment(parts: List[torch.Tensor]) -> torch.Tensor:
+    """Concatenate along the last axis, zero-padded to a multiple of 8."""
+    pad = -sum(p.shape[-1] for p in parts) % 8
+    if pad:
+        parts = parts + [parts[0].new_zeros(*parts[0].shape[:-1], pad)]
+    return torch.cat(parts, dim=-1)
+
+
+def global_v2_operands(q, k, rel_h, rel_w):
+    """K5's operands, as sam_global_attention_v2 builds them in HLO:
+    qa = [q·scale | rel_h] and ka = [k | spreadᵀ] (BH, N, A), and rw
+    (BH, N, GW) in q's dtype (the kernel takes one dtype; the projected
+    tables are in it already)."""
+    bh, n, d = q.shape
+    gh, gw = rel_h.shape[1], rel_w.shape[3]
+    spread = _selectors(n, gw, gh, False, q).expand(bh, n, gh)
+    qa = _augment([q * d ** -0.5, rel_h.reshape(bh, n, gh).to(q.dtype)])
+    ka = _augment([k, spread])
+    return qa, ka, rel_w.reshape(bh, n, gw).to(q.dtype)
+
+
+def global_v3_operands(q4, k4, rh4, rw4):
+    """K6's operands, head-last as sam_global_attention_v3 builds them:
+    qa = [q4·scale | rh4], ka = [k4 | spreadᵀ] (B, N, nH, A), and rw4 in
+    the compute dtype."""
+    b, n, nh, hd = q4.shape
+    gh, gw = rh4.shape[-1], rw4.shape[-1]
+    spread = _selectors(n, gw, gh, False, q4)[:, None].expand(b, n, nh, gh)
+    qa = _augment([q4 * hd ** -0.5, rh4.to(q4.dtype)])
+    ka = _augment([k4, spread])
+    return qa, ka, rw4.to(q4.dtype)
+
+
+def _window_selectors(n: int, win: int, like: torch.Tensor) -> torch.Tensor:
+    """(N, 2·win): [spreadᵀ | modᵀ] of a win x win window."""
+    return torch.cat([_selectors(n, win, win, False, like),
+                      _selectors(n, win, win, True, like)], dim=-1)
+
+
+def window_v2_operands(q, k, rel_h, rel_w):
+    """K8's operands, as sam_window_attention_v2 builds them: qa =
+    [q·scale | rh | rw], ka = [k | spreadᵀ | modᵀ] (BW, nH, N, A)."""
+    bw, nh, n, d = q.shape
+    win = rel_h.shape[-1]
+    sel = _window_selectors(n, win, q).expand(bw, nh, n, 2 * win)
+    qa = _augment([q * d ** -0.5, rel_h.to(q.dtype), rel_w.to(q.dtype)])
+    ka = _augment([k, sel])
+    return qa, ka
+
+
+def window_v5_operands(q4, k4, rh4, rw4):
+    """K9's operands, head-last as sam_window_attention_v5 builds them:
+    qa = [q4·scale | rh4 | rw4], ka = [k4 | spreadᵀ | modᵀ]
+    (BW, N, nH, A)."""
+    bw, n, nh, hd = q4.shape
+    win = rh4.shape[-1]
+    sel = _window_selectors(n, win, q4)[:, None].expand(bw, n, nh, 2 * win)
+    qa = _augment([q4 * hd ** -0.5, rh4.to(q4.dtype), rw4.to(q4.dtype)])
+    ka = _augment([k4, sel])
+    return qa, ka
+
+
+# ---------------------------------------------------------------------------
+# C arguments (all but the stream)
+# ---------------------------------------------------------------------------
+def bias_args(q, k, v, rh, rw, out):
+    """Of the window entries (K2, K7): (O, H, N, ·) views of q, k, v, the
+    tables and the output, with any strides but a contiguous last axis."""
+    o, h, n, d = q.shape
+    st = strides_array(*(t.stride()[:3] for t in (q, k, v, rh, rw, out)))
+    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), rh.data_ptr(),
+            rw.data_ptr(), out.data_ptr(), o, h, n, d, rh.shape[-1], st,
+            DTYPE_CODES[q.dtype])
+
+
 def window_args(q4, k4, v4, rh4, rw4, out):
-    """C arguments of ``lameness_sam_window_attention`` (but the stream);
+    """Of ``lameness_sam_window_attention`` (K2) on head-last operands;
     ``out`` is (BW, N, nH·hd)."""
     bw, n, nh, hd = q4.shape
-    win = rh4.shape[-1]
-    hl = [(t.stride(0), t.stride(2), t.stride(1))
-          for t in (q4, k4, v4, rh4, rw4)]
-    o_strides = (out.stride(0), hd, out.stride(1))
-    st = strides_array(*hl, o_strides)
-    return (q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), rh4.data_ptr(),
-            rw4.data_ptr(), out.data_ptr(), bw, nh, n, hd, win, st,
-            DTYPE_CODES[q4.dtype])
-
-
-def sam_window_attention_v3(q4: torch.Tensor, k4: torch.Tensor,
-                            v4: torch.Tensor, rh4: torch.Tensor,
-                            rw4: torch.Tensor) -> torch.Tensor:
-    """Windowed attention over head-last layouts.
-
-    q4/k4/v4: (BW, N, nH, hd) — slices of the qkv projection, read in place
-    (innermost axis contiguous); rh4/rw4: (BW, N, nH, win) from
-    :func:`project_rel_tables_hl`.  Returns (BW, N, nH·hd).  Pad tokens of
-    edge windows attend and are attended to, unmasked (reference ViTDet)."""
-    if q4.device.type == "cpu":
-        return window_attention_reference(q4, k4, v4, rh4, rw4)
-    rh4, rw4 = rh4.to(q4.dtype), rw4.to(q4.dtype)
-    check_operands("sam_window_attention_v3", (q4, k4, v4, rh4, rw4))
-    bw, n, nh, hd = q4.shape
-    win = rh4.shape[-1]
-    if (k4.shape != q4.shape or v4.shape != q4.shape or n != win * win
-            or rh4.shape != (bw, n, nh, win) or rw4.shape != rh4.shape):
-        raise ValueError(
-            f"sam_window_attention_v3: shapes q {tuple(q4.shape)}, "
-            f"rh {tuple(rh4.shape)}, rw {tuple(rw4.shape)}")
-    check_head_dim("sam_window_attention_v3", hd)
-    check_chunked_rows("sam_window_attention_v3", (q4, k4, v4))
-    out = torch.empty((bw, n, nh * hd), dtype=q4.dtype, device=q4.device)
-    WINDOW_KERNEL(*window_args(q4, k4, v4, rh4, rw4, out))
-    return out
+    return bias_args(*(t.transpose(1, 2) for t in (q4, k4, v4, rh4, rw4)),
+                     out.view(bw, n, nh, hd).transpose(1, 2))
 
 
 def global_args(q, k, v, rel_h, rel_w, out):
-    """C arguments of ``lameness_sam_global_attention`` (but the stream)."""
+    """Of ``lameness_sam_global_attention`` (K3) and its v1 twin (K4)."""
     bh, n, d = q.shape
     gh, gw = rel_h.shape[1], rel_w.shape[3]
     rh = rel_h.reshape(bh, n, gh)
@@ -154,14 +279,139 @@ def global_args(q, k, v, rel_h, rel_w, out):
             DTYPE_CODES[q.dtype])
 
 
-def sam_global_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+def augmented_args(qa, ka, v, rw, out):
+    """Of the augmented entries (K5, K6, K8, K9): (O, H, N, ·) views; rw
+    is None for the windows."""
+    o, h, n, width = qa.shape
+    none = (0, 0, 0)
+    st = strides_array(qa.stride()[:3], ka.stride()[:3], v.stride()[:3],
+                       none, none if rw is None else rw.stride()[:3],
+                       out.stride()[:3])
+    return (qa.data_ptr(), ka.data_ptr(), v.data_ptr(),
+            None if rw is None else rw.data_ptr(), out.data_ptr(), o, h, n,
+            v.shape[-1], width, 1 if rw is None else rw.shape[-1], st,
+            DTYPE_CODES[qa.dtype])
+
+
+# ---------------------------------------------------------------------------
+# entries
+# ---------------------------------------------------------------------------
+def _check_windows(name, q, k, v, rh, rw) -> None:
+    """(O, H, N, hd) q, k, v and (O, H, N, win) tables with N = win²."""
+    o, h, n, d = q.shape
+    win = rh.shape[-1]
+    if (k.shape != q.shape or v.shape != q.shape or n != win * win
+            or rh.shape != (o, h, n, win) or rw.shape != rh.shape):
+        raise ValueError(f"{name}: shapes q {tuple(q.shape)}, rh "
+                         f"{tuple(rh.shape)}, rw {tuple(rw.shape)}")
+    check_operands(name, (q, k, v, rh, rw))
+    check_head_dim(name, d)
+    check_chunked_rows(name, (q, k, v))
+
+
+def sam_window_attention_v3(q4: torch.Tensor, k4: torch.Tensor,
+                            v4: torch.Tensor, rh4: torch.Tensor,
+                            rw4: torch.Tensor) -> torch.Tensor:
+    """K2: windowed attention over head-last layouts.
+
+    q4/k4/v4: (BW, N, nH, hd) — slices of the qkv projection, read in place
+    (innermost axis contiguous); rh4/rw4: (BW, N, nH, win) from
+    :func:`project_rel_tables_hl`.  Returns (BW, N, nH·hd)."""
+    if q4.device.type == "cpu":
+        return window_attention_reference(q4, k4, v4, rh4, rw4)
+    rh4, rw4 = rh4.to(q4.dtype), rw4.to(q4.dtype)
+    _check_windows("sam_window_attention_v3",
+                   *(t.transpose(1, 2) for t in (q4, k4, v4, rh4, rw4)))
+    bw, n, nh, hd = q4.shape
+    out = torch.empty((bw, n, nh * hd), dtype=q4.dtype, device=q4.device)
+    WINDOW_KERNEL(*window_args(q4, k4, v4, rh4, rw4, out))
+    return out
+
+
+def sam_window_attention_v1(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, rel_h: torch.Tensor,
+                            rel_w: torch.Tensor) -> torch.Tensor:
+    """K7: windowed attention over head-major layouts.
+
+    q, k, v: (BW, nH, N, D), any strides but the last (the head-major view
+    of the qkv output is read in place); rel_h, rel_w: (BW, nH, N, win).
+    Returns (BW, nH, N, D)."""
+    if q.device.type == "cpu":
+        return window_attention_hm_reference(q, k, v, rel_h, rel_w)
+    rel_h, rel_w = rel_h.to(q.dtype), rel_w.to(q.dtype)
+    _check_windows("sam_window_attention_v1", q, k, v, rel_h, rel_w)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    WINDOW_V1_KERNEL(*bias_args(q, k, v, rel_h, rel_w, out))
+    return out
+
+
+def _augmented(name: str, kernel: CudaKernel, qa, ka, v, rw, fold: bool,
+               head_last: bool) -> torch.Tensor:
+    """Attention on augmented operands.  Head-last operands are
+    (O, N, H, ·) and give (O, N, H·hd); head-major ones (O, H, N, ·) give
+    (O, H, N, hd)."""
+    def hm(t):
+        return t.transpose(1, 2) if head_last and t is not None else t
+    qa_, ka_, v_, rw_ = hm(qa), hm(ka), hm(v), hm(rw)
+    o, h, n, width = qa_.shape
+    d = v_.shape[-1]
+    if qa.device.type == "cpu":
+        out = augmented_attention_reference(qa_, ka_, v_, rw_, fold)
+        return out.transpose(1, 2).reshape(o, n, h * d) if head_last else out
+    check_operands(name, [t for t in (qa, ka, v, rw) if t is not None])
+    if ka_.shape != qa_.shape or v_.shape != (o, h, n, d) or (
+            rw_ is not None and (rw_.shape[:3] != (o, h, n)
+                                 or n % rw_.shape[-1])):
+        raise ValueError(f"{name}: shapes qa {tuple(qa_.shape)}, ka "
+                         f"{tuple(ka_.shape)}, v {tuple(v_.shape)}")
+    check_augmented_dims(name, d, width, rw is not None)
+    check_chunked_rows(name, (qa, ka, v))
+    if head_last:
+        out = torch.empty((o, n, h * d), dtype=v.dtype, device=v.device)
+        out_ = out.view(o, n, h, d).transpose(1, 2)
+    else:
+        out = out_ = torch.empty((o, h, n, d), dtype=v.dtype,
+                                 device=v.device)
+    kernel(*augmented_args(qa_, ka_, v_, rw_, out_))
+    return out
+
+
+def sam_window_attention_v2(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, rel_h: torch.Tensor,
+                            rel_w: torch.Tensor) -> torch.Tensor:
+    """K8: K7's function as batched attention on augmented operands
+    (:func:`window_v2_operands`), the bias folded into the contraction.
+    Same signature and layout as :func:`sam_window_attention_v1`."""
+    qa, ka = window_v2_operands(q, k, rel_h, rel_w)
+    return _augmented("sam_window_attention_v2", WINDOW_V2_KERNEL, qa, ka, v,
+                      None, fold=False, head_last=False)
+
+
+def sam_window_attention_v5(q4: torch.Tensor, k4: torch.Tensor,
+                            v4: torch.Tensor, rh4: torch.Tensor,
+                            rw4: torch.Tensor) -> torch.Tensor:
+    """K9: K2's function on head-last augmented operands
+    (:func:`window_v5_operands`), the softmax denominator applied after PV;
+    v4 is read in place.  Same signature and layout as
+    :func:`sam_window_attention_v3`."""
+    qa, ka = window_v5_operands(q4, k4, rh4, rw4)
+    return _augmented("sam_window_attention_v5", WINDOW_V5_KERNEL, qa, ka, v4,
+                      None, fold=True, head_last=True)
+
+
+def sam_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          rel_h: torch.Tensor, rel_w: torch.Tensor
                          ) -> torch.Tensor:
-    """Biased attention over the whole (GH, GW) token grid.
+    """Head-major windowed attention: (BW, nH, N, D) and (BW, nH, N, win)
+    tables -> (BW, nH, N, D).  ``LAMENESS_WIN_KERNEL=v2`` takes K8, any
+    other value (default ``v1``) K7, as in the JAX entry."""
+    if os.environ.get("LAMENESS_WIN_KERNEL", "v1") == "v2":
+        return sam_window_attention_v2(q, k, v, rel_h, rel_w)
+    return sam_window_attention_v1(q, k, v, rel_h, rel_w)
 
-    q, k, v: (BH, GH·GW, D); rel_h (BH, GH, GW, GH), rel_w (BH, GH, GW, GW)
-    from :func:`project_rel_tables`.  Returns (BH, GH·GW, D).  Square grids
-    (the 1024² canvas) and rectangular ones take the same path."""
+
+def _biased_global(name: str, kernel: CudaKernel, q, k, v, rel_h, rel_w
+                   ) -> torch.Tensor:
     if q.device.type == "cpu":
         return sam_attention_reference(q, k, v, rel_h, rel_w)
     rel_h, rel_w = rel_h.to(q.dtype), rel_w.to(q.dtype)
@@ -171,12 +421,71 @@ def sam_global_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or rel_h.shape != (bh, gh, gw, gh)
             or rel_w.shape != (bh, gh, gw, gw)):
         raise ValueError(
-            f"sam_global_attention: shapes q {tuple(q.shape)}, rel_h "
+            f"{name}: shapes q {tuple(q.shape)}, rel_h "
             f"{tuple(rel_h.shape)}, rel_w {tuple(rel_w.shape)}")
     rel_h, rel_w = rel_h.contiguous(), rel_w.contiguous()
-    check_operands("sam_global_attention", (q, k, v, rel_h, rel_w))
-    check_head_dim("sam_global_attention", d)
-    check_chunked_rows("sam_global_attention", (q, k, v))
+    check_operands(name, (q, k, v, rel_h, rel_w))
+    check_head_dim(name, d)
+    check_chunked_rows(name, (q, k, v))
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
-    GLOBAL_KERNEL(*global_args(q, k, v, rel_h, rel_w, out))
+    kernel(*global_args(q, k, v, rel_h, rel_w, out))
     return out
+
+
+def sam_global_attention_v4(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, rel_h: torch.Tensor,
+                            rel_w: torch.Tensor) -> torch.Tensor:
+    """K3: biased attention over the whole (GH, GW) token grid.
+
+    q, k, v: (BH, GH·GW, D); rel_h (BH, GH, GW, GH), rel_w (BH, GH, GW, GW)
+    from :func:`project_rel_tables`.  Returns (BH, GH·GW, D).  Square grids
+    (the 1024² canvas) and rectangular ones take the same path."""
+    return _biased_global("sam_global_attention_v4", GLOBAL_KERNEL, q, k, v,
+                          rel_h, rel_w)
+
+
+def sam_global_attention_v1(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, rel_h: torch.Tensor,
+                            rel_w: torch.Tensor) -> torch.Tensor:
+    """K4 (``LAMENESS_GLB_KERNEL=v1``): K3's function and signature."""
+    return _biased_global("sam_global_attention_v1", GLOBAL_V1_KERNEL, q, k,
+                          v, rel_h, rel_w)
+
+
+def sam_global_attention_v2(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, rel_h: torch.Tensor,
+                            rel_w: torch.Tensor) -> torch.Tensor:
+    """K5: K3's function and signature on augmented operands
+    (:func:`global_v2_operands`), rel_w added per score."""
+    qa, ka, rw = global_v2_operands(q, k, rel_h, rel_w)
+    out = _augmented("sam_global_attention_v2", GLOBAL_V2_KERNEL,
+                     qa[:, None], ka[:, None], v[:, None], rw[:, None],
+                     fold=False, head_last=False)
+    return out[:, 0]
+
+
+def sam_global_attention_v3(q4: torch.Tensor, k4: torch.Tensor,
+                            v4: torch.Tensor, rh4: torch.Tensor,
+                            rw4: torch.Tensor) -> torch.Tensor:
+    """K6: global attention over head-last layouts.
+
+    q4/k4/v4: (B, N, nH, hd) slices of the qkv projection (v4 read in
+    place); rh4 (B, N, nH, GH), rw4 (B, N, nH, GW) from
+    :func:`project_rel_tables_hl`.  Returns (B, N, nH·hd)."""
+    qa, ka, rw = global_v3_operands(q4, k4, rh4, rw4)
+    return _augmented("sam_global_attention_v3", GLOBAL_V3_KERNEL, qa, ka, v4,
+                      rw, fold=False, head_last=True)
+
+
+def sam_global_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         rel_h: torch.Tensor, rel_w: torch.Tensor
+                         ) -> torch.Tensor:
+    """Global attention, (BH, N, D) -> (BH, N, D), with the JAX entry's
+    switch: ``LAMENESS_GLB_KERNEL`` unset or ``v4`` takes K3, ``v1`` K4,
+    any other value K5."""
+    glb = os.environ.get("LAMENESS_GLB_KERNEL", "v4")
+    if glb == "v4":
+        return sam_global_attention_v4(q, k, v, rel_h, rel_w)
+    if glb != "v1":
+        return sam_global_attention_v2(q, k, v, rel_h, rel_w)
+    return sam_global_attention_v1(q, k, v, rel_h, rel_w)

@@ -1,0 +1,85 @@
+#!/usr/bin/env python3
+"""Time the port's default kernels (K1, K2, K3) of two checkouts on one
+card, in turns.
+
+    python scripts/ab_kernels.py ROOT_A ROOT_B
+
+ROOT_A and ROOT_B are repository roots (e.g. an unpacked ``git archive`` of
+the parent commit, and ``.``).  Each turn is a process of its own that
+imports ``lameness_tpu_torch`` from its root, builds that root's kernels,
+and prints the bf16 device time per call of K1, K2 and K3 at the shapes the
+full-width engine gives them for B = 2 clips: torch.profiler's summed time
+of the port's kernels only, over 20 calls (K1, K2) or 5 (K3).  The turns run
+in the order A B B A, so that a drift of the card between the first and the
+last turn shows as a difference between the two A rows.  The card's name
+and power limit come first.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+
+
+def worker(root: str) -> None:
+    sys.path.insert(0, root)
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from lameness_tpu_torch.ops import _cuda
+    from lameness_tpu_torch.ops import attention as at
+    from lameness_tpu_torch.ops import sam_attention as sa
+    _cuda.build()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def rnd(*shape, std=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda") * std
+                ).to(torch.bfloat16)
+    q, k, v = (rnd(10, 257, 12, 64).transpose(1, 2) for _ in range(3))
+    calls = {"K1": (lambda: at.flash_attention(q, k, v), 20)}
+    q4, k4, v4 = rnd(550, 196, 3, 12, 64).unbind(2)
+    rh4, rw4 = sa.project_rel_tables_hl(q4, rnd(27, 64, std=0.1),
+                                        rnd(27, 64, std=0.1), 14)
+    calls["K2"] = (lambda: sa.sam_window_attention_v3(q4, k4, v4, rh4, rw4),
+                   20)
+    qg, kg, vg = (rnd(264, 4096, 64) for _ in range(3))
+    rh, rw = sa.project_rel_tables(qg, rnd(127, 64, std=0.1),
+                                   rnd(127, 64, std=0.1), 64)
+    calls["K3"] = (lambda: sa.sam_global_attention(qg, kg, vg, rh, rw), 5)
+    times = {}
+    for kid, (fn, reps) in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and "lameness::" in e.key)
+        times[kid] = us / reps / 1e3
+    print(json.dumps(times), flush=True)
+
+
+def main() -> int:
+    if sys.argv[1:2] == ["--worker"]:
+        worker(sys.argv[2])
+        return 0
+    roots = {"A": sys.argv[1], "B": sys.argv[2]}
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip(), flush=True)
+    for turn in "ABBA":
+        res = subprocess.run([sys.executable, __file__, "--worker",
+                              roots[turn]], capture_output=True, text=True)
+        if res.returncode:
+            print(res.stdout + res.stderr, file=sys.stderr)
+            return res.returncode
+        times = json.loads(res.stdout.strip().splitlines()[-1])
+        print(f"{turn} {roots[turn]:24s} " + "  ".join(
+            f"{kid} {ms:.4f} ms" for kid, ms in times.items()), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

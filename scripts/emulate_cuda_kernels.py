@@ -107,20 +107,89 @@ def main() -> int:
                  sa.window_args(q4, k4, v4, rh4, rw4, out))
             report("K2", dtype, (bw, win, nh, hd), out,
                    sa.window_attention_reference(q4, k4, v4, rh4, rw4))
-        # K3: rectangular grids (per-score bias gather) and GW = 64 (the
+        # K3, K4: rectangular grids (per-score bias gather) and GW = 64 (the
         # key tile is one grid row: rel_w in registers)
-        for bh, gh, gw, d in ((2, 6, 11, 32), (1, 12, 16, 64),
-                              (1, 3, 64, 32), (2, 2, 64, 64)):
-            q, k, v = (rnd(bh, gh * gw, d, dtype=dtype) for _ in range(3))
+        for name, kernel in (("K3", sa.GLOBAL_KERNEL),
+                             ("K4", sa.GLOBAL_V1_KERNEL)):
+            for bh, gh, gw, d in ((2, 6, 11, 32), (1, 12, 16, 64),
+                                  (1, 3, 64, 32), (2, 2, 64, 64)):
+                q, k, v = (rnd(bh, gh * gw, d, dtype=dtype) for _ in range(3))
+                rh, rw = sa.project_rel_tables(
+                    q, rnd(2 * gh - 1, d, dtype=dtype),
+                    rnd(2 * gw - 1, d, dtype=dtype), gh, gw)
+                rh, rw = rh.contiguous(), rw.contiguous()
+                out = torch.empty_like(q)
+                call(lib, kernel, sa.global_args(q, k, v, rh, rw, out))
+                report(name, dtype, (bh, gh, gw, d), out,
+                       sa.sam_attention_reference(q, k, v, rh, rw))
+        # K7: head-major windows, q/k/v strided views of a fused qkv output
+        for bw, win, nh, hd in ((2, 7, 2, 32), (1, 14, 2, 64), (1, 5, 1, 80)):
+            n = win * win
+            qkv = rnd(bw, n, 3, nh, hd, dtype=dtype)
+            q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
             rh, rw = sa.project_rel_tables(
-                q, rnd(2 * gh - 1, d, dtype=dtype),
-                rnd(2 * gw - 1, d, dtype=dtype), gh, gw)
-            rh, rw = rh.contiguous(), rw.contiguous()
-            out = torch.empty_like(q)
-            call(lib, sa.GLOBAL_KERNEL,
-                 sa.global_args(q, k, v, rh, rw, out))
-            report("K3", dtype, (bh, gh, gw, d), out,
-                   sa.sam_attention_reference(q, k, v, rh, rw))
+                q.reshape(bw * nh, n, hd), rnd(2 * win - 1, hd, dtype=dtype),
+                rnd(2 * win - 1, hd, dtype=dtype), win)
+            rh, rw = (t.reshape(bw, nh, n, win) for t in (rh, rw))
+            out = torch.empty(bw, nh, n, hd, dtype=dtype)
+            call(lib, sa.WINDOW_V1_KERNEL, sa.bias_args(q, k, v, rh, rw, out))
+            report("K7", dtype, (bw, win, nh, hd), out,
+                   sa.window_attention_hm_reference(q, k, v, rh, rw))
+        # K5 (head-major) and K6 (head-last) on augmented operands: rw
+        # gathered per score, or in registers at GW = 64; 8 to 64 columns
+        # past the head dim
+        for b, nh, gh, gw, d in ((2, 1, 6, 11, 32), (1, 2, 3, 64, 64),
+                                 (1, 1, 40, 2, 32), (1, 2, 4, 4, 80)):
+            n = gh * gw
+            qkv = rnd(b, n, 3, nh, d, dtype=dtype)
+            q4, k4, v4 = qkv.unbind(2)
+            tables = (rnd(2 * gh - 1, d, dtype=dtype),
+                      rnd(2 * gw - 1, d, dtype=dtype))
+            rh4, rw4 = sa.project_rel_tables_hl(q4, *tables, gh, gw)
+            qa, ka, rw = sa.global_v3_operands(q4, k4, rh4, rw4)
+            qa, ka, v, rw = (t.transpose(1, 2) for t in (qa, ka, v4, rw))
+            out = torch.empty(b, n, nh * d, dtype=dtype)
+            out_ = out.view(b, n, nh, d).transpose(1, 2)
+            call(lib, sa.GLOBAL_V3_KERNEL,
+                 sa.augmented_args(qa, ka, v, rw, out_))
+            report("K6", dtype, (b, nh, gh, gw, d), out_,
+                   sa.augmented_attention_reference(qa, ka, v, rw))
+            q, k, v = (t.transpose(1, 2).reshape(b * nh, n, d)
+                       for t in (q4, k4, v4))
+            rh, rw = sa.project_rel_tables(q, *tables, gh, gw)
+            qa, ka, rw = sa.global_v2_operands(q, k, rh, rw)
+            qa, ka, v, rw = (t[:, None] for t in (qa, ka, v, rw))
+            out = torch.empty(b * nh, 1, n, d, dtype=dtype)
+            call(lib, sa.GLOBAL_V2_KERNEL,
+                 sa.augmented_args(qa, ka, v, rw, out))
+            report("K5", dtype, (b, nh, gh, gw, d), out,
+                   sa.augmented_attention_reference(qa, ka, v, rw))
+        # K8 (head-major) and K9 (head-last): augmented windows, 16 or 32
+        # columns past the head dim
+        for bw, win, nh, hd in ((2, 7, 2, 32), (1, 14, 2, 64), (1, 8, 1, 80),
+                                (1, 14, 1, 16)):
+            n = win * win
+            qkv = rnd(bw, n, 3, nh, hd, dtype=dtype)
+            q4, k4, v4 = qkv.unbind(2)
+            rh4, rw4 = sa.project_rel_tables_hl(
+                q4, rnd(2 * win - 1, hd, dtype=dtype),
+                rnd(2 * win - 1, hd, dtype=dtype), win)
+            qa, ka = sa.window_v5_operands(q4, k4, rh4, rw4)
+            qa, ka, v = (t.transpose(1, 2) for t in (qa, ka, v4))
+            out = torch.empty(bw, n, nh * hd, dtype=dtype)
+            out_ = out.view(bw, n, nh, hd).transpose(1, 2)
+            call(lib, sa.WINDOW_V5_KERNEL,
+                 sa.augmented_args(qa, ka, v, None, out_))
+            report("K9", dtype, (bw, win, nh, hd), out_,
+                   sa.augmented_attention_reference(qa, ka, v, fold=True))
+            q, k = (t.transpose(1, 2) for t in (q4, k4))
+            qa, ka = sa.window_v2_operands(q, k, rh4.transpose(1, 2),
+                                           rw4.transpose(1, 2))
+            out = torch.empty(bw, nh, n, hd, dtype=dtype)
+            call(lib, sa.WINDOW_V2_KERNEL,
+                 sa.augmented_args(qa, ka, v, None, out))
+            report("K8", dtype, (bw, win, nh, hd), out,
+                   sa.augmented_attention_reference(qa, ka, v))
     print("emulated kernels:", "ok" if ok else "FAILED")
     return 0 if ok else 1
 

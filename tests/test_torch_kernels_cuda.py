@@ -1,4 +1,4 @@
-"""The port's CUDA kernels K1-K3 against their plain versions, on the card.
+"""The port's CUDA kernels K1-K9 against their plain versions, on the card.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one.  The file imports no JAX, so it runs on a machine with only PyTorch;
@@ -75,6 +75,99 @@ def test_global_kernel(dev, dtype, tol, gh, gw):
     torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
 
 
+def _global_inputs(dev, dtype, gh, gw, hd, heads=3):
+    q, k, v = (_rnd(dev, dtype, heads, gh * gw, hd, seed=i) for i in range(3))
+    rh, rw = sa.project_rel_tables(
+        q, _rnd(dev, dtype, 2 * gh - 1, hd, seed=3, s=0.1),
+        _rnd(dev, dtype, 2 * gw - 1, hd, seed=4, s=0.1), gh, gw)
+    return q, k, v, rh, rw
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("gh,gw,hd", [(64, 64, 64), (24, 40, 64),
+                                      (48, 48, 80)])
+@pytest.mark.parametrize("entry,kernel", [
+    ("sam_global_attention_v1", "GLOBAL_V1_KERNEL"),         # K4
+    ("sam_global_attention_v2", "GLOBAL_V2_KERNEL")])        # K5
+def test_global_variant_kernels(dev, dtype, tol, gh, gw, hd, entry, kernel):
+    q, k, v, rh, rw = _global_inputs(dev, dtype, gh, gw, hd)
+    record = getattr(sa, kernel)
+    before = record.launches
+    got = getattr(sa, entry)(q, k, v, rh, rw)
+    assert record.launches == before + 1
+    if entry == "sam_global_attention_v1":
+        ref = sa.sam_attention_reference(q, k, v, rh, rw)
+    else:
+        qa, ka, rwf = sa.global_v2_operands(q, k, rh, rw)
+        ref = sa.augmented_attention_reference(qa, ka, v, rwf)
+    torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("gh,gw,hd", [(64, 64, 64), (24, 40, 64),
+                                      (48, 48, 80)])
+def test_global_head_last_kernel(dev, dtype, tol, gh, gw, hd):
+    """K6 on strided slices of a fused qkv output."""
+    qkv = _rnd(dev, dtype, 2, gh * gw, 3, 2, hd)
+    q4, k4, v4 = qkv.unbind(2)
+    rh4, rw4 = sa.project_rel_tables_hl(
+        q4, _rnd(dev, dtype, 2 * gh - 1, hd, seed=3, s=0.1),
+        _rnd(dev, dtype, 2 * gw - 1, hd, seed=4, s=0.1), gh, gw)
+    before = sa.GLOBAL_V3_KERNEL.launches
+    got = sa.sam_global_attention_v3(q4, k4, v4, rh4, rw4)
+    assert sa.GLOBAL_V3_KERNEL.launches == before + 1
+    qa, ka, rw = sa.global_v3_operands(q4, k4, rh4, rw4)
+    ref = sa.augmented_attention_reference(
+        *(t.transpose(1, 2) for t in (qa, ka, v4, rw)))
+    ref = ref.transpose(1, 2).reshape(got.shape)
+    torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("win,hd", [(14, 64), (14, 80), (8, 16)])
+@pytest.mark.parametrize("entry,kernel", [
+    ("sam_window_attention_v1", "WINDOW_V1_KERNEL"),         # K7
+    ("sam_window_attention_v2", "WINDOW_V2_KERNEL")])        # K8
+def test_head_major_window_kernels(dev, dtype, tol, win, hd, entry, kernel):
+    """K7 and K8 on head-major views of a fused qkv output."""
+    n = win * win
+    qkv = _rnd(dev, dtype, 5, n, 3, 3, hd)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    rh, rw = sa.project_rel_tables(
+        q.reshape(15, n, hd), _rnd(dev, dtype, 2 * win - 1, hd, seed=1, s=0.1),
+        _rnd(dev, dtype, 2 * win - 1, hd, seed=2, s=0.1), win)
+    rh, rw = (t.reshape(5, 3, n, win) for t in (rh, rw))
+    record = getattr(sa, kernel)
+    before = record.launches
+    got = getattr(sa, entry)(q, k, v, rh, rw)
+    assert record.launches == before + 1
+    if entry == "sam_window_attention_v1":
+        ref = sa.window_attention_hm_reference(q, k, v, rh, rw)
+    else:
+        qa, ka = sa.window_v2_operands(q, k, rh, rw)
+        ref = sa.augmented_attention_reference(qa, ka, v)
+    torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("win,hd", [(14, 64), (14, 80), (8, 16)])
+def test_head_last_window_v5_kernel(dev, dtype, tol, win, hd):
+    """K9 on strided slices of a fused qkv output."""
+    qkv = _rnd(dev, dtype, 5, win * win, 3, 3, hd)
+    q4, k4, v4 = qkv.unbind(2)
+    rh4, rw4 = sa.project_rel_tables_hl(
+        q4, _rnd(dev, dtype, 2 * win - 1, hd, seed=1, s=0.1),
+        _rnd(dev, dtype, 2 * win - 1, hd, seed=2, s=0.1), win)
+    before = sa.WINDOW_V5_KERNEL.launches
+    got = sa.sam_window_attention_v5(q4, k4, v4, rh4, rw4)
+    assert sa.WINDOW_V5_KERNEL.launches == before + 1
+    qa, ka = sa.window_v5_operands(q4, k4, rh4, rw4)
+    ref = sa.augmented_attention_reference(
+        *(t.transpose(1, 2) for t in (qa, ka, v4)), fold=True)
+    ref = ref.transpose(1, 2).reshape(got.shape)
+    torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
+
+
 def test_cuda_wrappers_reject_bad_operands(dev):
     q = torch.zeros(2, 4, 16, 48, device=dev)
     with pytest.raises(ValueError, match="head dim"):
@@ -85,3 +178,8 @@ def test_cuda_wrappers_reject_bad_operands(dev):
     q = torch.zeros(2, 4, 16, 65, device=dev, dtype=torch.bfloat16)[..., 1:]
     with pytest.raises(ValueError, match="16-byte"):
         at.flash_attention(q, q, q)
+    # an augmented width past what is built (2·win > 32 for windows)
+    q = torch.zeros(1, 1, 17 * 17, 64, device=dev)
+    rh = torch.zeros(1, 1, 17 * 17, 17, device=dev)
+    with pytest.raises(ValueError, match="augmented width"):
+        sa.sam_window_attention_v2(q, q, q, rh, rh)
