@@ -6,10 +6,13 @@ Run from the repository root:  python3 chip_smoke.py
 Phases, each failing loudly (no exception is swallowed):
   1. setup: card name and power limit, versions, TF32 off, build the
      kernels from csrc/ with nvcc (one process per source, in parallel);
+     per library the registers and spills ptxas reports and the HGMMA
+     (wgmma) instructions in its SASS -- K5's must have them;
   2. kernels: K1-K9 against their plain PyTorch versions at the engine's
      shapes, in float32 and bfloat16, with device times (torch.profiler)
      beside the bound, the plain version's and a PyTorch library call's as
-     yardsticks;
+     yardsticks (the library call timed by the profiler and by CUDA
+     events); K5's entry must put nothing on the card but its kernel;
   3. engine: a small engine on the card against the same engine's plain
      path on the CPU (same weights, same frames), under each kernel
      selection; then the full-width engine (YOLOv8-n 640, SAM ViT-B 1024²,
@@ -30,6 +33,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -113,7 +117,9 @@ def setup():
     secs = _cuda.build()
     log(f"kernel build: {time.perf_counter() - t0:.2f} s wall "
         + json.dumps({k: round(v, 2) for k, v in secs.items()}))
+    hgmma = {}
     for name in _cuda.SOURCES:
+        hgmma[name] = sass_count(_cuda.library_path(name), "HGMMA")
         path = _cuda.BUILD_DIR / f"{name}.log"
         if path.exists():
             lines = path.read_text().splitlines()
@@ -123,8 +129,20 @@ def setup():
                       if "spill" in ln and "0 bytes spill stores" not in ln]
             log(f"  ptxas {name}: {len(regs)} kernels, registers "
                 f"{min(regs, default=0)}-{max(regs, default=0)}, "
-                f"{len(spills)} with spills {spills[:2]}")
-    return smi
+                f"{len(spills)} with spills {spills[:2]}; HGMMA in SASS "
+                f"{hgmma[name]}")
+    return smi, hgmma
+
+
+def sass_count(lib, opcode: str) -> int:
+    """Instructions whose SASS opcode starts with ``opcode`` in a built
+    library (cuobjdump of the CUDA toolkit)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "--dump-sass", str(lib)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    return sum(1 for ln in sass.splitlines()
+               if ln.split("*/", 1)[-1].strip().startswith(opcode))
 
 
 # ---------------------------------------------------------------------------
@@ -169,6 +187,21 @@ def device_ms(fn, reps: int, only: str = "", tries: int = 3) -> float:
     log("  (torch.profiler recorded no device time: CUDA-event time per "
         "call instead)")
     return cuda_ms(fn, reps)
+
+
+def foreign_kernels(fn) -> list:
+    """Names of the device kernels and copies one call of ``fn`` runs
+    besides the port's own (``lameness::``), by torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.key for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and "lameness::" not in e.key})
 
 
 def agree(name, dtype, out, ref):
@@ -352,20 +385,38 @@ def check_kernels(batch: int = BATCH):
             rec["entry_ms"] = device_ms(lambda: fn(*args), reps)
             rec["call_ms"] = cuda_ms(lambda: fn(*args), reps)
             rec["plain_ms"] = device_ms(plain, 3)
+            # the yardstick twice: the profiler's device sum and CUDA events
+            # (a profiler run has been seen to read a library call at a
+            # third of its usual time)
             library = library_call(layout, args)
             rec["library_ms"] = device_ms(library, 3)
+            rec["library_cuda_ms"] = cuda_ms(library, 3)
+            ratio = rec["library_ms"] / rec["library_cuda_ms"]
+            if not 0.5 <= ratio <= 2.0:
+                log(f"  note: {kid} library time by the profiler "
+                    f"{rec['library_ms']:.4f} ms against CUDA events "
+                    f"{rec['library_cuda_ms']:.4f} ms (more than 2x apart)")
             del library
+            others = foreign_kernels(lambda: fn(*args))
+            if others:
+                log(f"  {kid} entry also runs: {others[:6]}")
+            if kid == "K5" and others:
+                log("  K5: its entry must launch its kernel alone")
+                all_ok = False
             flops, nbytes = kernel_work(layout, args)
             t_bytes = nbytes / PEAK_BYTES_S * 1e3
             t_ops = flops / PEAK_FLOPS_S[dtype_name] * 1e3
             rec["bound_ms"] = max(t_bytes, t_ops)
             rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+            rec["entry_over_ms"] = rec["entry_ms"] / rec["ms"]
+            rec["bound_share"] = rec["bound_ms"] / rec["ms"]
             log(f"  {kid} {entry:24s} device ms {rec['ms']:.4f} (entry "
-                f"{rec['entry_ms']:.4f}, per call {rec['call_ms']:.4f})  "
-                f"plain {rec['plain_ms']:.4f}  library "
-                f"{rec['library_ms']:.4f}  bound {rec['bound_ms']:.4f} "
-                f"({rec['bound_by']}; {flops / 1e9:.2f} GFLOP, "
-                f"{nbytes / 1e6:.1f} MB)  shapes "
+                f"{rec['entry_ms']:.4f} = {rec['entry_over_ms']:.3f}x, per "
+                f"call {rec['call_ms']:.4f})  plain {rec['plain_ms']:.4f}  "
+                f"library {rec['library_ms']:.4f} (CUDA events "
+                f"{rec['library_cuda_ms']:.4f})  bound {rec['bound_ms']:.4f} "
+                f"({rec['bound_by']}, {100 * rec['bound_share']:.1f}% of ms; "
+                f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)  shapes "
                 f"{[tuple(a.shape) for a in args]}")
             del args, out, ref, plain
         torch.cuda.empty_cache()
@@ -651,7 +702,10 @@ def main() -> int:
         print(f"chip_smoke: lameness_tpu_torch not importable ({exc}); run "
               f"from the repository root", file=sys.stderr)
         return 3
-    smi = setup()
+    smi, hgmma = setup()
+    ok_build = hgmma["sam_global_attention_v2"] > 0
+    if not ok_build:
+        log("K5's library holds no HGMMA: its wgmma route was not built")
     log("== phase 2: kernels against their plain versions")
     records, ok_k = check_kernels()
     log("== phase 3: engine")
@@ -666,10 +720,11 @@ def main() -> int:
         rec["launches"] = max(counts[rec["name"]]
                               for counts in launches.values())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "library_cuda_ms", "entry_ms", "entry_over_ms", "bound_share")
     kern = {"kernels": [{k: rec[k] for k in keys}
                         for rec in records.values()]}
-    if not (ok_k and ok_small and ok_e):
+    if not (ok_build and ok_k and ok_small and ok_e):
         log("chip_smoke: FAILED")
         return 1
     log(smi)

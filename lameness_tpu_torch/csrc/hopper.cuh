@@ -1,0 +1,251 @@
+// Hopper (sm_90a) primitives of the wgmma/TMA attention kernel
+// (hopper_attention.cuh): mbarriers, TMA tile loads, shared-memory matrix
+// descriptors, the warpgroup fences and the two products it issues.  The
+// PTX ISA's names throughout ("Asynchronous Warpgroup Level Matrix
+// Multiply-Accumulate", "Tensor Copy", "mbarrier").  Device code only for
+// sm_90a; the CPU emulation of the other kernels does not include it.
+#pragma once
+
+#include <cuda.h>   // CUtensorMap (a type only: libcuda is not linked)
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace lameness {
+namespace sm90 {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---------------------------------------------------------------------------
+// mbarrier: arrivals and, for TMA, bytes
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// makes the initialised barriers visible to the async proxy (TMA)
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// one arrival that also expects `bytes` of TMA transactions this phase
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
+                                                      uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile(
+      "{\n.reg .b64 state;\n"
+      "mbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::"r"(bar)
+      : "memory");
+}
+
+// wait until the phase of parity `parity` has completed (a barrier starts in
+// phase 0; parity 1 of a fresh barrier counts as completed)
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// move registers between warpgroups: every thread of the warpgroup runs it,
+// and the kernel's paths must not meet again afterwards
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+// arrive at a named barrier without waiting for it
+__device__ __forceinline__ void named_barrier_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// a named barrier over `count` threads (id 0 is __syncthreads')
+__device__ __forceinline__ void named_barrier_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// 2^x with one MUFU.EX2, subnormal results flushed to zero (exp2f without
+// fast-math adds range fix-ups around it); exp2_ftz(-inf) == 0
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// ---------------------------------------------------------------------------
+// TMA: one box of a 3-D tensor map into shared memory; the copy's bytes
+// complete a transaction count on `bar`.  Elements past the tensor's extent
+// are filled with zeros and counted all the same.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :
+      : "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+        "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// wgmma
+// ---------------------------------------------------------------------------
+// Shared-memory matrix descriptor of a tile stored as rows of 128 bytes with
+// the 128-byte swizzle (what TMA writes with CU_TENSOR_MAP_SWIZZLE_128B),
+// the tile 1024-byte aligned: start address, leading and stride byte
+// offsets in 16-byte units, layout type 1 (128B swizzle) in bits 62-63.
+// For a K-major operand the stride offset steps 8 rows (1024 bytes) and the
+// leading offset is unused; for an MN-major one 64 elements wide (one
+// swizzled row) the k-direction step of 8 rows is 1024 bytes as well, so
+// both offsets are set to 1024 bytes and either reading of the two fields
+// finds it.  A k-step of 16 bf16 inside a K-major row advances the start
+// address by 32 bytes (+2); 16 rows of an MN-major tile by 2048 (+128).
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(1024 >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// Descriptor of a tile without swizzle (core matrices of 8 rows x 16
+// bytes), leading and stride byte offsets as given
+__device__ __forceinline__ uint64_t desc_plain(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
+}
+
+// make generic-proxy stores to shared memory visible to wgmma and TMA
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// order the warpgroup's register and shared-memory accesses before the
+// next wgmma (required after registers it reads were written)
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until at most N committed groups are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keep the compiler from moving accesses of r across the asynchronous
+// product (the hardware writes the accumulators until wgmma_wait)
+template <int N>
+__device__ __forceinline__ void fence_operands(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_operands(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// Accumulator layout of m64nN (f32): thread t of the warpgroup, warp
+// w = t / 32, lane l: d[4n + i] is row 16w + l/4 + 8·(i/2), column
+// 8n + 2·(l%4) + i%2 -- per warp the C fragment of mma.sync m16n8k16.
+
+// d (+)= A·B, a 64x128 tile over k = 16: A (64 x 16) and B (128 x 16) from
+// shared memory, both K-major.  accumulate == 0 ignores the old d (the
+// first k-step of a tile).
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
+                                                    uint64_t desc_a,
+                                                    uint64_t desc_b,
+                                                    int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d += A·B, a 64x64 tile over k = 16: A from registers (per warp the A
+// fragment of mma.sync m16n8k16 for its 16 rows: a[0..3]), B (16 x 64) from
+// shared memory, MN-major (imm-trans-b = 1).
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d += A·B, a 64x8 tile over k = 16: A from registers as in
+// wgmma_m64n64k16_rs, B (16 x 8) from shared memory, K-major
+__device__ __forceinline__ void wgmma_m64n8k16_rs(float (&d)[4],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+}  // namespace sm90
+}  // namespace lameness

@@ -1,32 +1,81 @@
-// K5: SAM ViTDet global attention on augmented operands, head-major.
+// K5: SAM ViTDet global attention, head-major, on the entry's own operands.
 //
 // Replaces the TPU kernel lameness_tpu/ops/sam_attention.py::_global_kernel_v2
 // (pallas_call in sam_global_attention_v2), reached with
 // LAMENESS_GLB_KERNEL set to any value but v1 and v4 (v3 when hd + G > 128).
-// The wrapper builds, as the JAX entry does, qa = [q*scale | rel_h] and
-// ka = [k | spread^T] (BH, N, A) with spread^T[j, r] = 1 iff j / GW == r, so
-// that qa . ka^T = scale*q.k^T + rel_h[t, j / GW]; A = D + GH, padded with
-// zeros to a multiple of 8.  The kernel adds rel_w[t, j % GW] per score (in
-// registers on the 64x64 grid), with the shared routine of attention.cuh at
-// DQK = A rounded up to 16 and DV = D.  v (BH, N, D); output (BH, N, D).
+// The TPU entry builds qa = [q*scale | rel_h] and ka = [k | spread^T] so that
+// rel_h rides in one K = 128 MXU contraction, which the MXU pads to anyway.
+// On the card that doubles QK^T and writes two (BH, N, 128) operands to HBM,
+// so this kernel takes what K3 takes: q, k, v (BH, N, D), rh (BH, N, GH) and
+// rw (BH, N, GW), the projected tables in q's dtype, and adds
+// rh[t, j / GW] + rw[t, j % GW] per score.  The function is the same; only
+// the rounding points differ from the TPU's (rh is rounded to the compute
+// dtype by the caller, p is normalised after PV), inside the parity gates.
 //
-// Bound on the card: the function is K3's (per head N = 4096, D = 64:
-// 4.3 GFLOP, ~1400 FLOP/byte in bf16) -- bound by operations.  The
-// contraction runs over A = 128 instead of D = 64 at SAM ViT-B's shapes:
-// QK^T costs twice K3's and PV the same, so the tensor cores do 1.5x the
-// products of K3 in exchange for no per-score rel_h add.  Left on the
-// table: as K3.
+// Bounds on the card, per head N = 4096, D = 64 (SAM ViT-B 1024^2):
+//   * tensor cores: 4*N*N*D = 4.3 GFLOP, ~1400 FLOP/byte in bf16: at
+//     989 TFLOP/s, 1.15 ms for the engine's 264 heads;
+//   * exponentials: N*N = 16.8M exp2 per head, 4.4e9 for 264 heads, at 16 per
+//     clock per SM on 132 SMs (~1.8 GHz): ~1.2 ms, as long as the products.
+// A kernel that runs the softmax and the products in series cannot go below
+// ~2.4 ms.  The design hides the products behind the softmax: PV of one
+// tile runs while the same warpgroup's softmax of the next runs, and three
+// warpgroups issue their products in turn (ping-pong); the row sums go to
+// the tensor cores and the softmax's FP32 work is kept small.  3.13 ms on
+// the H100, bound by the softmax (PERF.md).
+//
+// Routes, chosen by shape here and nowhere else (a failed build or launch
+// raises in the Python wrapper; nothing falls back):
+//   * bfloat16, head dim 64, bias rows that fit in shared memory (square
+//     grids up to 68x68, every SAM canvas up to 1088^2): the Hopper kernel
+//     of hopper_attention.cuh -- wgmma for QK^T and PV, K/V tiles brought
+//     in by TMA from a producer warpgroup, 192 query rows per block in
+//     three consumer warpgroups;
+//   * anything else (float32, head dims 16, 32, 80, 128 -- 80 is SAM ViT-H):
+//     the mma.sync / FMA routine of attention.cuh on the same operands, as
+//     K3 launches it.
+// The CPU emulation (scripts/emulate_cuda_kernels.py, LAMENESS_EMULATION)
+// has no wgmma or TMA and always takes the second route.
 #include "attention.cuh"
+#ifndef LAMENESS_EMULATION
+#include "hopper_attention.cuh"
+#endif
 
-// strides: qa, ka, v, (unused), rw, o as {outer, head, token} (18 values);
-// qa and ka hold qk_width columns (a multiple of 8), v and o head_dim.
+// strides (18 values): q, k, v and o as {head, unused, token}; rh and rw,
+// (BH, GH, GW, ·) tables, as {head, grid row, grid column}, so that they are
+// read where project_rel_tables leaves them.  The mma.sync route needs a
+// token stride: grid row == GW x grid column, else cudaErrorInvalidValue
+// (lameness_sam_global_attention_v2_hopper tells the wrapper beforehand).
 extern "C" int lameness_sam_global_attention_v2(
-    const void* qa, const void* ka, const void* v, const void* rw, void* o,
-    int outer, int heads, int tokens, int head_dim, int qk_width, int gw,
-    const long long* strides, int dtype, void* stream) {
-  lameness::AttnArgs a = lameness::sam_args(qa, ka, v, nullptr, rw, o,
-                                            tokens, heads, gw, 1.0f, strides);
-  a.qk_width = qk_width;
-  return lameness::launch_augmented<true>(a, outer * heads, head_dim, dtype,
-                                          stream);
+    const void* q, const void* k, const void* v, const void* rh,
+    const void* rw, void* o, int batch_heads, int tokens, int head_dim,
+    int gw, const long long* strides, int dtype, void* stream) {
+  lameness::AttnArgs a = lameness::sam_args(
+      q, k, v, rh, rw, o, tokens, 1, gw, 1.0f / sqrtf((float)head_dim),
+      strides);
+#ifndef LAMENESS_EMULATION
+  if (lameness::hopper_global_takes(a, batch_heads, head_dim, dtype))
+    return lameness::launch_hopper_global(a, batch_heads, stream);
+#endif
+  if (a.rh_s[1] != (long long)gw * a.rh_s[2] ||
+      a.rw_s[1] != (long long)gw * a.rw_s[2])
+    return (int)cudaErrorInvalidValue;
+  a.rh_s[1] = a.rw_s[1] = 0;   // one head per batch index: the token stride
+  return lameness::launch<true>(a, batch_heads, head_dim, dtype, stream);
+}
+
+// 1 if lameness_sam_global_attention_v2 takes the wgmma route for these
+// shapes (and reads the tables at any grid-row stride), else 0.
+extern "C" int lameness_sam_global_attention_v2_hopper(int batch_heads,
+                                                       int tokens,
+                                                       int head_dim, int gw,
+                                                       int dtype) {
+#ifndef LAMENESS_EMULATION
+  lameness::AttnArgs a = {};
+  a.n_q = a.n_k = tokens;
+  a.gw = gw;
+  return lameness::hopper_global_takes(a, batch_heads, head_dim, dtype);
+#else
+  return 0;
+#endif
 }

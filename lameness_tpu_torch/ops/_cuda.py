@@ -27,8 +27,15 @@ SOURCES = ("attention", "sam_window_attention", "sam_global_attention",
            "sam_global_attention_v1", "sam_global_attention_v2",
            "sam_global_attention_v3", "sam_window_attention_v1",
            "sam_window_attention_v2", "sam_window_attention_v5")
+# sm_90a (not sm_90): wgmma and setmaxnreg exist only there.  No -lcuda: the
+# one libcuda function used, cuTensorMapEncodeTiled (TMA descriptors of
+# K5's wgmma route), is looked up at run time through the CUDA runtime.
+# LAMENESS_NVCC_EXTRA adds flags (measurement builds, e.g.
+# -DLAMENESS_HOP_STUB=1 in scripts/k5_breakdown.py); they enter the
+# library's hash, so such a build never stands in for the real one.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              *os.environ.get("LAMENESS_NVCC_EXTRA", "").split()]
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -129,6 +136,14 @@ class CudaKernel:
         if err != 0:
             raise RuntimeError(f"{self.symbol}: cudaError_t {err}")
         self.launches += 1
+
+
+def c_function(source: str, symbol: str, argtypes: List[type]):
+    """A plain C function of a kernel library, returning an int: no launch,
+    no count (a route query, say)."""
+    fn = getattr(library(source), symbol)
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return fn
 
 
 def strides_array(*triples) -> ctypes.Array:

@@ -21,11 +21,14 @@ Global attention over the whole (GH, GW) grid:
   (K6).
 
 The switches are read at each call, as the JAX package reads them at each
-trace.  K2, K3, K4 and K7 add the bias per score.  K5, K6, K8 and K9 take
+trace.  K2, K3, K4, K5 and K7 add the bias per score.  K6, K8 and K9 take
 augmented operands, built here as the JAX entries build them: q·scale and the
 tables rounded to the compute dtype, exact one-hot selector columns on the k
-side, so that qa·kaᵀ carries the bias (K5 and K6 add rw[t, j mod GW] per
-score); the width is zero-padded to a multiple of 8 (16-byte bf16 rows).
+side, so that qa·kaᵀ carries the bias (K6 adds rw[t, j mod GW] per score);
+the width is zero-padded to a multiple of 8 (16-byte bf16 rows).  K5's plain
+version runs on such operands too, as its JAX entry does, but its kernel
+takes K3's arguments: on the card the augmented contraction costs more than
+the per-score add (``csrc/sam_global_attention_v2.cu``).
 
 On a CPU tensor each entry runs its plain version; on a CUDA tensor it
 launches its kernel (``csrc/<entry>.cu``) or raises.
@@ -39,9 +42,9 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ._cuda import (DTYPE_CODES, CudaKernel, check_augmented_dims,
-                    check_chunked_rows, check_head_dim, check_operands,
-                    strides_array)
+from ._cuda import (DTYPE_CODES, CudaKernel, c_function,
+                    check_augmented_dims, check_chunked_rows, check_head_dim,
+                    check_operands, strides_array)
 
 _vp, _ci = ctypes.c_void_p, ctypes.c_int
 _WINDOW_ARGS = [_vp] * 6 + [_ci] * 5 + [_vp, _ci]
@@ -58,7 +61,7 @@ GLOBAL_V1_KERNEL = CudaKernel(                                   # K4
     "lameness_sam_global_attention_v1", _GLOBAL_ARGS)
 GLOBAL_V2_KERNEL = CudaKernel(                                   # K5
     "sam_global_attention_v2", "sam_global_attention_v2",
-    "lameness_sam_global_attention_v2", _AUGMENTED_ARGS)
+    "lameness_sam_global_attention_v2", _GLOBAL_ARGS)
 GLOBAL_V3_KERNEL = CudaKernel(                                   # K6
     "sam_global_attention_v3", "sam_global_attention_v3",
     "lameness_sam_global_attention_v3", _AUGMENTED_ARGS)
@@ -267,7 +270,9 @@ def window_args(q4, k4, v4, rh4, rw4, out):
 
 
 def global_args(q, k, v, rel_h, rel_w, out):
-    """Of ``lameness_sam_global_attention`` (K3) and its v1 twin (K4)."""
+    """Of ``lameness_sam_global_attention`` (K3), its v1 twin (K4) and
+    ``lameness_sam_global_attention_v2`` (K5): (BH, N, ·) tensors, strides
+    {head, 0, token} each."""
     bh, n, d = q.shape
     gh, gw = rel_h.shape[1], rel_w.shape[3]
     rh = rel_h.reshape(bh, n, gh)
@@ -279,8 +284,22 @@ def global_args(q, k, v, rel_h, rel_w, out):
             DTYPE_CODES[q.dtype])
 
 
+def global_v2_args(q, k, v, rel_h, rel_w, out):
+    """Of ``lameness_sam_global_attention_v2`` (K5): the pointers and sizes
+    of :func:`global_args`, but the (BH, GH, GW, ·) tables keep their
+    layout, at strides {head, grid row, grid column} (what
+    project_rel_tables' einsum leaves is no (BH, N, ·) view)."""
+    bh, n, d = q.shape
+    st = strides_array(*((t.stride(0), 0, t.stride(1)) for t in (q, k, v)),
+                       rel_h.stride()[:3], rel_w.stride()[:3],
+                       (out.stride(0), 0, out.stride(1)))
+    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_h.data_ptr(),
+            rel_w.data_ptr(), out.data_ptr(), bh, n, d, rel_w.shape[3], st,
+            DTYPE_CODES[q.dtype])
+
+
 def augmented_args(qa, ka, v, rw, out):
-    """Of the augmented entries (K5, K6, K8, K9): (O, H, N, ·) views; rw
+    """Of the augmented entries (K6, K8, K9): (O, H, N, ·) views; rw
     is None for the windows."""
     o, h, n, width = qa.shape
     none = (0, 0, 0)
@@ -410,11 +429,7 @@ def sam_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return sam_window_attention_v1(q, k, v, rel_h, rel_w)
 
 
-def _biased_global(name: str, kernel: CudaKernel, q, k, v, rel_h, rel_w
-                   ) -> torch.Tensor:
-    if q.device.type == "cpu":
-        return sam_attention_reference(q, k, v, rel_h, rel_w)
-    rel_h, rel_w = rel_h.to(q.dtype), rel_w.to(q.dtype)
+def _check_global(name: str, q, k, v, rel_h, rel_w) -> None:
     bh, n, d = q.shape
     gh, gw = rel_h.shape[1], rel_w.shape[3]
     if (k.shape != q.shape or v.shape != q.shape or n != gh * gw
@@ -423,6 +438,15 @@ def _biased_global(name: str, kernel: CudaKernel, q, k, v, rel_h, rel_w
         raise ValueError(
             f"{name}: shapes q {tuple(q.shape)}, rel_h "
             f"{tuple(rel_h.shape)}, rel_w {tuple(rel_w.shape)}")
+
+
+def _biased_global(name: str, kernel: CudaKernel, q, k, v, rel_h, rel_w
+                   ) -> torch.Tensor:
+    if q.device.type == "cpu":
+        return sam_attention_reference(q, k, v, rel_h, rel_w)
+    rel_h, rel_w = rel_h.to(q.dtype), rel_w.to(q.dtype)
+    _check_global(name, q, k, v, rel_h, rel_w)
+    d = q.shape[-1]
     rel_h, rel_w = rel_h.contiguous(), rel_w.contiguous()
     check_operands(name, (q, k, v, rel_h, rel_w))
     check_head_dim(name, d)
@@ -455,13 +479,32 @@ def sam_global_attention_v1(q: torch.Tensor, k: torch.Tensor,
 def sam_global_attention_v2(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, rel_h: torch.Tensor,
                             rel_w: torch.Tensor) -> torch.Tensor:
-    """K5: K3's function and signature on augmented operands
-    (:func:`global_v2_operands`), rel_w added per score."""
-    qa, ka, rw = global_v2_operands(q, k, rel_h, rel_w)
-    out = _augmented("sam_global_attention_v2", GLOBAL_V2_KERNEL,
-                     qa[:, None], ka[:, None], v[:, None], rw[:, None],
-                     fold=False, head_last=False)
-    return out[:, 0]
+    """K5: K3's function and signature.  The plain version runs on the
+    augmented operands of the JAX entry (:func:`global_v2_operands`); the
+    kernel takes q, k, v and the tables in q's dtype
+    (:func:`global_v2_args`) and builds no augmented operand.  Its wgmma
+    route reads the tables where they lie; only its mma.sync route (other
+    dtypes and head dims) needs them token-contiguous, and gets a copy."""
+    if q.device.type == "cpu":
+        qa, ka, rw = global_v2_operands(q, k, rel_h, rel_w)
+        return augmented_attention_reference(qa, ka, v, rw)
+    name = "sam_global_attention_v2"
+    rel_h, rel_w = rel_h.to(q.dtype), rel_w.to(q.dtype)
+    _check_global(name, q, k, v, rel_h, rel_w)
+    check_operands(name, (q, k, v))
+    bh, n, d = q.shape
+    check_head_dim(name, d)
+    check_chunked_rows(name, (q, k, v))
+    hopper = c_function(GLOBAL_V2_KERNEL.source,
+                        "lameness_sam_global_attention_v2_hopper",
+                        [ctypes.c_int] * 5)(bh, n, d, rel_w.shape[3],
+                                            DTYPE_CODES[q.dtype])
+    if not hopper or rel_h.stride(-1) != 1 or rel_w.stride(-1) != 1:
+        rel_h, rel_w = rel_h.contiguous(), rel_w.contiguous()
+    check_operands(name, (q, rel_h, rel_w))
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    GLOBAL_V2_KERNEL(*global_v2_args(q, k, v, rel_h, rel_w, out))
+    return out
 
 
 def sam_global_attention_v3(q4: torch.Tensor, k4: torch.Tensor,

@@ -1,15 +1,15 @@
 #!/usr/bin/env python3
-"""Time the port's default kernels (K1, K2, K3) of two checkouts on one
-card, in turns.
+"""Time the port's default kernels (K1, K2, K3) and K5 of two checkouts on
+one card, in turns.
 
     python scripts/ab_kernels.py ROOT_A ROOT_B
 
 ROOT_A and ROOT_B are repository roots (e.g. an unpacked ``git archive`` of
 the parent commit, and ``.``).  Each turn is a process of its own that
 imports ``lameness_tpu_torch`` from its root, builds that root's kernels,
-and prints the bf16 device time per call of K1, K2 and K3 at the shapes the
-full-width engine gives them for B = 2 clips: torch.profiler's summed time
-of the port's kernels only, over 20 calls (K1, K2) or 5 (K3).  The turns run
+and prints the bf16 device time per call of K1, K2, K3 and K5 at the shapes
+the full-width engine gives them for B = 2 clips: torch.profiler's summed
+time of the port's kernels only, over 20 calls (K1, K2) or 5 (K3, K5).  The turns run
 in the order A B B A, so that a drift of the card between the first and the
 last turn shows as a difference between the two A rows.  The card's name
 and power limit come first.
@@ -46,6 +46,7 @@ def worker(root: str) -> None:
     rh, rw = sa.project_rel_tables(qg, rnd(127, 64, std=0.1),
                                    rnd(127, 64, std=0.1), 64)
     calls["K3"] = (lambda: sa.sam_global_attention(qg, kg, vg, rh, rw), 5)
+    calls["K5"] = (lambda: sa.sam_global_attention_v2(qg, kg, vg, rh, rw), 5)
     times = {}
     for kid, (fn, reps) in calls.items():
         fn()

@@ -47,7 +47,10 @@ def build() -> ctypes.CDLL:
     for name in _cuda.SOURCES:
         units.append(src / f"{name}.cpp")
         shutil.copy(_cuda.CSRC / f"{name}.cu", units[-1])
-    flags = ["-std=c++20", "-O2", "-fPIC", f"-I{EMU}", f"-I{src}"]
+    # LAMENESS_EMULATION: the sources leave out their wgmma/TMA route
+    # (csrc/hopper_attention.cuh), which has no emulation
+    flags = ["-std=c++20", "-O2", "-fPIC", "-DLAMENESS_EMULATION", f"-I{EMU}",
+             f"-I{src}"]
     procs = [subprocess.Popen(["g++", *flags, "-c", str(u), "-o",
                                str(OUT / f"{u.stem}.o")])
              for u in units]
@@ -154,16 +157,17 @@ def main() -> int:
                  sa.augmented_args(qa, ka, v, rw, out_))
             report("K6", dtype, (b, nh, gh, gw, d), out_,
                    sa.augmented_attention_reference(qa, ka, v, rw))
+            # K5 takes K3's operands (the tables at 4-D strides); its plain
+            # version the augmented operands of the JAX entry
             q, k, v = (t.transpose(1, 2).reshape(b * nh, n, d)
                        for t in (q4, k4, v4))
             rh, rw = sa.project_rel_tables(q, *tables, gh, gw)
-            qa, ka, rw = sa.global_v2_operands(q, k, rh, rw)
-            qa, ka, v, rw = (t[:, None] for t in (qa, ka, v, rw))
-            out = torch.empty(b * nh, 1, n, d, dtype=dtype)
+            rh, rw = rh.contiguous(), rw.contiguous()
+            out = torch.empty_like(q)
             call(lib, sa.GLOBAL_V2_KERNEL,
-                 sa.augmented_args(qa, ka, v, rw, out))
+                 sa.global_v2_args(q, k, v, rh, rw, out))
             report("K5", dtype, (b, nh, gh, gw, d), out,
-                   sa.augmented_attention_reference(qa, ka, v, rw))
+                   sa.sam_global_attention_v2(q, k, v, rh, rw))
         # K8 (head-major) and K9 (head-last): augmented windows, 16 or 32
         # columns past the head dim
         for bw, win, nh, hd in ((2, 7, 2, 32), (1, 14, 2, 64), (1, 8, 1, 80),

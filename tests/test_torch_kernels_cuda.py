@@ -84,13 +84,17 @@ def _global_inputs(dev, dtype, gh, gw, hd, heads=3):
 
 
 @pytest.mark.parametrize("dtype,tol", DTYPES)
-@pytest.mark.parametrize("gh,gw,hd", [(64, 64, 64), (24, 40, 64),
-                                      (48, 48, 80)])
+@pytest.mark.parametrize("gh,gw,hd,heads", [
+    (64, 64, 64, 3),      # the engine's grid: K5's rw in registers (bf16)
+    (24, 40, 64, 3),      # N = 960: a ragged key tile, rh and rw gathered
+    (48, 48, 80, 3),      # SAM ViT-H's head dim: K5's mma.sync route
+    (7, 9, 64, 5)])       # N = 63 < one key tile, several heads
 @pytest.mark.parametrize("entry,kernel", [
     ("sam_global_attention_v1", "GLOBAL_V1_KERNEL"),         # K4
     ("sam_global_attention_v2", "GLOBAL_V2_KERNEL")])        # K5
-def test_global_variant_kernels(dev, dtype, tol, gh, gw, hd, entry, kernel):
-    q, k, v, rh, rw = _global_inputs(dev, dtype, gh, gw, hd)
+def test_global_variant_kernels(dev, dtype, tol, gh, gw, hd, heads, entry,
+                                kernel):
+    q, k, v, rh, rw = _global_inputs(dev, dtype, gh, gw, hd, heads)
     record = getattr(sa, kernel)
     before = record.launches
     got = getattr(sa, entry)(q, k, v, rh, rw)
@@ -100,6 +104,25 @@ def test_global_variant_kernels(dev, dtype, tol, gh, gw, hd, entry, kernel):
     else:
         qa, ka, rwf = sa.global_v2_operands(q, k, rh, rw)
         ref = sa.augmented_attention_reference(qa, ka, v, rwf)
+    torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("gh,gw", [(64, 64), (20, 30)])
+def test_global_v2_kernel_strided(dev, dtype, tol, gh, gw):
+    """K5 on q, k, v read in place from a fused (BH, N, 3, 64) tensor: its
+    TMA maps take the token stride (192 elements) and the head stride."""
+    n = gh * gw
+    qkv = _rnd(dev, dtype, 4, n, 3, 64)
+    q, k, v = qkv.unbind(2)
+    rh, rw = sa.project_rel_tables(
+        q, _rnd(dev, dtype, 2 * gh - 1, 64, seed=3, s=0.1),
+        _rnd(dev, dtype, 2 * gw - 1, 64, seed=4, s=0.1), gh, gw)
+    before = sa.GLOBAL_V2_KERNEL.launches
+    got = sa.sam_global_attention_v2(q, k, v, rh, rw)
+    assert sa.GLOBAL_V2_KERNEL.launches == before + 1
+    qa, ka, rwf = sa.global_v2_operands(q, k, rh, rw)
+    ref = sa.augmented_attention_reference(qa, ka, v, rwf)
     torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
 
 

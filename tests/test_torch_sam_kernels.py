@@ -106,6 +106,59 @@ def test_global_v2_matches_pallas(bh, gh, gw, d):
     assert not qa[..., d + gh:].any() and not ka[..., d + gh:].any()
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, ATOL),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("bh,gh,gw", [(2, 8, 8), (3, 5, 9)])
+def test_global_v2_plain_is_k3_function(dtype, tol, bh, gh, gw):
+    """K5's plain version (softmax over the augmented operands of the JAX
+    entry) is K3's function, the fact that lets K5's kernel take K3's
+    arguments: f32 at the parity gate, bf16 at the card tolerance (both
+    round p to bf16 before PV, at other sum orders)."""
+    rng = np.random.default_rng(8)
+    q, k, v = (torch.from_numpy(_randn(rng, bh, gh * gw, 64)).to(dtype)
+               for _ in range(3))
+    rh, rw = tsa.project_rel_tables(
+        q, torch.from_numpy(_randn(rng, 2 * gh - 1, 64, scale=0.2)).to(dtype),
+        torch.from_numpy(_randn(rng, 2 * gw - 1, 64, scale=0.2)).to(dtype),
+        gh, gw)
+    got = tsa.sam_global_attention_v2(q, k, v, rh, rw)
+    want = tsa.sam_attention_reference(q, k, v, rh, rw)
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("fused,grid_major", [(False, False), (True, True)])
+def test_global_v2_args(fused, grid_major):
+    """K5's C arguments: the pointers and sizes of K3's (global_args), q, k,
+    v, out at {head, 0, token} element strides, and the (BH, GH, GW, ·)
+    tables at {head, grid row, grid column} where they lie: contiguous, or
+    grid-row-major as a batched einsum over the grid rows leaves them."""
+    bh, gh, gw, d = 3, 4, 5, 64
+    n = gh * gw
+    if fused:
+        q, k, v = torch.zeros(bh, n, 3, d).unbind(2)
+    else:
+        q, k, v = (torch.zeros(bh, n, d) for _ in range(3))
+    if grid_major:
+        rel_h, rel_w = (torch.zeros(gh, bh, gw, c).transpose(0, 1)
+                        for c in (gh, gw))
+    else:
+        rel_h, rel_w = torch.zeros(bh, gh, gw, gh), torch.zeros(bh, gh, gw, gw)
+    out = torch.empty(bh, n, d)
+    args = tsa.global_v2_args(q, k, v, rel_h, rel_w, out)
+    k3 = tsa.global_args(q, k, v, rel_h.contiguous(), rel_w.contiguous(),
+                         out)
+    assert args[:6] == tuple(t.data_ptr() for t in (q, k, v, rel_h, rel_w,
+                                                   out))
+    assert args[6:10] == k3[6:10] == (bh, n, d, gw) and args[11] == 0
+    token = 3 * d if fused else d
+    assert list(args[10]) == [n * token, 0, token] * 3 + [
+        *rel_h.stride()[:3], *rel_w.stride()[:3], n * d, 0, d]
+    assert list(args[10])[:9] == list(k3[10])[:9]
+    if not grid_major:    # token-contiguous: grid row = GW x grid column
+        assert rel_h.stride(1) == gw * rel_h.stride(2)
+
+
 @pytest.mark.parametrize("b,nh,gh,gw,hd", [(1, 2, 4, 6, 64),
                                            (2, 1, 6, 6, 80)])
 def test_global_v3_matches_pallas(b, nh, gh, gw, hd):
