@@ -34,12 +34,11 @@
 //     barriers), so that one's exponentials run while another's products
 //     do.
 // Blocks of one head are adjacent in the grid, so its K/V (1 MB) stays in L2.
-// LAMENESS_HOP_STUB, for measurement builds only (scripts/k5_breakdown.py;
-// the results are wrong): 1 leaves out the softmax, 2 the products, 3 both.
 // What bounds it, at the engine's shapes (264 heads of 4096 x 64; measured
-// on the H100 with parts of the kernel stubbed out, PERF.md): the whole
-// 3.13 ms; without the products 2.84, without the softmax 1.74, the K/V
-// stream and the bias staging alone 0.85.  So the softmax bounds it: its
+// on the H100 by scripts/k5_breakdown.py, which builds copies of this
+// kernel with parts left out, PERF.md): the whole
+// 3.13 ms; without the products 2.79, without the softmax 1.72, the K/V
+// stream and the bias staging alone 0.84.  So the softmax bounds it: its
 // exponentials alone need 1.2 ms (16 per clock per SM), and its FP32 work
 // shares the warps' issue slots with them.  The design spends FP32
 // instructions sparingly (the row sums on the tensor cores, the max in four
@@ -220,10 +219,6 @@ __device__ __forceinline__ void consume(const AttnArgs& a, const HopLayout& L,
 
   // S = Q Kᵀ of one stage, over the head dim: 4 k-steps of 16 (+2 each)
   auto issue_qk = [&](int stage) {
-#if LAMENESS_HOP_STUB >= 2
-    wgmma_commit();
-    return;
-#endif
     const uint64_t desc_k = desc_sw128(L.k_tile(stage));
 #pragma unroll
     for (int kk = 0; kk < kHopD / 16; ++kk)
@@ -232,10 +227,6 @@ __device__ __forceinline__ void consume(const AttnArgs& a, const HopLayout& L,
   };
   // O += P V of one stage: the V tile advances 16 rows (+128) per k-step
   auto issue_pv = [&](int stage) {
-#if LAMENESS_HOP_STUB >= 2
-    wgmma_commit();
-    return;
-#endif
     const uint64_t desc_v = desc_sw128(L.v_tile(stage));
 #pragma unroll
     for (int c = 0; c < NT / 2; ++c)
@@ -251,10 +242,6 @@ __device__ __forceinline__ void consume(const AttnArgs& a, const HopLayout& L,
   // holds a valid key, so the new max is finite and exp2(-inf - max) == 0
   // masks.
   auto softmax = [&](int it) {
-#if LAMENESS_HOP_STUB == 1 || LAMENESS_HOP_STUB == 3
-    alpha[0] = alpha[1] = 1.f;
-    return;
-#endif
     const int k0 = it * kHopBlockK;
     if (ROW_TILE) {
       // keys k0 .. k0 + 127 are grid rows 2·it and 2·it + 1 (a row past GH

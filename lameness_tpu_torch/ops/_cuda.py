@@ -30,12 +30,8 @@ SOURCES = ("attention", "sam_window_attention", "sam_global_attention",
 # sm_90a (not sm_90): wgmma and setmaxnreg exist only there.  No -lcuda: the
 # one libcuda function used, cuTensorMapEncodeTiled (TMA descriptors of
 # K5's wgmma route), is looked up at run time through the CUDA runtime.
-# LAMENESS_NVCC_EXTRA adds flags (measurement builds, e.g.
-# -DLAMENESS_HOP_STUB=1 in scripts/k5_breakdown.py); they enter the
-# library's hash, so such a build never stands in for the real one.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-              *os.environ.get("LAMENESS_NVCC_EXTRA", "").split()]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

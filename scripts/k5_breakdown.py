@@ -5,42 +5,94 @@ full-width engine gives it for B = 2 clips (264 heads, 4096 tokens, head dim
 
     python scripts/k5_breakdown.py
 
-Each row is a process of its own that builds ``sam_global_attention_v2``
-with extra nvcc flags (``LAMENESS_NVCC_EXTRA``, which enter the library's
-hash) and prints torch.profiler's summed device time of the port's kernel
-over 5 calls:
-  whole            the kernel as the engine runs it (wgmma + TMA route);
-  mma.sync route   -DLAMENESS_EMULATION: the entry takes the routine of
+The script builds its own copies of ``sam_global_attention_v2`` with nvcc
+(one process per row, all together) into
+``lameness_tpu_torch/_build/k5_breakdown/``, each from a copy of ``csrc/``
+that it edits there; the package's sources and its library stay as they
+are.  Each row prints torch.profiler's summed device time of the port's
+kernel over 5 calls:
+  whole            the kernel as the engine runs it (wgmma + TMA route); its
+                   output must equal the package entry's, bit for bit;
+  mma.sync route   -DLAMENESS_EMULATION: the C entry takes the routine of
                    attention.cuh on the same direct operands (K3's kernel);
-  no softmax       -DLAMENESS_HOP_STUB=1: TMA, bias staging and products;
-  no products      -DLAMENESS_HOP_STUB=2: TMA, bias staging and softmax;
-  K/V stream only  -DLAMENESS_HOP_STUB=3: TMA and bias staging.
-The stubbed builds compute wrong results; they are timings only.  The whole
+  no softmax       TMA, bias staging and products;
+  no products      TMA, bias staging and softmax;
+  K/V stream only  TMA and bias staging.
+The stubbed copies compute wrong results; they are timings only.  The whole
 kernel runs first and last, so that a drift of the card shows.  The card's
 name and power limit come first.
 """
 from __future__ import annotations
 
-import json
-import os
+import ctypes
+import shutil
 import subprocess
 import sys
+from pathlib import Path
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-ROWS = (("whole", ""), ("mma.sync route", "-DLAMENESS_EMULATION"),
-        ("no softmax", "-DLAMENESS_HOP_STUB=1"),
-        ("no products", "-DLAMENESS_HOP_STUB=2"),
-        ("K/V stream only", "-DLAMENESS_HOP_STUB=3"), ("whole", ""))
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+from lameness_tpu_torch.ops import _cuda  # noqa: E402
+from lameness_tpu_torch.ops import sam_attention as sa  # noqa: E402
+
+OUT = _cuda.BUILD_DIR / "k5_breakdown"
+SOURCE = sa.GLOBAL_V2_KERNEL.source
+# a stub: the opening line of a lambda of consume() in hopper_attention.cuh,
+# and the early return put after it
+_NO_PRODUCTS = (("auto issue_qk = [&](int stage) {", "wgmma_commit(); return;"),
+                ("auto issue_pv = [&](int stage) {", "wgmma_commit(); return;"))
+_NO_SOFTMAX = (("auto softmax = [&](int it) {",
+                "alpha[0] = alpha[1] = 1.f; return;"),)
+# label, extra nvcc flags, stubs
+ROWS = (("whole", (), ()),
+        ("mma.sync route", ("-DLAMENESS_EMULATION",), ()),
+        ("no softmax", (), _NO_SOFTMAX),
+        ("no products", (), _NO_PRODUCTS),
+        ("K/V stream only", (), _NO_SOFTMAX + _NO_PRODUCTS))
 
 
-def worker() -> None:
-    sys.path.insert(0, ROOT)
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+def build() -> list:
+    """One library per row (the whole kernel once): nvcc all together."""
+    shutil.rmtree(OUT, ignore_errors=True)
+    procs = []
+    for i, (label, flags, stubs) in enumerate(ROWS):
+        src = OUT / f"src{i}"
+        src.mkdir(parents=True)
+        for f in (*_cuda.CSRC.glob("*.cuh"), _cuda.CSRC / f"{SOURCE}.cu"):
+            shutil.copy(f, src / f.name)
+        header = src / "hopper_attention.cuh"
+        text = header.read_text()
+        for anchor, stub in stubs:
+            if text.count(anchor) != 1:
+                raise SystemExit(f"{label}: '{anchor}' is not in "
+                                 f"hopper_attention.cuh exactly once")
+            text = text.replace(anchor, f"{anchor}\n    {stub}")
+        header.write_text(text)
+        lib = OUT / f"lib{i}.so"
+        cmd = [_cuda._nvcc(), *_cuda.NVCC_FLAGS, *flags, "-o", str(lib),
+               str(src / f"{SOURCE}.cu")]
+        procs.append((label, lib, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    _cuda.build([SOURCE])     # the package's own, for the bitwise check
+    libs = []
+    for label, lib, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"{label}: nvcc exit {proc.returncode}\n{log}")
+        libs.append(ctypes.CDLL(str(lib)))
+    return libs
 
-    from lameness_tpu_torch.ops import _cuda
-    from lameness_tpu_torch.ops import sam_attention as sa
-    _cuda.build([sa.GLOBAL_V2_KERNEL.source])
+
+def main() -> int:
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip(), flush=True)
+    libs = build()
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def rnd(*shape, std=1.0):
@@ -49,37 +101,43 @@ def worker() -> None:
     q, k, v = (rnd(264, 4096, 64) for _ in range(3))
     rh, rw = sa.project_rel_tables(q, rnd(127, 64, std=0.1),
                                    rnd(127, 64, std=0.1), 64)
+    stream = torch.cuda.current_stream().cuda_stream
+    kernel = sa.GLOBAL_V2_KERNEL
 
-    def fn():
-        return sa.sam_global_attention_v2(q, k, v, rh, rw)
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
-            fn()
+    def runner(lib):
+        fn = getattr(lib, kernel.symbol)
+        fn.argtypes, fn.restype = kernel.argtypes, ctypes.c_int
+        hopper = getattr(lib, f"{kernel.symbol}_hopper")
+        hopper.argtypes, hopper.restype = [ctypes.c_int] * 5, ctypes.c_int
+        # the tables as the package entry passes them to each route
+        tables = ((rh, rw) if hopper(264, 4096, 64, 64, 1)
+                  else (rh.contiguous(), rw.contiguous()))
+        out = torch.empty_like(q)
+        args = sa.global_v2_args(q, k, v, *tables, out)
+
+        def call():
+            err = fn(*args, stream)
+            if err:
+                raise RuntimeError(f"{kernel.symbol}: cudaError_t {err}")
+            return out
+        return call
+
+    whole = runner(libs[0])
+    if not torch.equal(whole(), sa.sam_global_attention_v2(q, k, v, rh, rw)):
+        raise SystemExit("the whole build differs from the package's kernel")
+    for label, lib in zip([r[0] for r in ROWS] + ["whole"],
+                          libs + [libs[0]]):
+        call = runner(lib)
+        call()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and "lameness::" in e.key)
-    print(json.dumps({"ms": us / 5 / 1e3}), flush=True)
-
-
-def main() -> int:
-    if sys.argv[1:2] == ["--worker"]:
-        worker()
-        return 0
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip(), flush=True)
-    for label, flags in ROWS:
-        env = dict(os.environ, LAMENESS_NVCC_EXTRA=flags)
-        res = subprocess.run([sys.executable, __file__, "--worker"], env=env,
-                             capture_output=True, text=True)
-        if res.returncode:
-            print(res.stdout + res.stderr, file=sys.stderr)
-            return res.returncode
-        ms = json.loads(res.stdout.strip().splitlines()[-1])["ms"]
-        print(f"K5 {label:16s} {ms:.4f} ms  {flags}", flush=True)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                call()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and "lameness::" in e.key)
+        print(f"K5 {label:16s} {us / 5 / 1e3:.4f} ms", flush=True)
     return 0
 
 
