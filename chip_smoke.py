@@ -12,7 +12,8 @@ Phases, each failing loudly (no exception is swallowed):
      shapes, in float32 and bfloat16, with device times (torch.profiler)
      beside the bound, the plain version's and a PyTorch library call's as
      yardsticks (the library call timed by the profiler and by CUDA
-     events); K5's entry must put nothing on the card but its kernel;
+     events); the entries of K2, K5 and K7 must put nothing on the card but
+     their kernel;
   3. engine: a small engine on the card against the same engine's plain
      path on the CPU (same weights, same frames), under each kernel
      selection; then the full-width engine (YOLOv8-n 640, SAM ViT-B 1024²,
@@ -76,6 +77,11 @@ SELECTIONS = (
 # 12 encoder layers carry the differences on.  A wrong bias or a wrong
 # head would move the embeddings by O(1).
 EMB_RTOL = 5e-2
+
+# the kernels whose entries put nothing on the card but the kernel: K5 reads
+# the tables where the einsum leaves them, K2 and K7 take q, k, v and the
+# tables as they are (their routine builds the bias operands in shared memory)
+ENTRY_ALONE = ("K2", "K5", "K7")
 
 # H100 SXM dense peaks (NVIDIA data sheet) for the bound of each kernel
 PEAK_BYTES_S = 3.35e12
@@ -400,8 +406,8 @@ def check_kernels(batch: int = BATCH):
             others = foreign_kernels(lambda: fn(*args))
             if others:
                 log(f"  {kid} entry also runs: {others[:6]}")
-            if kid == "K5" and others:
-                log("  K5: its entry must launch its kernel alone")
+            if kid in ENTRY_ALONE and others:
+                log(f"  {kid}: its entry must launch its kernel alone")
                 all_ok = False
             flops, nbytes = kernel_work(layout, args)
             t_bytes = nbytes / PEAK_BYTES_S * 1e3

@@ -1,4 +1,7 @@
-// One online-softmax attention routine, shared by the port's nine kernels:
+// One online-softmax attention routine, shared by the port's nine kernels
+// (two of which have a routine of their own for their main shapes, bf16 at
+// head dim 64: K5 hopper_attention.cuh, K2 and K7 window_attention.cuh;
+// their other shapes come here):
 //   K1 attention.cu               softmax(q k^T scale) v               (DINO)
 //   K2 sam_window_attention.cu    + decomposed rel-pos bias, 14x14 windows,
 //                                 head-last views of the qkv output
@@ -46,8 +49,9 @@
 //   the 64x64 grid the rw part then lives in registers: ROW_TILE); the
 //   softmax in the exp2 domain, row max and sum across the 4 lanes of a
 //   row by shuffles; K and V fragments by ldmatrix.  Left for later: wgmma
-//   and TMA, warp specialisation, and keeping a window's K/V for all its q
-//   blocks (K2, K7-K9).
+//   and TMA, warp specialisation (K5's routine has them, for K3, K4 and K6
+//   to take), and K8, K9 onto the window routine, which keeps a window's
+//   K/V for all its rows and builds the augmented columns in shared memory.
 // float32 (exact reference path): attention_f32_kernel, plain FMA loops with
 //   a 4x2 (scores) and 4x(DV/16) (output) register tile per thread, one
 //   thread per row for the softmax, no tensor cores.

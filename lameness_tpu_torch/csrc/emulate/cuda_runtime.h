@@ -27,7 +27,10 @@ struct dim3 {
 };
 typedef void* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
-enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum cudaFuncAttribute {
+  cudaFuncAttributeMaxDynamicSharedMemorySize = 8,
+  cudaFuncAttributePreferredSharedMemoryCarveout = 9
+};
 
 inline thread_local dim3 threadIdx, blockIdx;
 inline std::barrier<>* emu_block_barrier = nullptr;

@@ -68,6 +68,12 @@ inline void cp_async_16(void* smem, const void* gmem, bool valid) {
   else
     std::memset(smem, 0, 16);
 }
+inline void cp_async_4(void* smem, const void* gmem, bool valid) {
+  if (valid)
+    std::memcpy(smem, gmem, 4);
+  else
+    std::memset(smem, 0, 4);
+}
 inline void cp_async_commit() {}
 template <int N>
 inline void cp_async_wait() {}

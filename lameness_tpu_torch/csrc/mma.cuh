@@ -58,6 +58,17 @@ __device__ __forceinline__ void cp_async_16(void* smem, const void* gmem,
                "l"(gmem), "r"(n));
 }
 
+// 4 bytes, through L1 (.ca: the only variant below 16 bytes); zeros when
+// !valid.  For rows that are 4-byte aligned only (the window routine's bias
+// tables).
+__device__ __forceinline__ void cp_async_4(void* smem, const void* gmem,
+                                           bool valid) {
+  const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  const int n = valid ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(gmem), "r"(n));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }

@@ -4,19 +4,26 @@
 // (pallas_call in sam_window_attention_v3).  Same head-last signature: q, k, v
 // are (BW, N, nH, hd) slices of the fused qkv output, read in place through
 // their strides; rh, rw are (BW, N, nH, win) q-projected tables; the output
-// is (BW, N, nH*hd).  The TPU's augmented operands [q*scale|rh|rw] /
-// [k|one-hot] only fed its 128-deep MXU and are not built: the bias
-// rh[t, j / win] + rw[t, j % win] is added per score element.  Pad tokens of
-// the edge windows take part unmasked, as in the reference ViTDet.
+// is (BW, N, nH*hd).  Pad tokens of the edge windows take part unmasked, as
+// in the reference ViTDet.
 //
 // Bound on the card: per (window, head) N = 196, hd = 64: 4*N*N*hd = 9.8
 // MFLOP against ~4*N*hd*2 + 2*N*win*2 bytes (~111 KB bf16), ~90 FLOP/byte --
-// bound by bytes.  The bf16 path runs on the tensor cores (attention.cuh).
-// Left on the table: 196 rows fill 4 64-row q blocks and 4 64-key tiles
-// (23% padding each way); each q block re-stages the window's K/V and its
-// bias rows; the per-element bias gather from shared memory costs about as
-// many instructions as the products.
+// bound by bytes: 0.22 ms for the engine's 550 x 12 window-heads.
+//
+// Routes, chosen by shape here and nowhere else (a failed launch raises in
+// the Python wrapper; nothing falls back):
+//   * bfloat16, head dim 64, windows of <= 256 tokens (every SAM window):
+//     the window routine of window_attention.cuh -- one block per (window,
+//     head) with the whole window in shared memory, loaded once by cp.async;
+//     the bias contracted on the tensor cores as the TPU kernel does on the
+//     MXU, [q | rh | rw] against [k | spread^T | mod^T] (the one-hot columns
+//     built in shared memory, never read from HBM); a one-pass softmax;
+//   * anything else (float32, head dims 16, 32, 80, 128): the online-softmax
+//     routine of attention.cuh, adding rh[t, j / win] + rw[t, j % win] per
+//     score.
 #include "attention.cuh"
+#include "window_attention.cuh"
 
 // strides: q, k, v, rh, rw, o as {window, head, token} (18 values); the
 // output o is addressed as (BW, N, nH, hd).
@@ -25,8 +32,10 @@ extern "C" int lameness_sam_window_attention(
     const void* rw, void* o, int windows, int heads, int tokens,
     int head_dim, int win, const long long* strides, int dtype,
     void* stream) {
-  return lameness::launch<true>(
+  const lameness::AttnArgs a =
       lameness::sam_args(q, k, v, rh, rw, o, tokens, heads, win,
-                         1.0f / sqrtf((float)head_dim), strides),
-      windows * heads, head_dim, dtype, stream);
+                         1.0f / sqrtf((float)head_dim), strides);
+  if (lameness::window_takes(a, windows * heads, head_dim, dtype))
+    return lameness::launch_window(a, windows * heads, stream);
+  return lameness::launch<true>(a, windows * heads, head_dim, dtype, stream);
 }

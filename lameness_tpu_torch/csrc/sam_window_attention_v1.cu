@@ -7,16 +7,18 @@
 // would overflow 128 lanes (hd + 2*win > 128).  Same signature: q, k, v
 // (BW, nH, N, D); rh, rw (BW, nH, N, win) q-projected tables; output
 // (BW, nH, N, D).  The TPU kernel runs all heads of a window in one program
-// and builds the bias by a one-hot spread matmul and a lane repeat.  Here a
-// block owns 64 rows of one (window, head) and adds rh[t, j / win] +
-// rw[t, j % win] per score: K2's device routine (attention.cuh) at
-// head-major strides.  q, k and v may be strided views of the qkv output:
-// the head-major transpose is a view, not a copy.
+// and builds the bias by a one-hot spread matmul and a lane repeat.  Here
+// K2's routes serve it at head-major strides: bfloat16 at head dim 64 takes
+// the window routine (window_attention.cuh: one block per (window, head),
+// the bias contracted on the tensor cores from one-hot columns built in
+// shared memory), anything else attention.cuh's routine.  q, k and v may be
+// strided views of the qkv output: the head-major transpose is a view, not a
+// copy.
 //
 // Bound on the card: K2's work (per (window, head) N = 196, hd = 64: 9.8
-// MFLOP against ~111 KB in bf16, ~90 FLOP/byte) -- bound by bytes.  Left on
-// the table: as K2.
+// MFLOP against ~111 KB in bf16, ~90 FLOP/byte) -- bound by bytes.
 #include "attention.cuh"
+#include "window_attention.cuh"
 
 // strides: q, k, v, rh, rw, o as {window, head, token} (18 values).
 extern "C" int lameness_sam_window_attention_v1(
@@ -24,8 +26,10 @@ extern "C" int lameness_sam_window_attention_v1(
     const void* rw, void* o, int windows, int heads, int tokens,
     int head_dim, int win, const long long* strides, int dtype,
     void* stream) {
-  return lameness::launch<true>(
+  const lameness::AttnArgs a =
       lameness::sam_args(q, k, v, rh, rw, o, tokens, heads, win,
-                         1.0f / sqrtf((float)head_dim), strides),
-      windows * heads, head_dim, dtype, stream);
+                         1.0f / sqrtf((float)head_dim), strides);
+  if (lameness::window_takes(a, windows * heads, head_dim, dtype))
+    return lameness::launch_window(a, windows * heads, stream);
+  return lameness::launch<true>(a, windows * heads, head_dim, dtype, stream);
 }

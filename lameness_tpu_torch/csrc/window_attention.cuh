@@ -1,0 +1,291 @@
+// The window routine of K2 (sam_window_attention.cu, head-last views) and K7
+// (sam_window_attention_v1.cu, head-major views): SAM ViTDet windowed
+// attention, per (window, head)
+//   softmax(scale·q·kᵀ + rh[t, j / GW] + rw[t, j % GW]) · v,
+// in bf16 at head dim 64, for windows of at most 256 tokens (SAM's 14 x 14
+// windows: 196).  It computes what the TPU kernels _window_kernel_v3 (K2)
+// and _window_kernel (K7) of lameness_tpu/ops/sam_attention.py compute; pad
+// tokens of the edge windows take part unmasked, as in ViTDet, and keys past
+// N (the padding to 16) are masked to -inf.
+//
+// What bounds it: per (window, head) at N = 196, q, k, v and the output are
+// 196 x 64 bf16 each and the tables 196 x 28: ~111 KB against 9.8 MFLOP of
+// products, ~90 FLOP/byte, so it is bound by bytes (0.22 ms for the engine's
+// 550 x 12 window-heads at 3.35 TB/s).  The design:
+//   * one block of 4 warps per (window, head), the whole window resident:
+//     Q, K and V of N tokens (padded to 16·KT rows) and the window-head's
+//     bias rows come into shared memory once, every copy issued up front as
+//     cp.async (16-byte chunks for q, k, v; 4-byte words for the tables,
+//     whose head-last rows are 28 bytes at a 336-byte token stride), so no
+//     load waits on another.  113 KB of shared memory at N = 196: two blocks
+//     per SM;
+//   * the bias on the tensor cores, built in shared memory: QKᵀ contracts
+//     over 96 columns, [q | rh | rw | 0] against [k | spreadᵀ/scale |
+//     modᵀ/scale | 0], where spreadᵀ[j, c] = (c == j / GW) and modᵀ[j, c] =
+//     (c == j % GW) are constants of the window, written into K's columns
+//     64-95 by the block itself (nothing from HBM).  Times scale, the score
+//     is scale·q·k + rh + rw.  Exact: at head dim 64, 1/scale = 8 is a power
+//     of two, so 8 is a bf16 value, rh·8 and rw·8 are exact in the f32
+//     accumulator, and the bias enters unscaled (the tables are in q's dtype,
+//     cast by the wrapper);
+//   * one-pass softmax: each warp takes 16 query rows against all 16·KT keys
+//     at once (the scores in registers), row max, exp2, row sum, no rescale;
+//     P packed to bf16 in registers as the A operand of PV; the denominator
+//     applied after PV, as every kernel of the port does;
+//   * mma.sync m16n8k16 with ldmatrix fragments (mma.cuh), so that the CPU
+//     emulation (csrc/emulate/) runs it; Q and K rows at a pitch of 104
+//     (13 16-byte chunks, odd: ldmatrix conflict-free), V rows unpadded with
+//     16-byte chunk c of row r at c ^ (r % 8).
+// Measured on the H100 (PERF.md, scripts/window_breakdown.py): K2 0.59 ms,
+// K7 0.49 at the engine's shapes; the loads and staging alone take 0.31 /
+// 0.25, the products add 0.2 and the softmax 0.07, so the loads are not
+// hidden and the products (their ldmatrix traffic and mma.sync issue) are
+// the larger half.  A persistent variant, one block of 8 warps per SM with
+// a ring of two window-heads, was slower (0.63 / 0.55 ms): the warps of a
+// block wait for each other at every window-head.
+// The entries choose this routine by shape in C (window_takes); float32,
+// other head dims and larger windows keep attention.cuh's routine.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "attention.cuh"
+#include "mma.cuh"
+
+namespace lameness {
+
+constexpr int kWinThreads = 128;          // 4 warps
+constexpr int kWinD = 64;                 // head dim
+constexpr int kWinAux = 32;               // bias columns: GH + GW <= 32
+constexpr int kWinQK = kWinD + kWinAux;   // 96: the QKᵀ contraction
+constexpr int kWinLD = kWinQK + 8;        // Q and K row pitch, bf16
+
+// sQ and sK [16·KT][kWinLD], then sV [16·KT][kWinD]
+template <int KT>
+constexpr size_t window_smem_bytes() {
+  return sizeof(__nv_bfloat16) * (size_t)(16 * KT) * (2 * kWinLD + kWinD);
+}
+
+// The row max, exp2 and row sum of one warp's 16 rows against all keys, in
+// place: s holds the raw contraction (scale not applied); on return it holds
+// exp2(scale·log2e·(s - max)) and l the two rows' sums (rows g and g + 8 of
+// the m16n8 fragments).  Keys past n become 0.
+template <int NT>
+__device__ __forceinline__ void window_softmax(float (&s)[NT][4], int n,
+                                               float c2, float (&l)[2]) {
+  const int t4 = threadIdx.x % 4;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    if (nt * 8 + 8 <= n) continue;
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      if (nt * 8 + 2 * t4 + j >= n) s[nt][j] = s[nt][2 + j] = -INFINITY;
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+      mx = fmaxf(mx, fmaxf(s[nt][2 * h], s[nt][2 * h + 1]));
+    mx = fmaxf(mx, shfl_xor(mx, 1));
+    mx = fmaxf(mx, shfl_xor(mx, 2));
+    const float mc = mx * c2;   // key 0 is valid: mx is finite
+    float sum = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      s[nt][2 * h] = exp2f(fmaf(s[nt][2 * h], c2, -mc));
+      s[nt][2 * h + 1] = exp2f(fmaf(s[nt][2 * h + 1], c2, -mc));
+      sum += s[nt][2 * h] + s[nt][2 * h + 1];
+    }
+    sum += shfl_xor(sum, 1);
+    l[h] = sum + shfl_xor(sum, 2);
+  }
+}
+
+// KT: 16-key tiles of the padded window (16·KT >= n).
+template <int KT>
+__global__ void __launch_bounds__(kWinThreads, 2)
+    window_attention_kernel(const AttnArgs a) {
+  using T = __nv_bfloat16;
+  constexpr int R = 16 * KT;          // rows and keys, padded
+  constexpr int KD = kWinQK / 16;     // k-steps of QKᵀ
+  constexpr int NT = 2 * KT;          // n-tiles of the scores
+  constexpr int ND = kWinD / 8;       // n-tiles of the output
+  extern __shared__ __align__(16) unsigned char mma_smem[];
+  T* sQ = reinterpret_cast<T*>(mma_smem);
+  T* sK = sQ + R * kWinLD;
+  T* sV = sK + R * kWinLD;
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int n = a.n_k, gw = a.gw, gh = n / gw;
+  const int outer = blockIdx.x / a.heads, head = blockIdx.x % a.heads;
+  const T* q = static_cast<const T*>(a.q) + offset(a.q_s, outer, head);
+  const T* k = static_cast<const T*>(a.k) + offset(a.k_s, outer, head);
+  const T* v = static_cast<const T*>(a.v) + offset(a.v_s, outer, head);
+  const T* rh = static_cast<const T*>(a.rh) + offset(a.rh_s, outer, head);
+  const T* rw = static_cast<const T*>(a.rw) + offset(a.rw_s, outer, head);
+  T* o = static_cast<T*>(a.o) + offset(a.o_s, outer, head);
+
+  // q, k, v: 16-byte chunks; rows past n zero-filled (reading nothing)
+  for (int i = tid; i < R * 8; i += kWinThreads) {
+    const int r = i / 8, c = (i % 8) * 8;
+    const bool ok = r < n;
+    const long long t = ok ? r : 0;
+    cp_async_16(sQ + r * kWinLD + c, q + t * a.q_s[2] + c, ok);
+    cp_async_16(sK + r * kWinLD + c, k + t * a.k_s[2] + c, ok);
+    cp_async_16(sV + r * kWinD + (c ^ ((r % 8) * 8)), v + t * a.v_s[2] + c,
+                ok);
+  }
+  // rh and rw into q's columns 64.. (rh[t, 0..GH), then rw[t, 0..GW), zeros
+  // to column 95): 4-byte words where every row starts on one, else
+  // element by element
+  const bool words =
+      ((reinterpret_cast<uintptr_t>(rh) | reinterpret_cast<uintptr_t>(rw)) &
+       3) == 0 &&
+      ((a.rh_s[2] | a.rw_s[2] | gh | gw) & 1) == 0;
+  if (words) {
+    for (int i = tid; i < R * kWinAux / 2; i += kWinThreads) {
+      const int r = i / (kWinAux / 2), c = (i % (kWinAux / 2)) * 2;
+      const T* src = rh;
+      bool ok = false;
+      if (r < n && c < gh) {
+        src = rh + r * a.rh_s[2] + c;
+        ok = true;
+      } else if (r < n && c < gh + gw) {
+        src = rw + r * a.rw_s[2] + (c - gh);
+        ok = true;
+      }
+      cp_async_4(sQ + r * kWinLD + kWinD + c, src, ok);
+    }
+  } else {
+    const T zero = __float2bfloat16(0.f);
+    for (int i = tid; i < R * kWinAux; i += kWinThreads) {
+      const int r = i / kWinAux, c = i % kWinAux;
+      T val = zero;
+      if (r < n && c < gh)
+        val = rh[r * a.rh_s[2] + c];
+      else if (r < n && c < gh + gw)
+        val = rw[r * a.rw_s[2] + (c - gh)];
+      sQ[r * kWinLD + kWinD + c] = val;
+    }
+  }
+  cp_async_commit();
+  // k's columns 64..95: 1/scale at column j / GW and at GH + j % GW of key j
+  // (keys past n: zeros), 8 columns a store
+  const float inv_scale = 1.f / a.scale;
+  for (int i = tid; i < R * kWinAux / 8; i += kWinThreads) {
+    const int r = i / (kWinAux / 8), c0 = (i % (kWinAux / 8)) * 8;
+    const int kh = r / gw, kw = gh + r % gw;
+    uint32_t* dst = reinterpret_cast<uint32_t*>(sK + r * kWinLD + kWinD + c0);
+#pragma unroll
+    for (int e = 0; e < 8; e += 2) {
+      const int c = c0 + e;
+      const bool lo = r < n && (c == kh || c == kw);
+      const bool hi = r < n && (c + 1 == kh || c + 1 == kw);
+      dst[e / 2] = pack_bf16x2(lo ? inv_scale : 0.f, hi ? inv_scale : 0.f);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const float c2 = a.scale * kLog2e;
+  const int m_tiles = (n + 15) / 16;
+  for (int mt = warp; mt < m_tiles; mt += kWinThreads / 32) {
+    // S = [q | rh | rw] · [k | spreadᵀ/scale | modᵀ/scale]ᵀ: 16 rows x all
+    // keys; one ldmatrix gives the A fragment of a k-step, another the B
+    // fragments of n-tiles 2p, 2p + 1
+    float s[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+    const T* qrow = sQ + (mt * 16 + lane % 16) * kWinLD + (lane / 16) * 8;
+    const T* krow = sK + ((lane / 16) * 8 + lane % 8) * kWinLD +
+                    ((lane / 8) % 2) * 8;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t qa[4];
+      ldmatrix_x4(qa, qrow + kk * 16);
+#pragma unroll
+      for (int p = 0; p < KT; ++p) {
+        uint32_t b[4];
+        ldmatrix_x4(b, krow + p * 16 * kWinLD + kk * 16);
+        mma_bf16_16816(s[2 * p], qa, b[0], b[1]);
+        mma_bf16_16816(s[2 * p + 1], qa, b[2], b[3]);
+      }
+    }
+
+    float l[2];
+    window_softmax(s, n, c2, l);
+
+    // O = P V: the score fragments of n-tiles 2c, 2c + 1 are the A fragment
+    // of k-step c; one transposed ldmatrix gives the V fragments of output
+    // n-tiles j, j + 1 (the key's row % 8 is lane % 8)
+    float acc[ND][4];
+#pragma unroll
+    for (int j = 0; j < ND; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+#pragma unroll
+    for (int c = 0; c < KT; ++c) {
+      const uint32_t pa[4] = {pack_bf16x2(s[2 * c][0], s[2 * c][1]),
+                              pack_bf16x2(s[2 * c][2], s[2 * c][3]),
+                              pack_bf16x2(s[2 * c + 1][0], s[2 * c + 1][1]),
+                              pack_bf16x2(s[2 * c + 1][2], s[2 * c + 1][3])};
+      const T* vrow = sV + (c * 16 + ((lane / 8) % 2) * 8 + lane % 8) * kWinD;
+#pragma unroll
+      for (int j = 0; j < ND; j += 2) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, vrow + ((j + lane / 16) ^ (lane % 8)) * 8);
+        mma_bf16_16816(acc[j], pa, b[0], b[1]);
+        mma_bf16_16816(acc[j + 1], pa, b[2], b[3]);
+      }
+    }
+
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int tok = mt * 16 + g + 8 * h;
+      if (tok >= n) continue;
+      const float inv = 1.f / l[h];
+      T* orow = o + tok * a.o_s[2] + 2 * t4;
+#pragma unroll
+      for (int j = 0; j < ND; ++j)
+        *reinterpret_cast<uint32_t*>(orow + j * 8) =
+            pack_bf16x2(acc[j][2 * h] * inv, acc[j][2 * h + 1] * inv);
+    }
+  }
+}
+
+// The window routine takes bf16 at head dim 64, windows of at most 256
+// tokens whose GH + GW bias columns fit in 32.
+inline bool window_takes(const AttnArgs& a, int batch, int head_dim,
+                         int dtype) {
+  return !bad_shape(a, batch, dtype, true) && dtype == 1 &&
+         head_dim == kWinD && a.n_q == a.n_k && a.n_k <= 256 &&
+         a.n_k / a.gw + a.gw <= kWinAux;
+}
+
+template <int KT>
+cudaError_t launch_window_kt(const AttnArgs& a, int batch, cudaStream_t st) {
+  // the most shared memory the SM offers (2 blocks of 113 KB at N = 196);
+  // 100 is cudaSharedmemCarveoutMaxShared
+  const cudaError_t err = cudaFuncSetAttribute(
+      window_attention_kernel<KT>,
+      cudaFuncAttributePreferredSharedMemoryCarveout, 100);
+  if (err != cudaSuccess) return err;
+  return launch_kernel(window_attention_kernel<KT>, a, batch, kWinThreads,
+                       window_smem_bytes<KT>(), st);
+}
+
+// One block per (window, head): batch = windows x heads.  Returns a
+// cudaError_t as int.
+inline int launch_window(const AttnArgs& a, int batch, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (a.n_k <= 64) return (int)launch_window_kt<4>(a, batch, st);
+  if (a.n_k <= 128) return (int)launch_window_kt<8>(a, batch, st);
+  if (a.n_k <= 208) return (int)launch_window_kt<13>(a, batch, st);
+  return (int)launch_window_kt<16>(a, batch, st);
+}
+
+}  // namespace lameness

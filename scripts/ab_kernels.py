@@ -1,18 +1,18 @@
 #!/usr/bin/env python3
-"""Time the port's default kernels (K1, K2, K3) and K5 of two checkouts on
-one card, in turns.
+"""Time the port's default kernels (K1, K2, K3), K5 and K7 of two checkouts
+on one card, in turns.
 
     python scripts/ab_kernels.py ROOT_A ROOT_B
 
 ROOT_A and ROOT_B are repository roots (e.g. an unpacked ``git archive`` of
 the parent commit, and ``.``).  Each turn is a process of its own that
 imports ``lameness_tpu_torch`` from its root, builds that root's kernels,
-and prints the bf16 device time per call of K1, K2, K3 and K5 at the shapes
-the full-width engine gives them for B = 2 clips: torch.profiler's summed
-time of the port's kernels only, over 20 calls (K1, K2) or 5 (K3, K5).  The turns run
-in the order A B B A, so that a drift of the card between the first and the
-last turn shows as a difference between the two A rows.  The card's name
-and power limit come first.
+and prints the bf16 device time per call of K1, K2, K3, K5 and K7 at the
+shapes the full-width engine gives them for B = 2 clips: torch.profiler's
+summed time of the port's kernels only, over 20 calls (K1, K2, K7) or 5 (K3,
+K5).  The turns run in the order A B B A, so that a drift of the card
+between the first and the last turn shows as a difference between the two A
+rows.  The card's name and power limit come first.
 """
 from __future__ import annotations
 
@@ -41,6 +41,14 @@ def worker(root: str) -> None:
     rh4, rw4 = sa.project_rel_tables_hl(q4, rnd(27, 64, std=0.1),
                                         rnd(27, 64, std=0.1), 14)
     calls["K2"] = (lambda: sa.sam_window_attention_v3(q4, k4, v4, rh4, rw4),
+                   20)
+    # K7 on the head-major views of the same qkv output, and the tables as
+    # project_rel_tables gives them to the engine's head-major route
+    q7, k7, v7 = (t.transpose(1, 2) for t in (q4, k4, v4))
+    rh7, rw7 = (t.reshape(550, 12, 196, 14) for t in sa.project_rel_tables(
+        q7.reshape(-1, 196, 64), rnd(27, 64, std=0.1), rnd(27, 64, std=0.1),
+        14))
+    calls["K7"] = (lambda: sa.sam_window_attention_v1(q7, k7, v7, rh7, rw7),
                    20)
     qg, kg, vg = (rnd(264, 4096, 64) for _ in range(3))
     rh, rw = sa.project_rel_tables(qg, rnd(127, 64, std=0.1),

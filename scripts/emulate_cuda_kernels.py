@@ -98,8 +98,13 @@ def main() -> int:
             call(lib, at.KERNEL, at.attention_args(q, k, v, out, d ** -0.5))
             report("K1", dtype, (b, h, s, d), out,
                    at.reference_attention(q, k, v))
-        # K2: windows with pad tokens (unmasked), fused-qkv slices
-        for bw, win, nh, hd in ((2, 7, 2, 32), (1, 14, 2, 64)):
+        # K2: windows with pad tokens (unmasked), fused-qkv slices.  bf16 at
+        # hd 64 takes the window routine (window_attention.cuh): 16-key
+        # tiles KT = 4 (win 7, 8), 13 (win 14) and 16 (win 16); tables read
+        # by words (even win) or element by element (win 7).  The rest:
+        # attention.cuh's routine
+        for bw, win, nh, hd in ((2, 7, 2, 32), (2, 14, 2, 64), (2, 7, 2, 64),
+                                (1, 8, 2, 64), (2, 16, 2, 64)):
             qkv = rnd(bw, win * win, 3, nh, hd, dtype=dtype)
             q4, k4, v4 = qkv.unbind(2)
             rh4, rw4 = sa.project_rel_tables_hl(
@@ -126,7 +131,9 @@ def main() -> int:
                 report(name, dtype, (bh, gh, gw, d), out,
                        sa.sam_attention_reference(q, k, v, rh, rw))
         # K7: head-major windows, q/k/v strided views of a fused qkv output
-        for bw, win, nh, hd in ((2, 7, 2, 32), (1, 14, 2, 64), (1, 5, 1, 80)):
+        # (the window routine at bf16 hd 64: KT = 4, 13 with N = 144 < 208)
+        for bw, win, nh, hd in ((2, 7, 2, 32), (1, 14, 2, 64), (1, 5, 1, 80),
+                                (2, 7, 2, 64), (1, 12, 2, 64)):
             n = win * win
             qkv = rnd(bw, n, 3, nh, hd, dtype=dtype)
             q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))

@@ -55,44 +55,70 @@ ROWS = (("whole", (), ()),
         ("K/V stream only", (), _NO_SOFTMAX + _NO_PRODUCTS))
 
 
-def build() -> list:
-    """One library per row (the whole kernel once): nvcc all together."""
-    shutil.rmtree(OUT, ignore_errors=True)
+def build(sources=(SOURCE,), header: str = "hopper_attention.cuh",
+          rows=ROWS, out=OUT) -> list:
+    """One library per row and source, each from its own copy of ``csrc/``
+    with the row's stubs put into its copy of ``header``: nvcc all
+    together.  Returns, per row, {source: library}."""
+    shutil.rmtree(out, ignore_errors=True)
     procs = []
-    for i, (label, flags, stubs) in enumerate(ROWS):
-        src = OUT / f"src{i}"
+    for i, (label, flags, stubs) in enumerate(rows):
+        src = out / f"src{i}"
         src.mkdir(parents=True)
-        for f in (*_cuda.CSRC.glob("*.cuh"), _cuda.CSRC / f"{SOURCE}.cu"):
+        for f in (*_cuda.CSRC.glob("*.cuh"),
+                  *(_cuda.CSRC / f"{s}.cu" for s in sources)):
             shutil.copy(f, src / f.name)
-        header = src / "hopper_attention.cuh"
-        text = header.read_text()
+        path = src / header
+        text = path.read_text()
         for anchor, stub in stubs:
             if text.count(anchor) != 1:
-                raise SystemExit(f"{label}: '{anchor}' is not in "
-                                 f"hopper_attention.cuh exactly once")
+                raise SystemExit(f"{label}: '{anchor}' is not in {header} "
+                                 f"exactly once")
             text = text.replace(anchor, f"{anchor}\n    {stub}")
-        header.write_text(text)
-        lib = OUT / f"lib{i}.so"
-        cmd = [_cuda._nvcc(), *_cuda.NVCC_FLAGS, *flags, "-o", str(lib),
-               str(src / f"{SOURCE}.cu")]
-        procs.append((label, lib, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
-    _cuda.build([SOURCE])     # the package's own, for the bitwise check
-    libs = []
-    for label, lib, proc in procs:
+        path.write_text(text)
+        for s in sources:
+            lib = out / f"lib{s}-{i}.so"
+            cmd = [_cuda._nvcc(), *_cuda.NVCC_FLAGS, *flags, "-o", str(lib),
+                   str(src / f"{s}.cu")]
+            procs.append((i, label, s, lib, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+    _cuda.build(sources)     # the package's own, for the bitwise check
+    libs = [{} for _ in rows]
+    for i, label, s, lib, proc in procs:
         log, _ = proc.communicate()
         if proc.returncode:
-            raise SystemExit(f"{label}: nvcc exit {proc.returncode}\n{log}")
-        libs.append(ctypes.CDLL(str(lib)))
+            raise SystemExit(f"{label} {s}: nvcc exit {proc.returncode}\n"
+                             f"{log}")
+        libs[i][s] = ctypes.CDLL(str(lib))
     return libs
 
 
-def main() -> int:
+def card() -> None:
+    """The card's name and power limit, first."""
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
-    libs = build()
+
+
+def device_ms(call, reps: int) -> float:
+    """torch.profiler's summed device time of the port's kernels
+    (``lameness::``) over ``reps`` calls, per call, after one warm call."""
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and "lameness::" in e.key)
+    return us / reps / 1e3
+
+
+def main() -> int:
+    card()
+    libs = [row[SOURCE] for row in build()]
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def rnd(*shape, std=1.0):
@@ -127,17 +153,8 @@ def main() -> int:
         raise SystemExit("the whole build differs from the package's kernel")
     for label, lib in zip([r[0] for r in ROWS] + ["whole"],
                           libs + [libs[0]]):
-        call = runner(lib)
-        call()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(5):
-                call()
-            torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA
-                 and "lameness::" in e.key)
-        print(f"K5 {label:16s} {us / 5 / 1e3:.4f} ms", flush=True)
+        print(f"K5 {label:16s} {device_ms(runner(lib), 5):.4f} ms",
+              flush=True)
     return 0
 
 

@@ -172,6 +172,53 @@ def test_head_major_window_kernels(dev, dtype, tol, win, hd, entry, kernel):
     torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
 
 
+def _window_call(dev, dtype, win, hd, entry):
+    """K2 on head-last slices of a fused qkv output, or K7 on its strided
+    head-major views (tables too): the kernel's output, its plain version's
+    and the launches of the entry's kernel."""
+    qkv = _rnd(dev, dtype, 6, win * win, 3, 4, hd)
+    q4, k4, v4 = qkv.unbind(2)
+    rh4, rw4 = sa.project_rel_tables_hl(
+        q4, _rnd(dev, dtype, 2 * win - 1, hd, seed=1, s=0.1),
+        _rnd(dev, dtype, 2 * win - 1, hd, seed=2, s=0.1), win)
+    if entry == "sam_window_attention_v3":
+        args, record = (q4, k4, v4, rh4, rw4), sa.WINDOW_KERNEL
+        plain = sa.window_attention_reference
+    else:
+        args = tuple(t.transpose(1, 2) for t in (q4, k4, v4, rh4, rw4))
+        record, plain = sa.WINDOW_V1_KERNEL, sa.window_attention_hm_reference
+    before = record.launches
+    got = getattr(sa, entry)(*args)
+    return got, plain(*args), record.launches - before
+
+
+@pytest.mark.parametrize("win", [14, 7, 8, 16])
+@pytest.mark.parametrize("entry", ["sam_window_attention_v3",       # K2
+                                   "sam_window_attention_v1"])      # K7
+def test_window_routine(dev, win, entry):
+    """bf16 at hd 64: the window routine (csrc/window_attention.cuh), one
+    block per (window, head).  win 14: SAM's 196 tokens in 13 key tiles;
+    win 7: 49 tokens, 15 of 64 padded keys masked, tables read element by
+    element (odd rows); win 16: 256 tokens, the largest window it takes."""
+    got, ref, launches = _window_call(dev, torch.bfloat16, win, 64, entry)
+    assert launches == 1
+    torch.testing.assert_close(got.float(), ref.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+@pytest.mark.parametrize("dtype,tol,win,hd", [
+    (torch.float32, 1e-4, 14, 32), (torch.bfloat16, 2e-2, 14, 32),
+    (torch.float32, 1e-4, 14, 64), (torch.bfloat16, 2e-2, 17, 64)])
+@pytest.mark.parametrize("entry", ["sam_window_attention_v3",       # K2
+                                   "sam_window_attention_v1"])      # K7
+def test_window_off_route(dev, dtype, tol, win, hd, entry):
+    """Shapes off the window routine keep attention.cuh's: float32, hd 32,
+    and a 17 x 17 window (289 tokens, 34 bias columns)."""
+    got, ref, launches = _window_call(dev, dtype, win, hd, entry)
+    assert launches == 1
+    torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
+
+
 @pytest.mark.parametrize("dtype,tol", DTYPES)
 @pytest.mark.parametrize("win,hd", [(14, 64), (14, 80), (8, 16)])
 def test_head_last_window_v5_kernel(dev, dtype, tol, win, hd):
