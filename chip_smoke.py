@@ -7,13 +7,16 @@ Phases, each failing loudly (no exception is swallowed):
   1. setup: card name and power limit, versions, TF32 off, build the
      kernels from csrc/ with nvcc (one process per source, in parallel);
      per library the registers and spills ptxas reports and the HGMMA
-     (wgmma) instructions in its SASS -- K5's must have them;
+     (wgmma) instructions in its SASS -- those of K3, K4 and K5 (one Hopper
+     routine) must have them;
   2. kernels: K1-K9 against their plain PyTorch versions at the engine's
      shapes, in float32 and bfloat16, with device times (torch.profiler)
      beside the bound, the plain version's and a PyTorch library call's as
      yardsticks (the library call timed by the profiler and by CUDA
-     events); the entries of K2, K5 and K7 must put nothing on the card but
-     their kernel;
+     events); the entries of K2, K3, K4, K5 and K7 must put nothing on the
+     card but their kernel; K3, K4 and K5 must give the same bf16 output
+     bit for bit at the engine's shapes (one routine on one set of
+     operands);
   3. engine: a small engine on the card against the same engine's plain
      path on the CPU (same weights, same frames), under each kernel
      selection; then the full-width engine (YOLOv8-n 640, SAM ViT-B 1024²,
@@ -78,10 +81,14 @@ SELECTIONS = (
 # head would move the embeddings by O(1).
 EMB_RTOL = 5e-2
 
-# the kernels whose entries put nothing on the card but the kernel: K5 reads
-# the tables where the einsum leaves them, K2 and K7 take q, k, v and the
-# tables as they are (their routine builds the bias operands in shared memory)
-ENTRY_ALONE = ("K2", "K5", "K7")
+# the kernels whose entries put nothing on the card but the kernel: K3, K4
+# and K5 read the tables where the einsum leaves them, K2 and K7 take q, k, v
+# and the tables as they are (their routine builds the bias operands in
+# shared memory)
+ENTRY_ALONE = ("K2", "K3", "K4", "K5", "K7")
+# the libraries of the Hopper global routine (wgmma): K3, K4, K5
+HOPPER_SOURCES = ("sam_global_attention", "sam_global_attention_v1",
+                  "sam_global_attention_v2")
 
 # H100 SXM dense peaks (NVIDIA data sheet) for the bound of each kernel
 PEAK_BYTES_S = 3.35e12
@@ -427,7 +434,25 @@ def check_kernels(batch: int = BATCH):
             del args, out, ref, plain
         torch.cuda.empty_cache()
         records[kid] = rec
-    return records, all_ok
+    return records, all_ok & check_global_bitwise(batch, gen)
+
+
+def check_global_bitwise(batch: int, gen) -> bool:
+    """K3, K4 and K5 run one device routine on one set of operands: their
+    bf16 outputs at the engine's shapes must be equal bit for bit."""
+    import torch
+    from lameness_tpu_torch.ops import sam_attention as sa
+    args = kernel_inputs("global", torch.bfloat16, batch, gen)
+    outs = {kid: getattr(sa, entry)(*args)
+            for kid, _, entry, *_ in KERNEL_TABLE
+            if kid in ("K3", "K4", "K5")}
+    torch.cuda.synchronize()
+    same = {kid: bool(torch.equal(out, outs["K3"]))
+            for kid, out in outs.items()}
+    ok = all(same.values())
+    log(f"  K3, K4, K5 bfloat16 {tuple(args[0].shape)}: bit-identical to "
+        f"K3 {json.dumps(same)}  {'ok' if ok else 'FAIL'}")
+    return ok
 
 
 # ---------------------------------------------------------------------------
@@ -709,9 +734,10 @@ def main() -> int:
               f"from the repository root", file=sys.stderr)
         return 3
     smi, hgmma = setup()
-    ok_build = hgmma["sam_global_attention_v2"] > 0
+    ok_build = all(hgmma[name] > 0 for name in HOPPER_SOURCES)
     if not ok_build:
-        log("K5's library holds no HGMMA: its wgmma route was not built")
+        log("a library of K3-K5 holds no HGMMA: its wgmma route was not "
+            "built " + json.dumps({n: hgmma[n] for n in HOPPER_SOURCES}))
     log("== phase 2: kernels against their plain versions")
     records, ok_k = check_kernels()
     log("== phase 3: engine")

@@ -1,7 +1,7 @@
 // One online-softmax attention routine, shared by the port's nine kernels
-// (two of which have a routine of their own for their main shapes, bf16 at
-// head dim 64: K5 hopper_attention.cuh, K2 and K7 window_attention.cuh;
-// their other shapes come here):
+// (five of which have a routine of their own for their main shapes, bf16 at
+// head dim 64: K3, K4 and K5 hopper_attention.cuh, K2 and K7
+// window_attention.cuh; their other shapes come here):
 //   K1 attention.cu               softmax(q k^T scale) v               (DINO)
 //   K2 sam_window_attention.cu    + decomposed rel-pos bias, 14x14 windows,
 //                                 head-last views of the qkv output
@@ -37,7 +37,10 @@
 //   * keys past n_k are masked to -inf here, so callers pad nothing;
 //   * tensors are addressed through strides (batch index b splits into
 //     b / heads and b % heads), so head-last views of a fused qkv output are
-//     read in place; only the feature axis must be contiguous;
+//     read in place; only the feature axis must be contiguous.  The bias
+//     tables' token t lies at (t / gw)·row + (t % gw)·s[2] (rh_row,
+//     rw_row), so the global entries read the (BH, GH, GW, ·) tables where
+//     the rel-pos einsum leaves them, grid-row-major or not;
 //   * the grid is 1-D with the q block fastest, so the blocks of one head
 //     run together and share its K/V through L2.
 //
@@ -49,8 +52,8 @@
 //   the 64x64 grid the rw part then lives in registers: ROW_TILE); the
 //   softmax in the exp2 domain, row max and sum across the 4 lanes of a
 //   row by shuffles; K and V fragments by ldmatrix.  Left for later: wgmma
-//   and TMA, warp specialisation (K5's routine has them, for K3, K4 and K6
-//   to take), and K8, K9 onto the window routine, which keeps a window's
+//   and TMA, warp specialisation (the Hopper routine of K3-K5 has them, for
+//   K6 to take), and K8, K9 onto the window routine, which keeps a window's
 //   K/V for all its rows and builds the augmented columns in shared memory.
 // float32 (exact reference path): attention_f32_kernel, plain FMA loops with
 //   a 4x2 (scores) and 4x(DV/16) (output) register tile per thread, one
@@ -83,6 +86,10 @@ struct AttnArgs {
   float scale;
   // element strides {outer, head, token}; the feature axis has stride 1
   long long q_s[3], k_s[3], v_s[3], o_s[3], rh_s[3], rw_s[3];
+  // the tables' grid-row strides: token t's row of rh at
+  // (t / gw)·rh_row + (t % gw)·rh_s[2] (gw·rh_s[2] where tokens are evenly
+  // spaced, as sam_args sets it), rw alike
+  long long rh_row, rw_row;
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -93,6 +100,14 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
 __device__ __forceinline__ long long offset(const long long* s, int outer,
                                             int head) {
   return (long long)outer * s[0] + (long long)head * s[1];
+}
+
+// the offset of token tok's row in a bias table of grid width gw, at grid
+// row stride `row` and grid column stride `col`
+__host__ __device__ __forceinline__ long long table_row(long long row,
+                                                        long long col, int gw,
+                                                        int tok) {
+  return (long long)(tok / gw) * row + (long long)(tok % gw) * col;
 }
 
 // ---------------------------------------------------------------------------
@@ -187,6 +202,10 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = ty * 4 + i, t = q0 + r;
+      const float* rh_t =
+          RH ? rh + table_row(a.rh_row, a.rh_s[2], a.gw, t) : nullptr;
+      const float* rw_t =
+          RW ? rw + table_row(a.rw_row, a.rw_s[2], a.gw, t) : nullptr;
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int c = tx + 16 * j, key = k0 + c;
@@ -194,10 +213,9 @@ __global__ void __launch_bounds__(kThreads)
         if (key < a.n_k) {
           val = s[i][j] * a.scale;
           if (RH && t < a.n_q)
-            val += rh[t * a.rh_s[2] + key / a.gw] +
-                   rw[t * a.rw_s[2] + key % a.gw];
+            val += rh_t[key / a.gw] + rw_t[key % a.gw];
           else if (RW && t < a.n_q)
-            val += rw[t * a.rw_s[2] + key % a.gw];
+            val += rw_t[key % a.gw];
         }
         sP[r * PP + c] = val;
       }
@@ -283,6 +301,33 @@ inline size_t mma_bias_bytes(int gh, int gw) {
   return sizeof(float) * (size_t)kMmaBlockQ * (gh + 1 + gw + 1);
 }
 
+// Rows q0 .. q0 + kMmaBlockQ - 1 of a bias table into dst[r·pitch + c] as
+// f32·log2e, zeros past n_q.  Token t's row lies at t·col_s where the tokens
+// are evenly spaced (row_s == gw·col_s: window and head-last tables), else at
+// table_row(row_s, col_s, gw, t) (the global entries' tables as the einsum
+// leaves them).  Both loops give the same values; the first keeps the
+// division per element out, which cost K6 7% on the card (PERF.md).
+template <typename T>
+__device__ __forceinline__ void stage_bias(float* dst, int pitch,
+                                           const T* src, long long row_s,
+                                           long long col_s, int gw,
+                                           int width, int q0, int n_q) {
+  if (row_s == (long long)gw * col_s) {
+    for (int i = threadIdx.x; i < kMmaBlockQ * width; i += kMmaThreads) {
+      const int r = i / width, c = i % width, tok = q0 + r;
+      dst[r * pitch + c] =
+          tok < n_q ? to_f32(src[tok * col_s + c]) * kLog2e : 0.f;
+    }
+    return;
+  }
+  for (int i = threadIdx.x; i < kMmaBlockQ * width; i += kMmaThreads) {
+    const int r = i / width, c = i % width, tok = q0 + r;
+    dst[r * pitch + c] =
+        tok < n_q ? to_f32(src[table_row(row_s, col_s, gw, tok) + c]) * kLog2e
+                  : 0.f;
+  }
+}
+
 // ROW_TILE: gw == kMmaBlockK (the 64x64 grid of the 1024^2 canvas): a key
 // tile is one grid row, so kh is the tile index and kw the column in the
 // tile; each lane's rw values are the same in every tile and stay in
@@ -350,22 +395,14 @@ __global__ void __launch_bounds__(kMmaThreads)
   cp_async_commit();
 
   // the block's bias rows, f32, in the exp2 domain
-  if (RH) {
-    const T* rh = static_cast<const T*>(a.rh) + offset(a.rh_s, outer, head);
-    for (int i = tid; i < kMmaBlockQ * gh; i += kMmaThreads) {
-      const int r = i / gh, c = i % gh, tok = q0 + r;
-      sRH[r * rhp + c] =
-          tok < a.n_q ? to_f32(rh[tok * a.rh_s[2] + c]) * kLog2e : 0.f;
-    }
-  }
-  if (RW) {
-    const T* rw = static_cast<const T*>(a.rw) + offset(a.rw_s, outer, head);
-    for (int i = tid; i < kMmaBlockQ * a.gw; i += kMmaThreads) {
-      const int r = i / a.gw, c = i % a.gw, tok = q0 + r;
-      sRW[r * rwp + c] =
-          tok < a.n_q ? to_f32(rw[tok * a.rw_s[2] + c]) * kLog2e : 0.f;
-    }
-  }
+  if (RH)
+    stage_bias(sRH, rhp, static_cast<const T*>(a.rh) +
+                             offset(a.rh_s, outer, head),
+               a.rh_row, a.rh_s[2], a.gw, gh, q0, a.n_q);
+  if (RW)
+    stage_bias(sRW, rwp, static_cast<const T*>(a.rw) +
+                             offset(a.rw_s, outer, head),
+               a.rw_row, a.rw_s[2], a.gw, a.gw, q0, a.n_q);
 
   const int row0 = warp * 16 + g;          // this lane's rows: row0, row0 + 8
   const float scale2 = a.scale * kLog2e;
@@ -643,7 +680,9 @@ inline void copy_strides(long long* dst, const long long* src) {
 
 // The arguments of the SAM entries (K2-K9): tensors q, k, v, rh, rw, o with
 // their {outer, head, token} strides in that order in `strides` (18 values;
-// rh and rw may be null, their strides then unused).
+// rh and rw may be null, their strides then unused).  The tables' tokens are
+// evenly spaced; global_entry (global_attention.cuh) resets the grid-row
+// strides for tables at {head, grid row, grid column}.
 inline AttnArgs sam_args(const void* q, const void* k, const void* v,
                          const void* rh, const void* rw, void* o, int tokens,
                          int heads, int gw, float scale,
@@ -666,6 +705,8 @@ inline AttnArgs sam_args(const void* q, const void* k, const void* v,
   copy_strides(a.rh_s, strides + 9);
   copy_strides(a.rw_s, strides + 12);
   copy_strides(a.o_s, strides + 15);
+  a.rh_row = (long long)gw * a.rh_s[2];
+  a.rw_row = (long long)gw * a.rw_s[2];
   return a;
 }
 

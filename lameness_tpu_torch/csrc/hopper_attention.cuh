@@ -1,7 +1,8 @@
 // The Hopper global attention routine: softmax(scale·q·kᵀ + rh[t, j / GW] +
-// rw[t, j % GW]) · v in bf16 with wgmma and TMA (sm_90a).  K5
-// (sam_global_attention_v2.cu) launches it; its function is K3's, so K3, K4
-// and K6 can take it later.
+// rw[t, j % GW]) · v in bf16 with wgmma and TMA (sm_90a).  K3, K4 and K5
+// launch it through global_entry (global_attention.cuh), which chooses it
+// by shape; K6 computes the same function on head-last views and can take
+// it once the TMA maps read those.
 //
 // A block owns 192 query rows of one head and walks the keys in tiles of
 // 128 with an online softmax:
@@ -91,20 +92,21 @@ __device__ __forceinline__ float row_reduce(const float (&s)[64], int h,
 }
 
 // Rows q0 .. q0 + kHopBlockQ - 1 of a bf16 (GH, GW, width) table (token
-// t at (t / GW)·s[1] + (t % GW)·s[2]) into dst[r·pitch + c] as f32·log2e,
+// t at (t / GW)·row + (t % GW)·col) into dst[r·pitch + c] as f32·log2e,
 // zeros past n_q; run by the consumers.  Where width, the strides and the
 // address allow, in 16-byte loads, a thread's four loads issued before its
 // stores (a block stages 48 KB of tables before its first tile: one
 // dependent load per element made that a large share of the kernel).
 __device__ __forceinline__ void stage_rows(float* dst, int pitch,
                                            const __nv_bfloat16* src,
-                                           const long long* s, int gw,
-                                           int width, int q0, int n_q) {
+                                           long long row_s, long long col_s,
+                                           int gw, int width, int q0,
+                                           int n_q) {
   const int tid = threadIdx.x;
   auto row = [&](int tok) {
-    return src + (long long)(tok / gw) * s[1] + (long long)(tok % gw) * s[2];
+    return src + table_row(row_s, col_s, gw, tok);
   };
-  if (width % 8 || s[1] % 8 || s[2] % 8 ||
+  if (width % 8 || row_s % 8 || col_s % 8 ||
       reinterpret_cast<uintptr_t>(src) % 16) {
     for (int i = tid; i < kHopBlockQ * width; i += kHopConsumers) {
       const int r = i / width, c = i - r * width, tok = q0 + r;
@@ -178,10 +180,10 @@ __device__ __forceinline__ void consume(const AttnArgs& a, const HopLayout& L,
   const int tid = threadIdx.x;
 
   // the block's bias rows, f32, in the exp2 domain
-  stage_rows(sRH, rhp, static_cast<const T*>(a.rh) + a.rh_s[0] * bh, a.rh_s,
-             a.gw, gh, q0, a.n_q);
-  stage_rows(sRW, rwp, static_cast<const T*>(a.rw) + a.rw_s[0] * bh, a.rw_s,
-             a.gw, a.gw, q0, a.n_q);
+  stage_rows(sRH, rhp, static_cast<const T*>(a.rh) + a.rh_s[0] * bh,
+             a.rh_row, a.rh_s[2], a.gw, gh, q0, a.n_q);
+  stage_rows(sRW, rwp, static_cast<const T*>(a.rw) + a.rw_s[0] * bh,
+             a.rw_row, a.rw_s[2], a.gw, a.gw, q0, a.n_q);
   // the ones (B of the row sums: any layout of ones reads as ones)
   uint32_t* ones = reinterpret_cast<uint32_t*>(sRH) - kHopOnesBytes / 4;
   for (int i = tid; i < kHopOnesBytes / 4; i += kHopConsumers)
@@ -513,8 +515,8 @@ inline bool tile_map(EncodeTiledFn enc, CUtensorMap* map, const void* ptr,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// The shapes this routine takes (for sam_args' one head per batch index):
-// bf16, head dim 64, and bias rows that fit in shared memory.
+// The shapes this routine takes (one head per batch index, as global_entry
+// passes them): bf16, head dim 64, and bias rows that fit in shared memory.
 inline bool hopper_global_takes(const AttnArgs& a, int batch, int head_dim,
                                 int dtype) {
   return !bad_shape(a, batch, dtype, true) && dtype == 1 &&

@@ -6,8 +6,8 @@
 // The TPU entry builds qa = [q*scale | rel_h] and ka = [k | spread^T] so that
 // rel_h rides in one K = 128 MXU contraction, which the MXU pads to anyway.
 // On the card that doubles QK^T and writes two (BH, N, 128) operands to HBM,
-// so this kernel takes what K3 takes: q, k, v (BH, N, D), rh (BH, N, GH) and
-// rw (BH, N, GW), the projected tables in q's dtype, and adds
+// so this kernel takes what K3 takes: q, k, v (BH, N, D), rh (BH, GH, GW, GH)
+// and rw (BH, GH, GW, GW), the projected tables in q's dtype, and adds
 // rh[t, j / GW] + rw[t, j % GW] per score.  The function is the same; only
 // the rounding points differ from the TPU's (rh is rounded to the compute
 // dtype by the caller, p is normalised after PV), inside the parity gates.
@@ -24,58 +24,19 @@
 // the tensor cores and the softmax's FP32 work is kept small.  3.13 ms on
 // the H100, bound by the softmax (PERF.md).
 //
-// Routes, chosen by shape here and nowhere else (a failed build or launch
-// raises in the Python wrapper; nothing falls back):
-//   * bfloat16, head dim 64, bias rows that fit in shared memory (square
-//     grids up to 68x68, every SAM canvas up to 1088^2): the Hopper kernel
-//     of hopper_attention.cuh -- wgmma for QK^T and PV, K/V tiles brought
-//     in by TMA from a producer warpgroup, 192 query rows per block in
-//     three consumer warpgroups;
-//   * anything else (float32, head dims 16, 32, 80, 128 -- 80 is SAM ViT-H):
-//     the mma.sync / FMA routine of attention.cuh on the same operands, as
-//     K3 launches it.
-// The CPU emulation (scripts/emulate_cuda_kernels.py, LAMENESS_EMULATION)
-// has no wgmma or TMA and always takes the second route.
-#include "attention.cuh"
-#ifndef LAMENESS_EMULATION
-#include "hopper_attention.cuh"
-#endif
+// Routes (global_attention.cuh, shared with K3 and K4, which compute the
+// same function on the same operands, bit for bit): bf16 at head dim 64
+// with bias rows that fit in shared memory takes the Hopper kernel of
+// hopper_attention.cuh -- wgmma for QK^T and PV, K/V tiles brought in by TMA
+// from a producer warpgroup, 192 query rows per block in three consumer
+// warpgroups; float32 and the other head dims (80 is SAM ViT-H) the mma.sync
+// / FMA routine of attention.cuh.
+#include "global_attention.cuh"
 
-// strides (18 values): q, k, v and o as {head, unused, token}; rh and rw,
-// (BH, GH, GW, ·) tables, as {head, grid row, grid column}, so that they are
-// read where project_rel_tables leaves them.  The mma.sync route needs a
-// token stride: grid row == GW x grid column, else cudaErrorInvalidValue
-// (lameness_sam_global_attention_v2_hopper tells the wrapper beforehand).
 extern "C" int lameness_sam_global_attention_v2(
     const void* q, const void* k, const void* v, const void* rh,
     const void* rw, void* o, int batch_heads, int tokens, int head_dim,
     int gw, const long long* strides, int dtype, void* stream) {
-  lameness::AttnArgs a = lameness::sam_args(
-      q, k, v, rh, rw, o, tokens, 1, gw, 1.0f / sqrtf((float)head_dim),
-      strides);
-#ifndef LAMENESS_EMULATION
-  if (lameness::hopper_global_takes(a, batch_heads, head_dim, dtype))
-    return lameness::launch_hopper_global(a, batch_heads, stream);
-#endif
-  if (a.rh_s[1] != (long long)gw * a.rh_s[2] ||
-      a.rw_s[1] != (long long)gw * a.rw_s[2])
-    return (int)cudaErrorInvalidValue;
-  a.rh_s[1] = a.rw_s[1] = 0;   // one head per batch index: the token stride
-  return lameness::launch<true>(a, batch_heads, head_dim, dtype, stream);
-}
-
-// 1 if lameness_sam_global_attention_v2 takes the wgmma route for these
-// shapes (and reads the tables at any grid-row stride), else 0.
-extern "C" int lameness_sam_global_attention_v2_hopper(int batch_heads,
-                                                       int tokens,
-                                                       int head_dim, int gw,
-                                                       int dtype) {
-#ifndef LAMENESS_EMULATION
-  lameness::AttnArgs a = {};
-  a.n_q = a.n_k = tokens;
-  a.gw = gw;
-  return lameness::hopper_global_takes(a, batch_heads, head_dim, dtype);
-#else
-  return 0;
-#endif
+  return lameness::global_entry(q, k, v, rh, rw, o, batch_heads, tokens,
+                                head_dim, gw, strides, dtype, stream);
 }

@@ -28,8 +28,8 @@ SOURCES = ("attention", "sam_window_attention", "sam_global_attention",
            "sam_global_attention_v3", "sam_window_attention_v1",
            "sam_window_attention_v2", "sam_window_attention_v5")
 # sm_90a (not sm_90): wgmma and setmaxnreg exist only there.  No -lcuda: the
-# one libcuda function used, cuTensorMapEncodeTiled (TMA descriptors of
-# K5's wgmma route), is looked up at run time through the CUDA runtime.
+# one libcuda function used, cuTensorMapEncodeTiled (TMA descriptors of the
+# wgmma route of K3-K5), is looked up at run time through the CUDA runtime.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -132,14 +132,6 @@ class CudaKernel:
         if err != 0:
             raise RuntimeError(f"{self.symbol}: cudaError_t {err}")
         self.launches += 1
-
-
-def c_function(source: str, symbol: str, argtypes: List[type]):
-    """A plain C function of a kernel library, returning an int: no launch,
-    no count (a route query, say)."""
-    fn = getattr(library(source), symbol)
-    fn.argtypes, fn.restype = argtypes, ctypes.c_int
-    return fn
 
 
 def strides_array(*triples) -> ctypes.Array:

@@ -28,7 +28,9 @@ side, so that qa·kaᵀ carries the bias (K6 adds rw[t, j mod GW] per score);
 the width is zero-padded to a multiple of 8 (16-byte bf16 rows).  K5's plain
 version runs on such operands too, as its JAX entry does, but its kernel
 takes K3's arguments: on the card the augmented contraction costs more than
-the per-score add (``csrc/sam_global_attention_v2.cu``).
+the per-score add (``csrc/sam_global_attention_v2.cu``).  K3, K4 and K5 run
+one device routine (``csrc/global_attention.cuh``) on q, k, v and the tables
+as the rel-pos einsum leaves them: their entries copy nothing.
 
 On a CPU tensor each entry runs its plain version; on a CUDA tensor it
 launches its kernel (``csrc/<entry>.cu``) or raises.
@@ -42,9 +44,9 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ._cuda import (DTYPE_CODES, CudaKernel, c_function,
-                    check_augmented_dims, check_chunked_rows, check_head_dim,
-                    check_operands, strides_array)
+from ._cuda import (DTYPE_CODES, CudaKernel, check_augmented_dims,
+                    check_chunked_rows, check_head_dim, check_operands,
+                    strides_array)
 
 _vp, _ci = ctypes.c_void_p, ctypes.c_int
 _WINDOW_ARGS = [_vp] * 6 + [_ci] * 5 + [_vp, _ci]
@@ -271,24 +273,10 @@ def window_args(q4, k4, v4, rh4, rw4, out):
 
 def global_args(q, k, v, rel_h, rel_w, out):
     """Of ``lameness_sam_global_attention`` (K3), its v1 twin (K4) and
-    ``lameness_sam_global_attention_v2`` (K5): (BH, N, ·) tensors, strides
-    {head, 0, token} each."""
-    bh, n, d = q.shape
-    gh, gw = rel_h.shape[1], rel_w.shape[3]
-    rh = rel_h.reshape(bh, n, gh)
-    rw = rel_w.reshape(bh, n, gw)
-    st = strides_array(*((t.stride(0), 0, t.stride(1))
-                         for t in (q, k, v, rh, rw, out)))
-    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), rh.data_ptr(),
-            rw.data_ptr(), out.data_ptr(), bh, n, d, gw, st,
-            DTYPE_CODES[q.dtype])
-
-
-def global_v2_args(q, k, v, rel_h, rel_w, out):
-    """Of ``lameness_sam_global_attention_v2`` (K5): the pointers and sizes
-    of :func:`global_args`, but the (BH, GH, GW, ·) tables keep their
-    layout, at strides {head, grid row, grid column} (what
-    project_rel_tables' einsum leaves is no (BH, N, ·) view)."""
+    ``lameness_sam_global_attention_v2`` (K5): q, k, v and out (BH, N, ·)
+    at {head, 0, token} element strides; the (BH, GH, GW, ·) tables where
+    they lie, at {head, grid row, grid column} (what project_rel_tables'
+    einsum leaves is no (BH, N, ·) view)."""
     bh, n, d = q.shape
     st = strides_array(*((t.stride(0), 0, t.stride(1)) for t in (q, k, v)),
                        rel_h.stride()[:3], rel_w.stride()[:3],
@@ -442,14 +430,14 @@ def _check_global(name: str, q, k, v, rel_h, rel_w) -> None:
 
 def _biased_global(name: str, kernel: CudaKernel, q, k, v, rel_h, rel_w
                    ) -> torch.Tensor:
+    """K3, K4 and K5 on the card (K3's and K4's plain version on the CPU):
+    the tables in q's dtype, read where they lie."""
     if q.device.type == "cpu":
         return sam_attention_reference(q, k, v, rel_h, rel_w)
     rel_h, rel_w = rel_h.to(q.dtype), rel_w.to(q.dtype)
     _check_global(name, q, k, v, rel_h, rel_w)
-    d = q.shape[-1]
-    rel_h, rel_w = rel_h.contiguous(), rel_w.contiguous()
     check_operands(name, (q, k, v, rel_h, rel_w))
-    check_head_dim(name, d)
+    check_head_dim(name, q.shape[-1])
     check_chunked_rows(name, (q, k, v))
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     kernel(*global_args(q, k, v, rel_h, rel_w, out))
@@ -481,30 +469,12 @@ def sam_global_attention_v2(q: torch.Tensor, k: torch.Tensor,
                             rel_w: torch.Tensor) -> torch.Tensor:
     """K5: K3's function and signature.  The plain version runs on the
     augmented operands of the JAX entry (:func:`global_v2_operands`); the
-    kernel takes q, k, v and the tables in q's dtype
-    (:func:`global_v2_args`) and builds no augmented operand.  Its wgmma
-    route reads the tables where they lie; only its mma.sync route (other
-    dtypes and head dims) needs them token-contiguous, and gets a copy."""
+    kernel is K3's (:func:`global_args`) and builds no augmented operand."""
     if q.device.type == "cpu":
         qa, ka, rw = global_v2_operands(q, k, rel_h, rel_w)
         return augmented_attention_reference(qa, ka, v, rw)
-    name = "sam_global_attention_v2"
-    rel_h, rel_w = rel_h.to(q.dtype), rel_w.to(q.dtype)
-    _check_global(name, q, k, v, rel_h, rel_w)
-    check_operands(name, (q, k, v))
-    bh, n, d = q.shape
-    check_head_dim(name, d)
-    check_chunked_rows(name, (q, k, v))
-    hopper = c_function(GLOBAL_V2_KERNEL.source,
-                        "lameness_sam_global_attention_v2_hopper",
-                        [ctypes.c_int] * 5)(bh, n, d, rel_w.shape[3],
-                                            DTYPE_CODES[q.dtype])
-    if not hopper or rel_h.stride(-1) != 1 or rel_w.stride(-1) != 1:
-        rel_h, rel_w = rel_h.contiguous(), rel_w.contiguous()
-    check_operands(name, (q, rel_h, rel_w))
-    out = torch.empty_like(q, memory_format=torch.contiguous_format)
-    GLOBAL_V2_KERNEL(*global_v2_args(q, k, v, rel_h, rel_w, out))
-    return out
+    return _biased_global("sam_global_attention_v2", GLOBAL_V2_KERNEL, q, k,
+                          v, rel_h, rel_w)
 
 
 def sam_global_attention_v3(q4: torch.Tensor, k4: torch.Tensor,

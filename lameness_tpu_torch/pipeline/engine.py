@@ -19,6 +19,7 @@ pair modes, the packed readback buffer and torch checkpoint loading.
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Any, Dict, Mapping, Optional
 
@@ -241,8 +242,12 @@ class LamenessEngine:
             mh = int(round((s.sam_size // 4) * (h * ratio) / s.sam_size))
             mw = int(round((s.sam_size // 4) * (w * ratio) / s.sam_size))
             # landscape frames bottom-pad the square canvas: the pad token
-            # rows are image-independent (SamVisionEncoder content_rows)
-            crows = -(-int(round(h * ratio)) // 16) if w > h else 0
+            # rows are image-independent (SamVisionEncoder content_rows).
+            # LAMENESS_SAM_PADSPLIT=0 turns the split off, read at each
+            # call as the JAX engine reads it at each trace
+            crows = 0
+            if w > h and os.environ.get("LAMENESS_SAM_PADSPLIT") != "0":
+                crows = -(-int(round(h * ratio)) // 16)
             emb = self.sam.encode(sam_in, crows)
             masks, iou_pred = self.sam.decode_boxes(emb, primary * ratio)
             masks = unpad_mask_logits(masks[:, 0], mh, mw, s.sam_mask_size)

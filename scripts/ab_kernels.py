@@ -1,16 +1,16 @@
 #!/usr/bin/env python3
-"""Time the port's default kernels (K1, K2, K3), K5 and K7 of two checkouts
-on one card, in turns.
+"""Time the port's default kernels (K1, K2, K3), K4-K7 of two checkouts on
+one card, in turns.
 
     python scripts/ab_kernels.py ROOT_A ROOT_B
 
 ROOT_A and ROOT_B are repository roots (e.g. an unpacked ``git archive`` of
 the parent commit, and ``.``).  Each turn is a process of its own that
 imports ``lameness_tpu_torch`` from its root, builds that root's kernels,
-and prints the bf16 device time per call of K1, K2, K3, K5 and K7 at the
-shapes the full-width engine gives them for B = 2 clips: torch.profiler's
-summed time of the port's kernels only, over 20 calls (K1, K2, K7) or 5 (K3,
-K5).  The turns run in the order A B B A, so that a drift of the card
+and prints the bf16 device time per call of K1-K7 at the shapes the
+full-width engine gives them for B = 2 clips: torch.profiler's summed time
+of the port's kernels only (K6's operand build left out), over 20 calls
+(K1, K2, K7) or 5 (K3-K6).  The turns run in the order A B B A, so that a drift of the card
 between the first and the last turn shows as a difference between the two A
 rows.  The card's name and power limit come first.
 """
@@ -54,7 +54,14 @@ def worker(root: str) -> None:
     rh, rw = sa.project_rel_tables(qg, rnd(127, 64, std=0.1),
                                    rnd(127, 64, std=0.1), 64)
     calls["K3"] = (lambda: sa.sam_global_attention(qg, kg, vg, rh, rw), 5)
+    calls["K4"] = (lambda: sa.sam_global_attention_v1(qg, kg, vg, rh, rw), 5)
     calls["K5"] = (lambda: sa.sam_global_attention_v2(qg, kg, vg, rh, rw), 5)
+    # K6 on head-last views of one (22, 4096, 3, 12, 64) qkv output
+    q6, k6, v6 = rnd(22, 4096, 3, 12, 64).unbind(2)
+    rh6, rw6 = sa.project_rel_tables_hl(q6, rnd(127, 64, std=0.1),
+                                        rnd(127, 64, std=0.1), 64)
+    calls["K6"] = (lambda: sa.sam_global_attention_v3(q6, k6, v6, rh6, rw6),
+                   5)
     times = {}
     for kid, (fn, reps) in calls.items():
         fn()

@@ -116,7 +116,9 @@ def main() -> int:
             report("K2", dtype, (bw, win, nh, hd), out,
                    sa.window_attention_reference(q4, k4, v4, rh4, rw4))
         # K3, K4: rectangular grids (per-score bias gather) and GW = 64 (the
-        # key tile is one grid row: rel_w in registers)
+        # key tile is one grid row: rel_w in registers).  The tables as the
+        # einsum leaves them: rel_h grid-row-major (grid row stride BH·GW·GH),
+        # rel_w grid-column-major, neither token-contiguous where BH > 1
         for name, kernel in (("K3", sa.GLOBAL_KERNEL),
                              ("K4", sa.GLOBAL_V1_KERNEL)):
             for bh, gh, gw, d in ((2, 6, 11, 32), (1, 12, 16, 64),
@@ -125,7 +127,6 @@ def main() -> int:
                 rh, rw = sa.project_rel_tables(
                     q, rnd(2 * gh - 1, d, dtype=dtype),
                     rnd(2 * gw - 1, d, dtype=dtype), gh, gw)
-                rh, rw = rh.contiguous(), rw.contiguous()
                 out = torch.empty_like(q)
                 call(lib, kernel, sa.global_args(q, k, v, rh, rw, out))
                 report(name, dtype, (bh, gh, gw, d), out,
@@ -164,15 +165,15 @@ def main() -> int:
                  sa.augmented_args(qa, ka, v, rw, out_))
             report("K6", dtype, (b, nh, gh, gw, d), out_,
                    sa.augmented_attention_reference(qa, ka, v, rw))
-            # K5 takes K3's operands (the tables at 4-D strides); its plain
-            # version the augmented operands of the JAX entry
+            # K5 takes K3's operands (the tables where the einsum leaves
+            # them); its plain version the augmented operands of the JAX
+            # entry
             q, k, v = (t.transpose(1, 2).reshape(b * nh, n, d)
                        for t in (q4, k4, v4))
             rh, rw = sa.project_rel_tables(q, *tables, gh, gw)
-            rh, rw = rh.contiguous(), rw.contiguous()
             out = torch.empty_like(q)
             call(lib, sa.GLOBAL_V2_KERNEL,
-                 sa.global_v2_args(q, k, v, rh, rw, out))
+                 sa.global_args(q, k, v, rh, rw, out))
             report("K5", dtype, (b, nh, gh, gw, d), out,
                    sa.sam_global_attention_v2(q, k, v, rh, rw))
         # K8 (head-major) and K9 (head-last): augmented windows, 16 or 32

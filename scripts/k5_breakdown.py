@@ -14,7 +14,8 @@ kernel over 5 calls:
   whole            the kernel as the engine runs it (wgmma + TMA route); its
                    output must equal the package entry's, bit for bit;
   mma.sync route   -DLAMENESS_EMULATION: the C entry takes the routine of
-                   attention.cuh on the same direct operands (K3's kernel);
+                   attention.cuh on the same direct operands (what K3 and
+                   K4 ran before they took the Hopper routine);
   no softmax       TMA, bias staging and products;
   no products      TMA, bias staging and softmax;
   K/V stream only  TMA and bias staging.
@@ -133,13 +134,9 @@ def main() -> int:
     def runner(lib):
         fn = getattr(lib, kernel.symbol)
         fn.argtypes, fn.restype = kernel.argtypes, ctypes.c_int
-        hopper = getattr(lib, f"{kernel.symbol}_hopper")
-        hopper.argtypes, hopper.restype = [ctypes.c_int] * 5, ctypes.c_int
-        # the tables as the package entry passes them to each route
-        tables = ((rh, rw) if hopper(264, 4096, 64, 64, 1)
-                  else (rh.contiguous(), rw.contiguous()))
+        # the tables as the package entry passes them, to either route
         out = torch.empty_like(q)
-        args = sa.global_v2_args(q, k, v, *tables, out)
+        args = sa.global_args(q, k, v, rh, rw, out)
 
         def call():
             err = fn(*args, stream)

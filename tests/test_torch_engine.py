@@ -101,9 +101,19 @@ def _leaves(tree, prefix=""):
             yield prefix + key, np.asarray(val)
 
 
-def test_process_clip_batch_matches_jax_engine():
+def _matches_jax_engine(monkeypatch):
+    """Both engines on the same seeded clips, held to the gates of the
+    module docstring; returns the content rows the port's SAM encoder was
+    given (its pad-row split, 0 for none)."""
     jeng = _jax_engine()
     teng = _port_engine(jeng.params)
+    rows = []
+    encode = teng.sam.encode
+
+    def spy(images, content_rows=0):
+        rows.append(content_rows)
+        return encode(images, content_rows)
+    monkeypatch.setattr(teng.sam, "encode", spy)
     frames = np.random.default_rng(0).integers(0, 256, (2, 15, 90, 160, 3),
                                                dtype=np.uint8)
     want = dict(_leaves(jeng.process_clip_batch(frames)))
@@ -123,6 +133,22 @@ def test_process_clip_batch_matches_jax_engine():
             np.testing.assert_allclose(g, w, atol=1e-4, rtol=0,
                                        err_msg=key)
     assert want["det_valid"].any(), "no detection: the comparison is idle"
+    return rows
+
+
+def test_process_clip_batch_matches_jax_engine(monkeypatch):
+    """Landscape 160x90 frames: both engines pass the encoder the content
+    rows of the bottom-padded canvas (72 of 128 px: 5 token rows)."""
+    monkeypatch.delenv("LAMENESS_SAM_PADSPLIT", raising=False)
+    assert _matches_jax_engine(monkeypatch) == [5]
+
+
+def test_process_clip_batch_without_pad_split(monkeypatch):
+    """LAMENESS_SAM_PADSPLIT=0 on both sides (the JAX engine reads it at
+    trace time, the port at each call): no content rows reach the encoder,
+    and the engines agree within the same gates."""
+    monkeypatch.setenv("LAMENESS_SAM_PADSPLIT", "0")
+    assert _matches_jax_engine(monkeypatch) == [0]
 
 
 def test_mc_dropout_heads():

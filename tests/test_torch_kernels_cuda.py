@@ -13,9 +13,11 @@ after).
 """
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from lameness_tpu_torch.ops import attention as at
 from lameness_tpu_torch.ops import sam_attention as sa
+from lameness_tpu_torch.ops._cuda import KERNELS
 
 pytestmark = pytest.mark.cuda
 
@@ -32,6 +34,24 @@ def dev():
 def _rnd(dev, dtype, *shape, seed=0, s=1.0):
     g = torch.Generator(device=dev).manual_seed(seed)
     return (torch.randn(*shape, generator=g, device=dev) * s).to(dtype)
+
+
+def _alone(fn, record):
+    """fn()'s output, after checking that the call launched ``record``'s
+    kernel once, no other kernel of the port, and (torch.profiler) nothing
+    else on the card: no copy, no operand build."""
+    before = {name: k.launches for name, k in KERNELS.items()}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    launched = {name: k.launches - before[name] for name, k in KERNELS.items()
+                if k.launches != before[name]}
+    assert launched == {record.name: 1}
+    others = {e.key for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and "lameness::" not in e.key}
+    assert not others, others
+    return out
 
 
 @pytest.mark.parametrize("dtype,tol", DTYPES)
@@ -64,13 +84,13 @@ def test_window_kernel(dev, dtype, tol, win, hd):
 @pytest.mark.parametrize("dtype,tol", DTYPES)
 @pytest.mark.parametrize("gh,gw", [(64, 64), (24, 40)])
 def test_global_kernel(dev, dtype, tol, gh, gw):
+    """K3 through the switch's default."""
     q, k, v = (_rnd(dev, dtype, 3, gh * gw, 64, seed=i) for i in range(3))
     rh, rw = sa.project_rel_tables(
         q, _rnd(dev, dtype, 2 * gh - 1, 64, seed=3, s=0.1),
         _rnd(dev, dtype, 2 * gw - 1, 64, seed=4, s=0.1), gh, gw)
-    before = sa.GLOBAL_KERNEL.launches
-    got = sa.sam_global_attention(q, k, v, rh, rw)
-    assert sa.GLOBAL_KERNEL.launches == before + 1
+    got = _alone(lambda: sa.sam_global_attention(q, k, v, rh, rw),
+                 sa.GLOBAL_KERNEL)
     ref = sa.sam_attention_reference(q, k, v, rh, rw)
     torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
 
@@ -83,47 +103,68 @@ def _global_inputs(dev, dtype, gh, gw, hd, heads=3):
     return q, k, v, rh, rw
 
 
+def _global_plain(entry, q, k, v, rh, rw):
+    """K3's and K4's plain version, or K5's on the augmented operands."""
+    if entry != "sam_global_attention_v2":
+        return sa.sam_attention_reference(q, k, v, rh, rw)
+    qa, ka, rwf = sa.global_v2_operands(q, k, rh, rw)
+    return sa.augmented_attention_reference(qa, ka, v, rwf)
+
+
+GLOBAL_ENTRIES = [("sam_global_attention_v4", "GLOBAL_KERNEL"),       # K3
+                  ("sam_global_attention_v1", "GLOBAL_V1_KERNEL"),    # K4
+                  ("sam_global_attention_v2", "GLOBAL_V2_KERNEL")]    # K5
+
+
 @pytest.mark.parametrize("dtype,tol", DTYPES)
 @pytest.mark.parametrize("gh,gw,hd,heads", [
-    (64, 64, 64, 3),      # the engine's grid: K5's rw in registers (bf16)
+    (64, 64, 64, 3),      # the engine's grid: rw in registers (bf16)
     (24, 40, 64, 3),      # N = 960: a ragged key tile, rh and rw gathered
-    (48, 48, 80, 3),      # SAM ViT-H's head dim: K5's mma.sync route
+    (48, 48, 80, 3),      # SAM ViT-H's head dim: the mma.sync route
+    (72, 72, 64, 2),      # bias rows past kHopMaxSmem: the mma.sync route
     (7, 9, 64, 5)])       # N = 63 < one key tile, several heads
-@pytest.mark.parametrize("entry,kernel", [
-    ("sam_global_attention_v1", "GLOBAL_V1_KERNEL"),         # K4
-    ("sam_global_attention_v2", "GLOBAL_V2_KERNEL")])        # K5
+@pytest.mark.parametrize("entry,kernel", GLOBAL_ENTRIES)
 def test_global_variant_kernels(dev, dtype, tol, gh, gw, hd, heads, entry,
                                 kernel):
+    """K3, K4 and K5 on both routes (bf16 at hd 64 but the 72 x 72 grid:
+    the Hopper routine; float32, hd 80 and the 72 x 72 grid: attention.cuh),
+    the tables where the einsum leaves them."""
     q, k, v, rh, rw = _global_inputs(dev, dtype, gh, gw, hd, heads)
-    record = getattr(sa, kernel)
-    before = record.launches
-    got = getattr(sa, entry)(q, k, v, rh, rw)
-    assert record.launches == before + 1
-    if entry == "sam_global_attention_v1":
-        ref = sa.sam_attention_reference(q, k, v, rh, rw)
-    else:
-        qa, ka, rwf = sa.global_v2_operands(q, k, rh, rw)
-        ref = sa.augmented_attention_reference(qa, ka, v, rwf)
+    got = _alone(lambda: getattr(sa, entry)(q, k, v, rh, rw),
+                 getattr(sa, kernel))
+    ref = _global_plain(entry, q, k, v, rh, rw)
     torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
 
 
 @pytest.mark.parametrize("dtype,tol", DTYPES)
 @pytest.mark.parametrize("gh,gw", [(64, 64), (20, 30)])
-def test_global_v2_kernel_strided(dev, dtype, tol, gh, gw):
-    """K5 on q, k, v read in place from a fused (BH, N, 3, 64) tensor: its
-    TMA maps take the token stride (192 elements) and the head stride."""
+@pytest.mark.parametrize("entry,kernel", GLOBAL_ENTRIES)
+def test_global_kernels_strided(dev, dtype, tol, gh, gw, entry, kernel):
+    """K3, K4 and K5 on q, k, v read in place from a fused (BH, N, 3, 64)
+    tensor (the TMA maps take the token stride of 192 elements and the head
+    stride) and the tables grid-major, as the einsum leaves them."""
     n = gh * gw
     qkv = _rnd(dev, dtype, 4, n, 3, 64)
     q, k, v = qkv.unbind(2)
     rh, rw = sa.project_rel_tables(
         q, _rnd(dev, dtype, 2 * gh - 1, 64, seed=3, s=0.1),
         _rnd(dev, dtype, 2 * gw - 1, 64, seed=4, s=0.1), gh, gw)
-    before = sa.GLOBAL_V2_KERNEL.launches
-    got = sa.sam_global_attention_v2(q, k, v, rh, rw)
-    assert sa.GLOBAL_V2_KERNEL.launches == before + 1
-    qa, ka, rwf = sa.global_v2_operands(q, k, rh, rw)
-    ref = sa.augmented_attention_reference(qa, ka, v, rwf)
+    assert rh.stride(1) != gw * rh.stride(2)      # not token-contiguous
+    got = _alone(lambda: getattr(sa, entry)(q, k, v, rh, rw),
+                 getattr(sa, kernel))
+    ref = _global_plain(entry, q, k, v, rh, rw)
     torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("g,hd", [(64, 64), (48, 80)])
+def test_global_kernels_bitwise(dev, g, hd):
+    """K3, K4 and K5 launch one device routine on one set of operands: bf16
+    outputs equal bit for bit, on the Hopper route (the engine's (3, 4096,
+    64)) and on the mma.sync route (hd 80)."""
+    args = _global_inputs(dev, torch.bfloat16, g, g, hd)
+    outs = [_alone(lambda: getattr(sa, entry)(*args), getattr(sa, kernel))
+            for entry, kernel in GLOBAL_ENTRIES]
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
 
 
 @pytest.mark.parametrize("dtype,tol", DTYPES)

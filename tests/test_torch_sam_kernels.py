@@ -129,10 +129,11 @@ def test_global_v2_plain_is_k3_function(dtype, tol, bh, gh, gw):
 
 @pytest.mark.parametrize("fused,grid_major", [(False, False), (True, True)])
 def test_global_v2_args(fused, grid_major):
-    """K5's C arguments: the pointers and sizes of K3's (global_args), q, k,
-    v, out at {head, 0, token} element strides, and the (BH, GH, GW, ·)
-    tables at {head, grid row, grid column} where they lie: contiguous, or
-    grid-row-major as a batched einsum over the grid rows leaves them."""
+    """The C arguments of K5 and of K3 and K4, one routine
+    (``global_args``): q, k, v, out at {head, 0, token} element strides, and
+    the (BH, GH, GW, ·) tables at {head, grid row, grid column} where they
+    lie, copied nowhere: contiguous, or grid-row-major as a batched einsum
+    over the grid rows leaves them."""
     bh, gh, gw, d = 3, 4, 5, 64
     n = gh * gw
     if fused:
@@ -145,18 +146,15 @@ def test_global_v2_args(fused, grid_major):
     else:
         rel_h, rel_w = torch.zeros(bh, gh, gw, gh), torch.zeros(bh, gh, gw, gw)
     out = torch.empty(bh, n, d)
-    args = tsa.global_v2_args(q, k, v, rel_h, rel_w, out)
-    k3 = tsa.global_args(q, k, v, rel_h.contiguous(), rel_w.contiguous(),
-                         out)
+    args = tsa.global_args(q, k, v, rel_h, rel_w, out)
     assert args[:6] == tuple(t.data_ptr() for t in (q, k, v, rel_h, rel_w,
                                                    out))
-    assert args[6:10] == k3[6:10] == (bh, n, d, gw) and args[11] == 0
+    assert args[6:10] == (bh, n, d, gw) and args[11] == 0
     token = 3 * d if fused else d
     assert list(args[10]) == [n * token, 0, token] * 3 + [
         *rel_h.stride()[:3], *rel_w.stride()[:3], n * d, 0, d]
-    assert list(args[10])[:9] == list(k3[10])[:9]
-    if not grid_major:    # token-contiguous: grid row = GW x grid column
-        assert rel_h.stride(1) == gw * rel_h.stride(2)
+    # grid-row-major tables are no (BH, N, ·) view: token-contiguous ones are
+    assert (rel_h.stride(1) == gw * rel_h.stride(2)) != grid_major
 
 
 @pytest.mark.parametrize("b,nh,gh,gw,hd", [(1, 2, 4, 6, 64),
