@@ -7,16 +7,16 @@ Phases, each failing loudly (no exception is swallowed):
   1. setup: card name and power limit, versions, TF32 off, build the
      kernels from csrc/ with nvcc (one process per source, in parallel);
      per library the registers and spills ptxas reports and the HGMMA
-     (wgmma) instructions in its SASS -- those of K3, K4 and K5 (one Hopper
-     routine) must have them;
+     (wgmma) instructions in its SASS -- those of K3, K4, K5 and K6 (one
+     Hopper routine) must have them;
   2. kernels: K1-K9 against their plain PyTorch versions at the engine's
      shapes, in float32 and bfloat16, with device times (torch.profiler)
      beside the bound, the plain version's and a PyTorch library call's as
      yardsticks (the library call timed by the profiler and by CUDA
-     events); the entries of K2, K3, K4, K5 and K7 must put nothing on the
-     card but their kernel; K3, K4 and K5 must give the same bf16 output
-     bit for bit at the engine's shapes (one routine on one set of
-     operands);
+     events); the entries of K2-K7 must put nothing on the card but their
+     kernel; K3, K4 and K5 must give the same bf16 output bit for bit at
+     the engine's shapes (one routine on one set of operands), and K6 on
+     head-last views the same as K3 on head-major copies of the values;
   3. engine: a small engine on the card against the same engine's plain
      path on the CPU (same weights, same frames), under each kernel
      selection; then the full-width engine (YOLOv8-n 640, SAM ViT-B 1024²,
@@ -81,14 +81,14 @@ SELECTIONS = (
 # head would move the embeddings by O(1).
 EMB_RTOL = 5e-2
 
-# the kernels whose entries put nothing on the card but the kernel: K3, K4
-# and K5 read the tables where the einsum leaves them, K2 and K7 take q, k, v
-# and the tables as they are (their routine builds the bias operands in
-# shared memory)
-ENTRY_ALONE = ("K2", "K3", "K4", "K5", "K7")
-# the libraries of the Hopper global routine (wgmma): K3, K4, K5
+# the kernels whose entries put nothing on the card but the kernel: K3-K6
+# read q, k, v and the tables where the qkv Linear and the einsum leave
+# them, K2 and K7 take q, k, v and the tables as they are (their routine
+# builds the bias operands in shared memory)
+ENTRY_ALONE = ("K2", "K3", "K4", "K5", "K6", "K7")
+# the libraries of the Hopper global routine (wgmma): K3, K4, K5, K6
 HOPPER_SOURCES = ("sam_global_attention", "sam_global_attention_v1",
-                  "sam_global_attention_v2")
+                  "sam_global_attention_v2", "sam_global_attention_v3")
 
 # H100 SXM dense peaks (NVIDIA data sheet) for the bound of each kernel
 PEAK_BYTES_S = 3.35e12
@@ -439,7 +439,9 @@ def check_kernels(batch: int = BATCH):
 
 def check_global_bitwise(batch: int, gen) -> bool:
     """K3, K4 and K5 run one device routine on one set of operands: their
-    bf16 outputs at the engine's shapes must be equal bit for bit."""
+    bf16 outputs at the engine's shapes must be equal bit for bit.  K6 runs
+    it on head-last views: its output must equal K3's on head-major copies
+    of the same q, k, v and tables, bit for bit."""
     import torch
     from lameness_tpu_torch.ops import sam_attention as sa
     args = kernel_inputs("global", torch.bfloat16, batch, gen)
@@ -449,9 +451,26 @@ def check_global_bitwise(batch: int, gen) -> bool:
     torch.cuda.synchronize()
     same = {kid: bool(torch.equal(out, outs["K3"]))
             for kid, out in outs.items()}
+    del args, outs
+    q4, k4, v4, rh4, rw4 = kernel_inputs("global_hl", torch.bfloat16, batch,
+                                         gen)
+    b, n, h, d = q4.shape
+    g = rh4.shape[-1]
+
+    def head_major(t):
+        return t.transpose(1, 2).reshape(b * h, n, t.shape[-1])
+    k3 = sa.sam_global_attention_v4(
+        head_major(q4), head_major(k4), head_major(v4),
+        *(head_major(t).view(b * h, g, n // g, t.shape[-1])
+          for t in (rh4, rw4)))
+    k6 = sa.sam_global_attention_v3(q4, k4, v4, rh4, rw4)
+    torch.cuda.synchronize()
+    same["K6"] = bool(torch.equal(
+        k6, k3.view(b, h, n, d).transpose(1, 2).reshape(k6.shape)))
     ok = all(same.values())
-    log(f"  K3, K4, K5 bfloat16 {tuple(args[0].shape)}: bit-identical to "
-        f"K3 {json.dumps(same)}  {'ok' if ok else 'FAIL'}")
+    log(f"  K3, K4, K5 bfloat16 ({b * h}, {n}, {d}) and K6 on head-last "
+        f"views {tuple(q4.shape)}: bit-identical to K3 {json.dumps(same)}"
+        f"  {'ok' if ok else 'FAIL'}")
     return ok
 
 
@@ -736,7 +755,7 @@ def main() -> int:
     smi, hgmma = setup()
     ok_build = all(hgmma[name] > 0 for name in HOPPER_SOURCES)
     if not ok_build:
-        log("a library of K3-K5 holds no HGMMA: its wgmma route was not "
+        log("a library of K3-K6 holds no HGMMA: its wgmma route was not "
             "built " + json.dumps({n: hgmma[n] for n in HOPPER_SOURCES}))
     log("== phase 2: kernels against their plain versions")
     records, ok_k = check_kernels()

@@ -1,32 +1,30 @@
 // One online-softmax attention routine, shared by the port's nine kernels
-// (five of which have a routine of their own for their main shapes, bf16 at
-// head dim 64: K3, K4 and K5 hopper_attention.cuh, K2 and K7
-// window_attention.cuh; their other shapes come here):
+// (six of which have a routine of their own for their main shapes, bf16 at
+// head dim 64: K3-K6 hopper_attention.cuh, K2 and K7 window_attention.cuh;
+// their other shapes come here):
 //   K1 attention.cu               softmax(q k^T scale) v               (DINO)
 //   K2 sam_window_attention.cu    + decomposed rel-pos bias, 14x14 windows,
 //                                 head-last views of the qkv output
 //   K7 sam_window_attention_v1.cu the same function, head-major windows
 //   K3 sam_global_attention.cu    + decomposed rel-pos bias, 64x64 grid
 //   K4 sam_global_attention_v1.cu the same function and layout
-//   K5 sam_global_attention_v2.cu augmented operands: [q*scale | rh] against
-//                                 [k | spread^T], + rw[t, j % gw]; head-major
-//   K6 sam_global_attention_v3.cu the same, head-last
+//   K5 sam_global_attention_v2.cu the same function and layout
+//   K6 sam_global_attention_v3.cu the same function, head-last
 //   K8 sam_window_attention_v2.cu augmented operands: [q*scale | rh | rw]
 //                                 against [k | spread^T | mod^T]; head-major
 //   K9 sam_window_attention_v5.cu the same, head-last
 // Each .cu keeps its own C entry point; this header holds the device code and
 // the host-side dispatch over dtype and widths.
 //
-// Widths: QK^T contracts over DQK columns and PV over DV.  K1-K4 and K7 have
-// DQK == DV == the head dim.  The augmented kernels (K5, K6, K8, K9) read
-// qk_width columns of q and k (the augmented width, a multiple of 8) and
-// contract over the next instantiated multiple of 16; the columns past
-// qk_width read as zeros in shared memory, so padding never adds to a score.
+// Widths: QK^T contracts over DQK columns and PV over DV.  K1-K7 have
+// DQK == DV == the head dim.  The augmented kernels (K8, K9) read qk_width
+// columns of q and k (the augmented width, a multiple of 8) and contract
+// over the next instantiated multiple of 16; the columns past qk_width read
+// as zeros in shared memory, so padding never adds to a score.
 //
-// Bias: RH adds rh[t, j / gw], RW adds rw[t, j % gw] to every score, read
-// from the q-projected tables and never materialised.  K2-K4 and K7 take
-// both; K5 and K6 only RW (rh rides in the augmented contraction); K1, K8
-// and K9 none (K8 and K9 carry both tables in the contraction).
+// Bias: BIAS adds rh[t, j / gw] + rw[t, j % gw] to every score, read from
+// the q-projected tables and never materialised (K2-K7).  K1, K8 and K9 take
+// none (K8 and K9 carry both tables in the contraction).
 //
 // Common to both dtypes:
 //   * a block owns 64 query rows of one (batch, head) and walks the keys in
@@ -52,9 +50,9 @@
 //   the 64x64 grid the rw part then lives in registers: ROW_TILE); the
 //   softmax in the exp2 domain, row max and sum across the 4 lanes of a
 //   row by shuffles; K and V fragments by ldmatrix.  Left for later: wgmma
-//   and TMA, warp specialisation (the Hopper routine of K3-K5 has them, for
-//   K6 to take), and K8, K9 onto the window routine, which keeps a window's
-//   K/V for all its rows and builds the augmented columns in shared memory.
+//   and TMA, warp specialisation (the Hopper routine of K3-K6 has them), and
+//   K8, K9 onto the window routine, which keeps a window's K/V for all its
+//   rows and builds the bias columns in shared memory.
 // float32 (exact reference path): attention_f32_kernel, plain FMA loops with
 //   a 4x2 (scores) and 4x(DV/16) (output) register tile per thread, one
 //   thread per row for the softmax, no tensor cores.
@@ -126,12 +124,11 @@ constexpr size_t f32_smem_bytes() {
           (size_t)kBlockK * DV + (size_t)kBlockQ * (kBlockK + 1) + kBlockQ);
 }
 
-template <int DQK, int DV, bool RH, bool RW>
+template <int DQK, int DV, bool BIAS>
 __global__ void __launch_bounds__(kThreads)
     attention_f32_kernel(const AttnArgs a) {
   static_assert(DQK % 16 == 0 && DV % 16 == 0,
                 "widths must be multiples of 16");
-  static_assert(RW || !RH, "rh comes with rw");
   constexpr int QP = DQK + 1;      // padded rows: conflict-free column reads
   constexpr int PP = kBlockK + 1;
   constexpr int DJ = DV / 16;      // output columns per thread
@@ -156,8 +153,10 @@ __global__ void __launch_bounds__(kThreads)
   float* o = static_cast<float*>(a.o) + offset(a.o_s, outer, head);
   const float* rh = nullptr;
   const float* rw = nullptr;
-  if (RH) rh = static_cast<const float*>(a.rh) + offset(a.rh_s, outer, head);
-  if (RW) rw = static_cast<const float*>(a.rw) + offset(a.rw_s, outer, head);
+  if (BIAS) {
+    rh = static_cast<const float*>(a.rh) + offset(a.rh_s, outer, head);
+    rw = static_cast<const float*>(a.rw) + offset(a.rw_s, outer, head);
+  }
 
   for (int i = tid; i < kBlockQ * DQK; i += kThreads) {
     const int r = i / DQK, d = i % DQK, t = q0 + r;
@@ -203,19 +202,17 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = 0; i < 4; ++i) {
       const int r = ty * 4 + i, t = q0 + r;
       const float* rh_t =
-          RH ? rh + table_row(a.rh_row, a.rh_s[2], a.gw, t) : nullptr;
+          BIAS ? rh + table_row(a.rh_row, a.rh_s[2], a.gw, t) : nullptr;
       const float* rw_t =
-          RW ? rw + table_row(a.rw_row, a.rw_s[2], a.gw, t) : nullptr;
+          BIAS ? rw + table_row(a.rw_row, a.rw_s[2], a.gw, t) : nullptr;
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int c = tx + 16 * j, key = k0 + c;
         float val = -INFINITY;
         if (key < a.n_k) {
           val = s[i][j] * a.scale;
-          if (RH && t < a.n_q)
+          if (BIAS && t < a.n_q)
             val += rh_t[key / a.gw] + rw_t[key % a.gw];
-          else if (RW && t < a.n_q)
-            val += rw_t[key % a.gw];
         }
         sP[r * PP + c] = val;
       }
@@ -332,12 +329,12 @@ __device__ __forceinline__ void stage_bias(float* dst, int pitch,
 // tile is one grid row, so kh is the tile index and kw the column in the
 // tile; each lane's rw values are the same in every tile and stay in
 // registers.  Otherwise rh and rw are gathered per score from shared memory.
-template <int DQK, int DV, bool RH, bool RW, bool ROW_TILE>
+template <int DQK, int DV, bool BIAS, bool ROW_TILE>
 __global__ void __launch_bounds__(kMmaThreads)
     attention_mma_kernel(const AttnArgs a) {
   static_assert(DQK % 16 == 0 && DV % 16 == 0,
                 "widths must be multiples of 16");
-  static_assert(RW || (!RH && !ROW_TILE), "rh and the row tile need rw");
+  static_assert(BIAS || !ROW_TILE, "the row tile needs the bias");
   using T = __nv_bfloat16;
   constexpr int LDQ = mma_pitch<DQK>();
   constexpr int LDV = mma_pitch<DV>();
@@ -352,7 +349,7 @@ __global__ void __launch_bounds__(kMmaThreads)
   T* sQ = reinterpret_cast<T*>(mma_smem);
   T* sKV = sQ + kMmaBlockQ * LDQ;   // stage s: K at s·STAGE, V after it
   float* sRH = reinterpret_cast<float*>(sKV + 2 * STAGE);
-  const int gh = RH ? a.n_k / a.gw : 0;
+  const int gh = BIAS ? a.n_k / a.gw : 0;
   const int rhp = gh + 1, rwp = a.gw + 1;   // odd pitches: fewer conflicts
   float* sRW = sRH + kMmaBlockQ * rhp;
 
@@ -395,14 +392,14 @@ __global__ void __launch_bounds__(kMmaThreads)
   cp_async_commit();
 
   // the block's bias rows, f32, in the exp2 domain
-  if (RH)
+  if (BIAS) {
     stage_bias(sRH, rhp, static_cast<const T*>(a.rh) +
                              offset(a.rh_s, outer, head),
                a.rh_row, a.rh_s[2], a.gw, gh, q0, a.n_q);
-  if (RW)
     stage_bias(sRW, rwp, static_cast<const T*>(a.rw) +
                              offset(a.rw_s, outer, head),
                a.rw_row, a.rw_s[2], a.gw, a.gw, q0, a.n_q);
+  }
 
   const int row0 = warp * 16 + g;          // this lane's rows: row0, row0 + 8
   const float scale2 = a.scale * kLog2e;
@@ -469,7 +466,7 @@ __global__ void __launch_bounds__(kMmaThreads)
     // scale, bias and mask, in the exp2 domain
     const int k0 = it * kMmaBlockK;
     float rh_tile[2] = {0.f, 0.f};
-    if (ROW_TILE && RH) {
+    if (ROW_TILE) {
       rh_tile[0] = sRH[row0 * rhp + it];
       rh_tile[1] = sRH[(row0 + 8) * rhp + it];
     }
@@ -484,23 +481,15 @@ __global__ void __launch_bounds__(kMmaThreads)
         }
         float b_lo = 0.f, b_hi = 0.f;
         if (ROW_TILE) {
-          b_lo = rw_reg[0][n][j];
-          b_hi = rw_reg[1][n][j];
-          if (RH) {
-            b_lo = rh_tile[0] + b_lo;
-            b_hi = rh_tile[1] + b_hi;
-          }
-        } else if (RW) {
+          b_lo = rh_tile[0] + rw_reg[0][n][j];
+          b_hi = rh_tile[1] + rw_reg[1][n][j];
+        } else if (BIAS) {
           // exact for key < 2^22: (key + 0.5) / gw is >= 0.5 / gw from an
           // integer
           const int kh = (int)(((float)key + 0.5f) * inv_gw);
           const int kw = key - kh * a.gw;
-          b_lo = sRW[row0 * rwp + kw];
-          b_hi = sRW[(row0 + 8) * rwp + kw];
-          if (RH) {
-            b_lo = sRH[row0 * rhp + kh] + b_lo;
-            b_hi = sRH[(row0 + 8) * rhp + kh] + b_hi;
-          }
+          b_lo = sRH[row0 * rhp + kh] + sRW[row0 * rwp + kw];
+          b_hi = sRH[(row0 + 8) * rhp + kh] + sRW[(row0 + 8) * rwp + kw];
         }
         s[n][j] = fmaf(s[n][j], scale2, b_lo);
         s[n][2 + j] = fmaf(s[n][2 + j], scale2, b_hi);
@@ -588,27 +577,27 @@ cudaError_t launch_kernel(K kernel, const AttnArgs& a, int blocks,
   return cudaGetLastError();
 }
 
-template <int DQK, int DV, bool RH, bool RW>
+template <int DQK, int DV, bool BIAS>
 cudaError_t launch_d(AttnArgs a, int batch, int dtype, cudaStream_t stream) {
   if (dtype == 0) {
     a.n_qblocks = (a.n_q + kBlockQ - 1) / kBlockQ;
-    return launch_kernel(attention_f32_kernel<DQK, DV, RH, RW>, a,
+    return launch_kernel(attention_f32_kernel<DQK, DV, BIAS>, a,
                          batch * a.n_qblocks, kThreads,
                          f32_smem_bytes<DQK, DV>(), stream);
   }
   a.n_qblocks = (a.n_q + kMmaBlockQ - 1) / kMmaBlockQ;
   const int blocks = batch * a.n_qblocks;
-  if constexpr (!RW) {
-    return launch_kernel(attention_mma_kernel<DQK, DV, false, false, false>,
-                         a, blocks, kMmaThreads, mma_tile_bytes<DQK, DV>(),
+  if constexpr (!BIAS) {
+    return launch_kernel(attention_mma_kernel<DQK, DV, false, false>, a,
+                         blocks, kMmaThreads, mma_tile_bytes<DQK, DV>(),
                          stream);
   } else {
     const size_t smem = mma_tile_bytes<DQK, DV>() +
-                        mma_bias_bytes(RH ? a.n_k / a.gw : 0, a.gw);
+                        mma_bias_bytes(a.n_k / a.gw, a.gw);
     if (a.gw == kMmaBlockK)
-      return launch_kernel(attention_mma_kernel<DQK, DV, RH, true, true>, a,
+      return launch_kernel(attention_mma_kernel<DQK, DV, true, true>, a,
                            blocks, kMmaThreads, smem, stream);
-    return launch_kernel(attention_mma_kernel<DQK, DV, RH, true, false>, a,
+    return launch_kernel(attention_mma_kernel<DQK, DV, true, false>, a,
                          blocks, kMmaThreads, smem, stream);
   }
 }
@@ -619,7 +608,7 @@ inline bool bad_shape(const AttnArgs& a, int batch, int dtype, bool bias) {
          (bias && (a.gw <= 0 || a.n_k % a.gw != 0));
 }
 
-// K1-K4, K7: DQK == DV == head_dim; BIAS adds rh and rw.  dtype: 0 =
+// K1-K7: DQK == DV == head_dim; BIAS adds rh and rw.  dtype: 0 =
 // float32, 1 = bfloat16.  Returns a cudaError_t as int; an unsupported head
 // dim or dtype is cudaErrorInvalidValue (the Python wrappers reject those
 // before calling).  The bf16 kernel reads 16-byte chunks: the wrappers also
@@ -630,44 +619,38 @@ int launch(AttnArgs a, int batch, int head_dim, int dtype, void* stream) {
   if (bad_shape(a, batch, dtype, BIAS)) return (int)cudaErrorInvalidValue;
   a.qk_width = head_dim;
   switch (head_dim) {
-    case 16: return (int)launch_d<16, 16, BIAS, BIAS>(a, batch, dtype, st);
-    case 32: return (int)launch_d<32, 32, BIAS, BIAS>(a, batch, dtype, st);
-    case 64: return (int)launch_d<64, 64, BIAS, BIAS>(a, batch, dtype, st);
-    case 80: return (int)launch_d<80, 80, BIAS, BIAS>(a, batch, dtype, st);
-    case 128: return (int)launch_d<128, 128, BIAS, BIAS>(a, batch, dtype, st);
+    case 16: return (int)launch_d<16, 16, BIAS>(a, batch, dtype, st);
+    case 32: return (int)launch_d<32, 32, BIAS>(a, batch, dtype, st);
+    case 64: return (int)launch_d<64, 64, BIAS>(a, batch, dtype, st);
+    case 80: return (int)launch_d<80, 80, BIAS>(a, batch, dtype, st);
+    case 128: return (int)launch_d<128, 128, BIAS>(a, batch, dtype, st);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-// K5, K6 (RW) and K8, K9: q and k hold a.qk_width columns; QK^T runs over
-// the head dim plus the smallest instantiated extra width that holds the
-// rest: 16 or 32 (windows: 2·win <= 32), or 64 with RW (a grid of <= 64
-// rows).
-template <bool RW, int DV>
+// K8, K9: q and k hold a.qk_width columns; QK^T runs over the head dim plus
+// the smallest instantiated extra width that holds the rest: 16 or 32
+// (windows: 2·win <= 32).
+template <int DV>
 cudaError_t launch_augmented_dv(const AttnArgs& a, int batch, int dtype,
                                 cudaStream_t st) {
   const int extra = a.qk_width - DV;
-  if (extra <= 16) return launch_d<DV + 16, DV, false, RW>(a, batch, dtype, st);
-  if (extra <= 32) return launch_d<DV + 32, DV, false, RW>(a, batch, dtype, st);
-  if constexpr (RW) {
-    if (extra <= 64)
-      return launch_d<DV + 64, DV, false, RW>(a, batch, dtype, st);
-  }
+  if (extra <= 16) return launch_d<DV + 16, DV, false>(a, batch, dtype, st);
+  if (extra <= 32) return launch_d<DV + 32, DV, false>(a, batch, dtype, st);
   return cudaErrorInvalidValue;
 }
 
-template <bool RW>
-int launch_augmented(const AttnArgs& a, int batch, int head_dim, int dtype,
-                     void* stream) {
+inline int launch_augmented(const AttnArgs& a, int batch, int head_dim,
+                            int dtype, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bad_shape(a, batch, dtype, RW) || a.qk_width <= head_dim ||
+  if (bad_shape(a, batch, dtype, false) || a.qk_width <= head_dim ||
       a.qk_width % 8 != 0)
     return (int)cudaErrorInvalidValue;
   switch (head_dim) {
-    case 16: return (int)launch_augmented_dv<RW, 16>(a, batch, dtype, st);
-    case 32: return (int)launch_augmented_dv<RW, 32>(a, batch, dtype, st);
-    case 64: return (int)launch_augmented_dv<RW, 64>(a, batch, dtype, st);
-    case 80: return (int)launch_augmented_dv<RW, 80>(a, batch, dtype, st);
+    case 16: return (int)launch_augmented_dv<16>(a, batch, dtype, st);
+    case 32: return (int)launch_augmented_dv<32>(a, batch, dtype, st);
+    case 64: return (int)launch_augmented_dv<64>(a, batch, dtype, st);
+    case 80: return (int)launch_augmented_dv<80>(a, batch, dtype, st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -92,20 +92,21 @@ __device__ __forceinline__ float exp2_ftz(float x) {
 }
 
 // ---------------------------------------------------------------------------
-// TMA: one box of a 3-D tensor map into shared memory; the copy's bytes
-// complete a transaction count on `bar`.  Elements past the tensor's extent
-// are filled with zeros and counted all the same.
+// TMA: one box of a 4-D tensor map into shared memory (coordinates c0
+// fastest); the copy's bytes complete a transaction count on `bar`.
+// Elements past the tensor's extent are filled with zeros and counted all
+// the same.
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
                                             const CUtensorMap* map,
                                             uint32_t bar, int c0, int c1,
-                                            int c2) {
+                                            int c2, int c3) {
   asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.tile"
-      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
       :
       : "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
-        "r"(c1), "r"(c2)
+        "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 

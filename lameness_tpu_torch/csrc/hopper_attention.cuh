@@ -1,11 +1,13 @@
 // The Hopper global attention routine: softmax(scale·q·kᵀ + rh[t, j / GW] +
-// rw[t, j % GW]) · v in bf16 with wgmma and TMA (sm_90a).  K3, K4 and K5
-// launch it through global_entry (global_attention.cuh), which chooses it
-// by shape; K6 computes the same function on head-last views and can take
-// it once the TMA maps read those.
+// rw[t, j % GW]) · v in bf16 with wgmma and TMA (sm_90a).  K3, K4, K5 and
+// K6 launch it through global_entry (global_attention.cuh), which chooses
+// it by shape.  The tensors are addressed as (outer, head, token) with a
+// stride each: K3-K5 have one head per outer index, K6 reads head-last
+// (B, N, nH, hd) slices of the qkv output and its (B, N, nH, ·) tables in
+// place, so the TMA maps are 4-D, {hd, tokens, heads, outer}.
 //
-// A block owns 192 query rows of one head and walks the keys in tiles of
-// 128 with an online softmax:
+// A block owns 192 query rows of one (outer, head) and walks the keys in
+// tiles of 128 with an online softmax:
 //   * warps 0-11 are three consumer warpgroups of 64 rows each; warps 12-15
 //     the producer warpgroup, one lane of which issues every copy.  The
 //     producer gives up registers (setmaxnreg: 24 a thread) so that the
@@ -35,6 +37,8 @@
 //     barriers), so that one's exponentials run while another's products
 //     do.
 // Blocks of one head are adjacent in the grid, so its K/V (1 MB) stays in L2.
+// Head-last K/V tiles are 128 rows of 128 bytes at the token stride (4608
+// bytes in the engine's fused qkv output): the same bytes, in more rows.
 // What bounds it, at the engine's shapes (264 heads of 4096 x 64; measured
 // on the H100 by scripts/k5_breakdown.py, which builds copies of this
 // kernel with parts left out, PERF.md): the whole
@@ -168,7 +172,8 @@ struct HopLayout {
 // The consumer warpgroups of hopper_global_kernel (tid < kHopConsumers).
 template <bool ROW_TILE>
 __device__ __forceinline__ void consume(const AttnArgs& a, const HopLayout& L,
-                                        int bh, int q0, int n_tiles) {
+                                        int outer, int head, int q0,
+                                        int n_tiles) {
   using T = __nv_bfloat16;
   using namespace sm90;
   constexpr int NT = kHopBlockK / 8;   // n-tiles of a score row: 16
@@ -180,9 +185,11 @@ __device__ __forceinline__ void consume(const AttnArgs& a, const HopLayout& L,
   const int tid = threadIdx.x;
 
   // the block's bias rows, f32, in the exp2 domain
-  stage_rows(sRH, rhp, static_cast<const T*>(a.rh) + a.rh_s[0] * bh,
+  stage_rows(sRH, rhp,
+             static_cast<const T*>(a.rh) + offset(a.rh_s, outer, head),
              a.rh_row, a.rh_s[2], a.gw, gh, q0, a.n_q);
-  stage_rows(sRW, rwp, static_cast<const T*>(a.rw) + a.rw_s[0] * bh,
+  stage_rows(sRW, rwp,
+             static_cast<const T*>(a.rw) + offset(a.rw_s, outer, head),
              a.rw_row, a.rw_s[2], a.gw, a.gw, q0, a.n_q);
   // the ones (B of the row sums: any layout of ones reads as ones)
   uint32_t* ones = reinterpret_cast<uint32_t*>(sRH) - kHopOnesBytes / 4;
@@ -397,7 +404,7 @@ __device__ __forceinline__ void consume(const AttnArgs& a, const HopLayout& L,
   fence_operands(o);
   fence_operands(l_acc);
 
-  T* out = static_cast<T*>(a.o) + offset(a.o_s, bh, 0);
+  T* out = static_cast<T*>(a.o) + offset(a.o_s, outer, head);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const float inv = 1.f / l_acc[2 * h];
@@ -428,7 +435,8 @@ __global__ void __launch_bounds__(kHopThreads, 1)
                      kHopTileBytes * 2 * kHopStages + kHopBarBytes +
                      kHopOnesBytes)};
   const int tid = threadIdx.x;
-  const int bh = blockIdx.x / a.n_qblocks;   // heads == 1: outer index
+  const int bh = blockIdx.x / a.n_qblocks;
+  const int outer = bh / a.heads, head = bh % a.heads;
   const int q0 = (blockIdx.x % a.n_qblocks) * kHopBlockQ;
   const int n_tiles = (a.n_k + kHopBlockK - 1) / kHopBlockK;
 
@@ -447,18 +455,20 @@ __global__ void __launch_bounds__(kHopThreads, 1)
     setmaxnreg_dec<24>();
     if (tid == kHopConsumers) {
       mbar_arrive_expect_tx(L.q_bar(), kHopQBytes);
-      tma_load_3d(L.q, &tq, L.q_bar(), 0, q0, bh);
+      tma_load_4d(L.q, &tq, L.q_bar(), 0, q0, head, outer);
       for (int it = 0; it < n_tiles; ++it) {
         const int s = it % kHopStages;
         mbar_wait(L.empty(s), ((it / kHopStages) & 1) ^ 1);
         mbar_arrive_expect_tx(L.full(s), 2 * kHopTileBytes);
-        tma_load_3d(L.k_tile(s), &tk, L.full(s), 0, it * kHopBlockK, bh);
-        tma_load_3d(L.v_tile(s), &tv, L.full(s), 0, it * kHopBlockK, bh);
+        tma_load_4d(L.k_tile(s), &tk, L.full(s), 0, it * kHopBlockK, head,
+                    outer);
+        tma_load_4d(L.v_tile(s), &tv, L.full(s), 0, it * kHopBlockK, head,
+                    outer);
       }
     }
   } else {
     setmaxnreg_inc<160>();
-    consume<ROW_TILE>(a, L, bh, q0, n_tiles);
+    consume<ROW_TILE>(a, L, outer, head, q0, n_tiles);
   }
 }
 
@@ -492,31 +502,35 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A (batch, rows, 64) bf16 tensor at element strides {batch, row} as a 3-D
-// map with boxes of box_rows rows x 64 columns under the 128-byte swizzle; rows
-// past `rows` read as zeros.  False unless the address and the strides are
-// multiples of 16 bytes (what TMA takes).
+// An (outer, heads, rows, 64) bf16 tensor at element strides s = {outer,
+// head, row} as a 4-D map {64, rows, heads, outer} with boxes of box_rows
+// rows x 64 columns of one (outer, head) under the 128-byte swizzle; rows
+// past `rows` read as zeros.  With one head the heads axis is never stepped
+// and takes the outer stride (its own slot may be 0).  False unless the
+// address and the strides are multiples of 16 bytes (what TMA takes).
 inline bool tile_map(EncodeTiledFn enc, CUtensorMap* map, const void* ptr,
-                     int batch, int rows, long long batch_stride,
-                     long long row_stride, int box_rows) {
+                     const long long* s, int outer, int heads, int rows,
+                     int box_rows) {
   const long long el = sizeof(__nv_bfloat16);
-  if (reinterpret_cast<uintptr_t>(ptr) % 16 || (batch_stride * el) % 16 ||
-      (row_stride * el) % 16)
+  const long long head_s = heads == 1 ? s[0] : s[1];
+  if (reinterpret_cast<uintptr_t>(ptr) % 16 || (s[0] * el) % 16 ||
+      (head_s * el) % 16 || (s[2] * el) % 16)
     return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)kHopD, (cuuint64_t)rows,
-                              (cuuint64_t)batch};
-  const cuuint64_t strides[2] = {(cuuint64_t)(row_stride * el),
-                                 (cuuint64_t)(batch_stride * el)};
-  const cuuint32_t box[3] = {(cuuint32_t)kHopD, (cuuint32_t)box_rows, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+  const cuuint64_t dims[4] = {(cuuint64_t)kHopD, (cuuint64_t)rows,
+                              (cuuint64_t)heads, (cuuint64_t)outer};
+  const cuuint64_t strides[3] = {(cuuint64_t)(s[2] * el),
+                                 (cuuint64_t)(head_s * el),
+                                 (cuuint64_t)(s[0] * el)};
+  const cuuint32_t box[4] = {(cuuint32_t)kHopD, (cuuint32_t)box_rows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
              dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// The shapes this routine takes (one head per batch index, as global_entry
-// passes them): bf16, head dim 64, and bias rows that fit in shared memory.
+// The shapes this routine takes (batch = outer x heads): bf16, head dim 64,
+// and bias rows that fit in shared memory.
 inline bool hopper_global_takes(const AttnArgs& a, int batch, int head_dim,
                                 int dtype) {
   return !bad_shape(a, batch, dtype, true) && dtype == 1 &&
@@ -527,13 +541,13 @@ inline bool hopper_global_takes(const AttnArgs& a, int batch, int head_dim,
 // Returns a cudaError_t as int: cudaErrorInvalidValue for operands TMA
 // cannot read (the Python wrapper checks them first), cudaErrorNotSupported
 // without the tensor-map encoder of libcuda.
-inline int launch_hopper_global(AttnArgs a, int batch, void* stream) {
+inline int launch_hopper_global(AttnArgs a, int outer, void* stream) {
   const EncodeTiledFn enc = encode_tiled();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap tq, tk, tv;
-  if (!tile_map(enc, &tq, a.q, batch, a.n_q, a.q_s[0], a.q_s[2], kHopBlockQ) ||
-      !tile_map(enc, &tk, a.k, batch, a.n_k, a.k_s[0], a.k_s[2], kHopBlockK) ||
-      !tile_map(enc, &tv, a.v, batch, a.n_k, a.v_s[0], a.v_s[2], kHopBlockK))
+  if (!tile_map(enc, &tq, a.q, a.q_s, outer, a.heads, a.n_q, kHopBlockQ) ||
+      !tile_map(enc, &tk, a.k, a.k_s, outer, a.heads, a.n_k, kHopBlockK) ||
+      !tile_map(enc, &tv, a.v, a.v_s, outer, a.heads, a.n_k, kHopBlockK))
     return (int)cudaErrorInvalidValue;
   a.n_qblocks = (a.n_q + kHopBlockQ - 1) / kHopBlockQ;
   const size_t smem = hopper_smem_bytes(a.n_k / a.gw, a.gw);
@@ -542,7 +556,7 @@ inline int launch_hopper_global(AttnArgs a, int batch, void* stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<batch * a.n_qblocks, kHopThreads, smem,
+  kernel<<<outer * a.heads * a.n_qblocks, kHopThreads, smem,
            static_cast<cudaStream_t>(stream)>>>(tq, tk, tv, a);
   return (int)cudaGetLastError();
 }

@@ -18,7 +18,9 @@
 // N*N exponentials need about as long again (16 per clock per SM).
 //
 // Routes (global_attention.cuh, shared with K4 and K5, which compute the
-// same function on the same operands, bit for bit): bf16 at head dim 64
+// same function on the same operands, bit for bit, and with K6, which
+// computes it on head-last views, bit for bit on the same values): bf16 at
+// head dim 64
 // takes the Hopper routine of hopper_attention.cuh (wgmma, TMA-fed K/V, a
 // producer warpgroup, ping-pong consumers; bound by its softmax, PERF.md);
 // float32 and the other head dims attention.cuh's mma.sync / FMA routine.
@@ -30,6 +32,6 @@ extern "C" int lameness_sam_global_attention(
     const void* q, const void* k, const void* v, const void* rel_h,
     const void* rel_w, void* o, int batch_heads, int tokens, int head_dim,
     int gw, const long long* strides, int dtype, void* stream) {
-  return lameness::global_entry(q, k, v, rel_h, rel_w, o, batch_heads,
+  return lameness::global_entry(q, k, v, rel_h, rel_w, o, batch_heads, 1,
                                 tokens, head_dim, gw, strides, dtype, stream);
 }

@@ -19,6 +19,6 @@ extern "C" int lameness_sam_global_attention_v1(
     const void* q, const void* k, const void* v, const void* rel_h,
     const void* rel_w, void* o, int batch_heads, int tokens, int head_dim,
     int gw, const long long* strides, int dtype, void* stream) {
-  return lameness::global_entry(q, k, v, rel_h, rel_w, o, batch_heads,
+  return lameness::global_entry(q, k, v, rel_h, rel_w, o, batch_heads, 1,
                                 tokens, head_dim, gw, strides, dtype, stream);
 }

@@ -37,6 +37,6 @@ extern "C" int lameness_sam_global_attention_v2(
     const void* q, const void* k, const void* v, const void* rh,
     const void* rw, void* o, int batch_heads, int tokens, int head_dim,
     int gw, const long long* strides, int dtype, void* stream) {
-  return lameness::global_entry(q, k, v, rh, rw, o, batch_heads, tokens,
+  return lameness::global_entry(q, k, v, rh, rw, o, batch_heads, 1, tokens,
                                 head_dim, gw, strides, dtype, stream);
 }

@@ -18,15 +18,16 @@
 // table: as K2.
 #include "attention.cuh"
 
-// strides: qa, ka, v, (unused), rw, o as {outer, head, token} (18 values);
-// qa and ka hold qk_width columns (a multiple of 8), v and o head_dim.
+// strides: qa, ka, v, (unused), (unused), o as {outer, head, token} (18
+// values); qa and ka hold qk_width columns (a multiple of 8), v and o
+// head_dim.
 extern "C" int lameness_sam_window_attention_v2(
-    const void* qa, const void* ka, const void* v, const void* rw, void* o,
-    int outer, int heads, int tokens, int head_dim, int qk_width, int gw,
+    const void* qa, const void* ka, const void* v, void* o, int outer,
+    int heads, int tokens, int head_dim, int qk_width,
     const long long* strides, int dtype, void* stream) {
-  lameness::AttnArgs a = lameness::sam_args(qa, ka, v, nullptr, rw, o,
-                                            tokens, heads, gw, 1.0f, strides);
+  lameness::AttnArgs a = lameness::sam_args(qa, ka, v, nullptr, nullptr, o,
+                                            tokens, heads, 0, 1.0f, strides);
   a.qk_width = qk_width;
-  return lameness::launch_augmented<false>(a, outer * heads, head_dim, dtype,
-                                           stream);
+  return lameness::launch_augmented(a, outer * heads, head_dim, dtype,
+                                    stream);
 }

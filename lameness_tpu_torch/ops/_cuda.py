@@ -29,7 +29,7 @@ SOURCES = ("attention", "sam_window_attention", "sam_global_attention",
            "sam_window_attention_v2", "sam_window_attention_v5")
 # sm_90a (not sm_90): wgmma and setmaxnreg exist only there.  No -lcuda: the
 # one libcuda function used, cuTensorMapEncodeTiled (TMA descriptors of the
-# wgmma route of K3-K5), is looked up at run time through the CUDA runtime.
+# wgmma route of K3-K6), is looked up at run time through the CUDA runtime.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -40,10 +40,10 @@ KERNELS: Dict[str, "CudaKernel"] = {}
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 80, 128)     # instantiated in csrc/attention.cuh
-# the augmented kernels (K5, K6, K8, K9): head dims, and the most columns
-# past the head dim (16 or 32 for windows, 64 with rw: see attention.cuh)
+# the augmented kernels (K8, K9): head dims, and the most columns past the
+# head dim (16 or 32: see attention.cuh)
 AUG_HEAD_DIMS = (16, 32, 64, 80)
-AUG_EXTRA = {False: 32, True: 64}
+AUG_EXTRA = 32
 
 
 def _nvcc() -> str:
@@ -179,10 +179,10 @@ def check_head_dim(name: str, d: int) -> None:
                          f"(supported: {HEAD_DIMS})")
 
 
-def check_augmented_dims(name: str, d: int, width: int, rw: bool) -> None:
+def check_augmented_dims(name: str, d: int, width: int) -> None:
     """Raise unless an augmented kernel is built for head dim ``d`` and
     ``width`` (the padded augmented width) columns of qa and ka."""
-    if d not in AUG_HEAD_DIMS or not 0 < width - d <= AUG_EXTRA[rw]:
+    if d not in AUG_HEAD_DIMS or not 0 < width - d <= AUG_EXTRA:
         raise ValueError(f"{name}: head dim {d} with augmented width {width} "
                          f"not built (head dims {AUG_HEAD_DIMS}, at most "
-                         f"{AUG_EXTRA[rw]} columns past the head dim)")
+                         f"{AUG_EXTRA} columns past the head dim)")

@@ -21,16 +21,16 @@ Global attention over the whole (GH, GW) grid:
   (K6).
 
 The switches are read at each call, as the JAX package reads them at each
-trace.  K2, K3, K4, K5 and K7 add the bias per score.  K6, K8 and K9 take
-augmented operands, built here as the JAX entries build them: q·scale and the
-tables rounded to the compute dtype, exact one-hot selector columns on the k
-side, so that qa·kaᵀ carries the bias (K6 adds rw[t, j mod GW] per score);
-the width is zero-padded to a multiple of 8 (16-byte bf16 rows).  K5's plain
-version runs on such operands too, as its JAX entry does, but its kernel
-takes K3's arguments: on the card the augmented contraction costs more than
-the per-score add (``csrc/sam_global_attention_v2.cu``).  K3, K4 and K5 run
-one device routine (``csrc/global_attention.cuh``) on q, k, v and the tables
-as the rel-pos einsum leaves them: their entries copy nothing.
+trace.  K2-K7 add the bias per score.  K8 and K9 take augmented operands,
+built here as the JAX entries build them: q·scale and the tables rounded to
+the compute dtype, exact one-hot selector columns on the k side, so that
+qa·kaᵀ carries the bias; the width is zero-padded to a multiple of 8
+(16-byte bf16 rows).  The plain versions of K5 and K6 run on such operands
+too, as their JAX entries do, but their kernels take K3's arguments: on the
+card the augmented contraction costs more than the per-score add
+(``csrc/sam_global_attention_v2.cu``).  K3, K4, K5 and K6 run one device
+routine (``csrc/global_attention.cuh``) on q, k, v and the tables as the qkv
+Linear and the rel-pos einsum leave them: their entries copy nothing.
 
 On a CPU tensor each entry runs its plain version; on a CUDA tensor it
 launches its kernel (``csrc/<entry>.cu``) or raises.
@@ -49,12 +49,12 @@ from ._cuda import (DTYPE_CODES, CudaKernel, check_augmented_dims,
                     strides_array)
 
 _vp, _ci = ctypes.c_void_p, ctypes.c_int
-_WINDOW_ARGS = [_vp] * 6 + [_ci] * 5 + [_vp, _ci]
+_HEADS_ARGS = [_vp] * 6 + [_ci] * 5 + [_vp, _ci]
 _GLOBAL_ARGS = [_vp] * 6 + [_ci] * 4 + [_vp, _ci]
-_AUGMENTED_ARGS = [_vp] * 5 + [_ci] * 6 + [_vp, _ci]
+_AUGMENTED_ARGS = [_vp] * 4 + [_ci] * 5 + [_vp, _ci]
 WINDOW_KERNEL = CudaKernel(                                      # K2
     "sam_window_attention_v3", "sam_window_attention",
-    "lameness_sam_window_attention", _WINDOW_ARGS)
+    "lameness_sam_window_attention", _HEADS_ARGS)
 GLOBAL_KERNEL = CudaKernel(                                      # K3
     "sam_global_attention_v4", "sam_global_attention",
     "lameness_sam_global_attention", _GLOBAL_ARGS)
@@ -66,10 +66,10 @@ GLOBAL_V2_KERNEL = CudaKernel(                                   # K5
     "lameness_sam_global_attention_v2", _GLOBAL_ARGS)
 GLOBAL_V3_KERNEL = CudaKernel(                                   # K6
     "sam_global_attention_v3", "sam_global_attention_v3",
-    "lameness_sam_global_attention_v3", _AUGMENTED_ARGS)
+    "lameness_sam_global_attention_v3", _HEADS_ARGS)
 WINDOW_V1_KERNEL = CudaKernel(                                   # K7
     "sam_window_attention_v1", "sam_window_attention_v1",
-    "lameness_sam_window_attention_v1", _WINDOW_ARGS)
+    "lameness_sam_window_attention_v1", _HEADS_ARGS)
 WINDOW_V2_KERNEL = CudaKernel(                                   # K8
     "sam_window_attention_v2", "sam_window_attention_v2",
     "lameness_sam_window_attention_v2", _AUGMENTED_ARGS)
@@ -210,9 +210,9 @@ def global_v2_operands(q, k, rel_h, rel_w):
 
 
 def global_v3_operands(q4, k4, rh4, rw4):
-    """K6's operands, head-last as sam_global_attention_v3 builds them:
-    qa = [q4·scale | rh4], ka = [k4 | spreadᵀ] (B, N, nH, A), and rw4 in
-    the compute dtype."""
+    """The operands of K6's plain version, head-last as the JAX entry
+    sam_global_attention_v3 builds them: qa = [q4·scale | rh4], ka =
+    [k4 | spreadᵀ] (B, N, nH, A), and rw4 in the compute dtype."""
     b, n, nh, hd = q4.shape
     gh, gw = rh4.shape[-1], rw4.shape[-1]
     spread = _selectors(n, gw, gh, False, q4)[:, None].expand(b, n, nh, gh)
@@ -254,12 +254,13 @@ def window_v5_operands(q4, k4, rh4, rw4):
 # C arguments (all but the stream)
 # ---------------------------------------------------------------------------
 def bias_args(q, k, v, rh, rw, out):
-    """Of the window entries (K2, K7): (O, H, N, ·) views of q, k, v, the
-    tables and the output, with any strides but a contiguous last axis."""
+    """Of the entries with per-head strides (K2, K6, K7): (O, H, N, ·)
+    views of q, k, v, the tables and the output, with any strides but a
+    contiguous last axis; GW is rw's width."""
     o, h, n, d = q.shape
     st = strides_array(*(t.stride()[:3] for t in (q, k, v, rh, rw, out)))
     return (q.data_ptr(), k.data_ptr(), v.data_ptr(), rh.data_ptr(),
-            rw.data_ptr(), out.data_ptr(), o, h, n, d, rh.shape[-1], st,
+            rw.data_ptr(), out.data_ptr(), o, h, n, d, rw.shape[-1], st,
             DTYPE_CODES[q.dtype])
 
 
@@ -269,6 +270,13 @@ def window_args(q4, k4, v4, rh4, rw4, out):
     bw, n, nh, hd = q4.shape
     return bias_args(*(t.transpose(1, 2) for t in (q4, k4, v4, rh4, rw4)),
                      out.view(bw, n, nh, hd).transpose(1, 2))
+
+
+# Of ``lameness_sam_global_attention_v3`` (K6): q4, k4, v4 (B, N, nH, hd),
+# rh4 (B, N, nH, GH) and rw4 (B, N, nH, GW) where the qkv Linear and
+# project_rel_tables_hl leave them, and out (B, N, nH·hd), all at
+# {image, head, token} element strides: K2's arguments.
+global_hl_args = window_args
 
 
 def global_args(q, k, v, rel_h, rel_w, out):
@@ -286,18 +294,14 @@ def global_args(q, k, v, rel_h, rel_w, out):
             DTYPE_CODES[q.dtype])
 
 
-def augmented_args(qa, ka, v, rw, out):
-    """Of the augmented entries (K6, K8, K9): (O, H, N, ·) views; rw
-    is None for the windows."""
+def augmented_args(qa, ka, v, out):
+    """Of the augmented entries (K8, K9): (O, H, N, ·) views."""
     o, h, n, width = qa.shape
     none = (0, 0, 0)
     st = strides_array(qa.stride()[:3], ka.stride()[:3], v.stride()[:3],
-                       none, none if rw is None else rw.stride()[:3],
-                       out.stride()[:3])
-    return (qa.data_ptr(), ka.data_ptr(), v.data_ptr(),
-            None if rw is None else rw.data_ptr(), out.data_ptr(), o, h, n,
-            v.shape[-1], width, 1 if rw is None else rw.shape[-1], st,
-            DTYPE_CODES[qa.dtype])
+                       none, none, out.stride()[:3])
+    return (qa.data_ptr(), ka.data_ptr(), v.data_ptr(), out.data_ptr(), o, h,
+            n, v.shape[-1], width, st, DTYPE_CODES[qa.dtype])
 
 
 # ---------------------------------------------------------------------------
@@ -352,26 +356,24 @@ def sam_window_attention_v1(q: torch.Tensor, k: torch.Tensor,
     return out
 
 
-def _augmented(name: str, kernel: CudaKernel, qa, ka, v, rw, fold: bool,
+def _augmented(name: str, kernel: CudaKernel, qa, ka, v, fold: bool,
                head_last: bool) -> torch.Tensor:
-    """Attention on augmented operands.  Head-last operands are
-    (O, N, H, ·) and give (O, N, H·hd); head-major ones (O, H, N, ·) give
-    (O, H, N, hd)."""
+    """Windowed attention on augmented operands (K8, K9).  Head-last
+    operands are (O, N, H, ·) and give (O, N, H·hd); head-major ones
+    (O, H, N, ·) give (O, H, N, hd)."""
     def hm(t):
-        return t.transpose(1, 2) if head_last and t is not None else t
-    qa_, ka_, v_, rw_ = hm(qa), hm(ka), hm(v), hm(rw)
+        return t.transpose(1, 2) if head_last else t
+    qa_, ka_, v_ = hm(qa), hm(ka), hm(v)
     o, h, n, width = qa_.shape
     d = v_.shape[-1]
     if qa.device.type == "cpu":
-        out = augmented_attention_reference(qa_, ka_, v_, rw_, fold)
+        out = augmented_attention_reference(qa_, ka_, v_, fold=fold)
         return out.transpose(1, 2).reshape(o, n, h * d) if head_last else out
-    check_operands(name, [t for t in (qa, ka, v, rw) if t is not None])
-    if ka_.shape != qa_.shape or v_.shape != (o, h, n, d) or (
-            rw_ is not None and (rw_.shape[:3] != (o, h, n)
-                                 or n % rw_.shape[-1])):
+    check_operands(name, (qa, ka, v))
+    if ka_.shape != qa_.shape or v_.shape != (o, h, n, d):
         raise ValueError(f"{name}: shapes qa {tuple(qa_.shape)}, ka "
                          f"{tuple(ka_.shape)}, v {tuple(v_.shape)}")
-    check_augmented_dims(name, d, width, rw is not None)
+    check_augmented_dims(name, d, width)
     check_chunked_rows(name, (qa, ka, v))
     if head_last:
         out = torch.empty((o, n, h * d), dtype=v.dtype, device=v.device)
@@ -379,7 +381,7 @@ def _augmented(name: str, kernel: CudaKernel, qa, ka, v, rw, fold: bool,
     else:
         out = out_ = torch.empty((o, h, n, d), dtype=v.dtype,
                                  device=v.device)
-    kernel(*augmented_args(qa_, ka_, v_, rw_, out_))
+    kernel(*augmented_args(qa_, ka_, v_, out_))
     return out
 
 
@@ -391,7 +393,7 @@ def sam_window_attention_v2(q: torch.Tensor, k: torch.Tensor,
     Same signature and layout as :func:`sam_window_attention_v1`."""
     qa, ka = window_v2_operands(q, k, rel_h, rel_w)
     return _augmented("sam_window_attention_v2", WINDOW_V2_KERNEL, qa, ka, v,
-                      None, fold=False, head_last=False)
+                      fold=False, head_last=False)
 
 
 def sam_window_attention_v5(q4: torch.Tensor, k4: torch.Tensor,
@@ -403,7 +405,7 @@ def sam_window_attention_v5(q4: torch.Tensor, k4: torch.Tensor,
     :func:`sam_window_attention_v3`."""
     qa, ka = window_v5_operands(q4, k4, rh4, rw4)
     return _augmented("sam_window_attention_v5", WINDOW_V5_KERNEL, qa, ka, v4,
-                      None, fold=True, head_last=True)
+                      fold=True, head_last=True)
 
 
 def sam_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -480,14 +482,32 @@ def sam_global_attention_v2(q: torch.Tensor, k: torch.Tensor,
 def sam_global_attention_v3(q4: torch.Tensor, k4: torch.Tensor,
                             v4: torch.Tensor, rh4: torch.Tensor,
                             rw4: torch.Tensor) -> torch.Tensor:
-    """K6: global attention over head-last layouts.
+    """K6: K3's function over head-last layouts.
 
-    q4/k4/v4: (B, N, nH, hd) slices of the qkv projection (v4 read in
-    place); rh4 (B, N, nH, GH), rw4 (B, N, nH, GW) from
-    :func:`project_rel_tables_hl`.  Returns (B, N, nH·hd)."""
-    qa, ka, rw = global_v3_operands(q4, k4, rh4, rw4)
-    return _augmented("sam_global_attention_v3", GLOBAL_V3_KERNEL, qa, ka, v4,
-                      rw, fold=False, head_last=True)
+    q4/k4/v4: (B, N, nH, hd) slices of the qkv projection; rh4 (B, N, nH,
+    GH), rw4 (B, N, nH, GW) from :func:`project_rel_tables_hl`.  Returns
+    (B, N, nH·hd).  The plain version runs on the augmented operands of the
+    JAX entry (:func:`global_v3_operands`); the kernel reads all five where
+    they lie (:func:`global_hl_args`) and builds nothing."""
+    b, n, nh, hd = q4.shape
+    if q4.device.type == "cpu":
+        qa, ka, rw = global_v3_operands(q4, k4, rh4, rw4)
+        out = augmented_attention_reference(
+            *(t.transpose(1, 2) for t in (qa, ka, v4, rw)))
+        return out.transpose(1, 2).reshape(b, n, nh * hd)
+    name = "sam_global_attention_v3"
+    rh4, rw4 = rh4.to(q4.dtype), rw4.to(q4.dtype)
+    gh, gw = rh4.shape[-1], rw4.shape[-1]
+    if (k4.shape != q4.shape or v4.shape != q4.shape or n != gh * gw
+            or rh4.shape[:3] != (b, n, nh) or rw4.shape[:3] != (b, n, nh)):
+        raise ValueError(f"{name}: shapes q4 {tuple(q4.shape)}, rh4 "
+                         f"{tuple(rh4.shape)}, rw4 {tuple(rw4.shape)}")
+    check_operands(name, (q4, k4, v4, rh4, rw4))
+    check_head_dim(name, hd)
+    check_chunked_rows(name, (q4, k4, v4))
+    out = torch.empty((b, n, nh * hd), dtype=q4.dtype, device=q4.device)
+    GLOBAL_V3_KERNEL(*global_hl_args(q4, k4, v4, rh4, rw4, out))
+    return out
 
 
 def sam_global_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -9,7 +9,8 @@ the parent commit, and ``.``).  Each turn is a process of its own that
 imports ``lameness_tpu_torch`` from its root, builds that root's kernels,
 and prints the bf16 device time per call of K1-K7 at the shapes the
 full-width engine gives them for B = 2 clips: torch.profiler's summed time
-of the port's kernels only (K6's operand build left out), over 20 calls
+of the port's kernels only (anything else an entry runs, such as the
+operand build of a tree whose K6 still had one, left out), over 20 calls
 (K1, K2, K7) or 5 (K3-K6).  The turns run in the order A B B A, so that a drift of the card
 between the first and the last turn shows as a difference between the two A
 rows.  The card's name and power limit come first.

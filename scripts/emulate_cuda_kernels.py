@@ -146,28 +146,28 @@ def main() -> int:
             call(lib, sa.WINDOW_V1_KERNEL, sa.bias_args(q, k, v, rh, rw, out))
             report("K7", dtype, (bw, win, nh, hd), out,
                    sa.window_attention_hm_reference(q, k, v, rh, rw))
-        # K5 (head-major) and K6 (head-last) on augmented operands: rw
-        # gathered per score, or in registers at GW = 64; 8 to 64 columns
-        # past the head dim
+        # K6 (head-last) and K5 (head-major) take K3's function on the
+        # mma.sync route here (global_entry: no wgmma/TMA in the
+        # emulation); their plain versions run on the augmented operands of
+        # the JAX entries.  K6 reads q4, k4, v4 as slices of a fused qkv
+        # output and the tables where project_rel_tables_hl leaves them;
+        # one head (the tables' grid-row stride from the token stride) and
+        # several; rh and rw gathered per score, or rw in registers at
+        # GW = 64
         for b, nh, gh, gw, d in ((2, 1, 6, 11, 32), (1, 2, 3, 64, 64),
-                                 (1, 1, 40, 2, 32), (1, 2, 4, 4, 80)):
+                                 (1, 1, 40, 2, 32), (1, 2, 4, 4, 80),
+                                 (2, 3, 5, 7, 64)):
             n = gh * gw
             qkv = rnd(b, n, 3, nh, d, dtype=dtype)
             q4, k4, v4 = qkv.unbind(2)
             tables = (rnd(2 * gh - 1, d, dtype=dtype),
                       rnd(2 * gw - 1, d, dtype=dtype))
             rh4, rw4 = sa.project_rel_tables_hl(q4, *tables, gh, gw)
-            qa, ka, rw = sa.global_v3_operands(q4, k4, rh4, rw4)
-            qa, ka, v, rw = (t.transpose(1, 2) for t in (qa, ka, v4, rw))
             out = torch.empty(b, n, nh * d, dtype=dtype)
-            out_ = out.view(b, n, nh, d).transpose(1, 2)
             call(lib, sa.GLOBAL_V3_KERNEL,
-                 sa.augmented_args(qa, ka, v, rw, out_))
-            report("K6", dtype, (b, nh, gh, gw, d), out_,
-                   sa.augmented_attention_reference(qa, ka, v, rw))
-            # K5 takes K3's operands (the tables where the einsum leaves
-            # them); its plain version the augmented operands of the JAX
-            # entry
+                 sa.global_hl_args(q4, k4, v4, rh4, rw4, out))
+            report("K6", dtype, (b, nh, gh, gw, d), out,
+                   sa.sam_global_attention_v3(q4, k4, v4, rh4, rw4))
             q, k, v = (t.transpose(1, 2).reshape(b * nh, n, d)
                        for t in (q4, k4, v4))
             rh, rw = sa.project_rel_tables(q, *tables, gh, gw)
@@ -191,7 +191,7 @@ def main() -> int:
             out = torch.empty(bw, n, nh * hd, dtype=dtype)
             out_ = out.view(bw, n, nh, hd).transpose(1, 2)
             call(lib, sa.WINDOW_V5_KERNEL,
-                 sa.augmented_args(qa, ka, v, None, out_))
+                 sa.augmented_args(qa, ka, v, out_))
             report("K9", dtype, (bw, win, nh, hd), out_,
                    sa.augmented_attention_reference(qa, ka, v, fold=True))
             q, k = (t.transpose(1, 2) for t in (q4, k4))
@@ -199,7 +199,7 @@ def main() -> int:
                                            rw4.transpose(1, 2))
             out = torch.empty(bw, nh, n, hd, dtype=dtype)
             call(lib, sa.WINDOW_V2_KERNEL,
-                 sa.augmented_args(qa, ka, v, None, out))
+                 sa.augmented_args(qa, ka, v, out))
             report("K8", dtype, (bw, win, nh, hd), out,
                    sa.augmented_attention_reference(qa, ka, v))
     print("emulated kernels:", "ok" if ok else "FAILED")

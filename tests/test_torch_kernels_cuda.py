@@ -167,24 +167,68 @@ def test_global_kernels_bitwise(dev, g, hd):
     assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
 
 
-@pytest.mark.parametrize("dtype,tol", DTYPES)
-@pytest.mark.parametrize("gh,gw,hd", [(64, 64, 64), (24, 40, 64),
-                                      (48, 48, 80)])
-def test_global_head_last_kernel(dev, dtype, tol, gh, gw, hd):
-    """K6 on strided slices of a fused qkv output."""
-    qkv = _rnd(dev, dtype, 2, gh * gw, 3, 2, hd)
+def _head_last_inputs(dev, dtype, b, nh, gh, gw, hd):
+    """K6's operands as the engine gives them: q4, k4, v4 slices of a fused
+    (B, N, 3, nH, hd) qkv output, the tables where project_rel_tables_hl
+    leaves them."""
+    qkv = _rnd(dev, dtype, b, gh * gw, 3, nh, hd)
     q4, k4, v4 = qkv.unbind(2)
     rh4, rw4 = sa.project_rel_tables_hl(
         q4, _rnd(dev, dtype, 2 * gh - 1, hd, seed=3, s=0.1),
         _rnd(dev, dtype, 2 * gw - 1, hd, seed=4, s=0.1), gh, gw)
-    before = sa.GLOBAL_V3_KERNEL.launches
-    got = sa.sam_global_attention_v3(q4, k4, v4, rh4, rw4)
-    assert sa.GLOBAL_V3_KERNEL.launches == before + 1
+    return q4, k4, v4, rh4, rw4
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("b,nh,gh,gw,hd", [
+    (2, 12, 64, 64, 64),  # the engine's heads and grid: the Hopper route
+    (2, 12, 36, 64, 64),  # the rect canvas's grid
+    (2, 2, 24, 40, 64),   # N = 960: a ragged key tile, rh and rw gathered
+    (2, 2, 48, 48, 80),   # SAM ViT-H's head dim: the mma.sync route
+    (1, 2, 72, 72, 64),   # bias rows past kHopMaxSmem: the mma.sync route
+    (3, 1, 7, 9, 64)])    # one head, N = 63 < one key tile
+def test_global_head_last_kernel(dev, dtype, tol, b, nh, gh, gw, hd):
+    """K6 on strided slices of a fused qkv output, on both routes (bf16 at
+    hd 64 but the 72 x 72 grid: the Hopper routine; float32, hd 80 and the
+    72 x 72 grid: attention.cuh): its entry launches its kernel alone, the
+    output agrees with its plain version, and it equals K3's on head-major
+    copies of the same q, k, v and tables bit for bit (one routine, one
+    function)."""
+    q4, k4, v4, rh4, rw4 = _head_last_inputs(dev, dtype, b, nh, gh, gw, hd)
+    got = _alone(lambda: sa.sam_global_attention_v3(q4, k4, v4, rh4, rw4),
+                 sa.GLOBAL_V3_KERNEL)
     qa, ka, rw = sa.global_v3_operands(q4, k4, rh4, rw4)
     ref = sa.augmented_attention_reference(
         *(t.transpose(1, 2) for t in (qa, ka, v4, rw)))
     ref = ref.transpose(1, 2).reshape(got.shape)
     torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
+    n = gh * gw
+
+    def head_major(t):
+        return t.transpose(1, 2).reshape(b * nh, n, t.shape[-1])
+    k3 = sa.sam_global_attention_v4(
+        head_major(q4), head_major(k4), head_major(v4),
+        head_major(rh4).view(b * nh, gh, gw, gh),
+        head_major(rw4).view(b * nh, gh, gw, gw))
+    assert torch.equal(got, k3.view(b, nh, n, hd).transpose(1, 2)
+                       .reshape(got.shape))
+
+
+def test_global_head_last_misaligned(dev):
+    """A bf16 operand that TMA cannot read (an address 2 bytes off 16):
+    the entry raises before launching, and the C entry itself returns
+    cudaErrorInvalidValue (1); nothing takes another route."""
+    q4, k4, v4, rh4, rw4 = _head_last_inputs(dev, torch.bfloat16, 1, 2, 8,
+                                             8, 64)
+    bad = torch.empty(q4.numel() + 1, dtype=q4.dtype, device=dev)[1:]
+    bad = bad.view(q4.shape).copy_(q4)
+    before = sa.GLOBAL_V3_KERNEL.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        sa.sam_global_attention_v3(bad, k4, v4, rh4, rw4)
+    out = torch.empty(1, 64, 128, dtype=q4.dtype, device=dev)
+    with pytest.raises(RuntimeError, match="cudaError_t 1$"):
+        sa.GLOBAL_V3_KERNEL(*sa.global_hl_args(bad, k4, v4, rh4, rw4, out))
+    assert sa.GLOBAL_V3_KERNEL.launches == before
 
 
 @pytest.mark.parametrize("dtype,tol", DTYPES)

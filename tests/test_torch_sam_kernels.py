@@ -157,10 +157,46 @@ def test_global_v2_args(fused, grid_major):
     assert (rel_h.stride(1) == gw * rel_h.stride(2)) != grid_major
 
 
+@pytest.mark.parametrize("fused", [True, False])
+def test_global_hl_args(fused):
+    """The C arguments of K6 (``global_hl_args``): q4, k4, v4, the
+    head-last tables and the (B, N, nH·hd) output where they lie, at
+    {image, head, token} element strides, with (outer, heads, tokens,
+    head_dim, gw) = (B, nH, N, hd, GW): the unbind views of a fused qkv
+    output as the engine passes them, or contiguous copies."""
+    b, nh, gh, gw, hd = 2, 3, 4, 5, 64
+    n = gh * gw
+    if fused:
+        q4, k4, v4 = torch.zeros(b, n, 3, nh, hd).unbind(2)
+    else:
+        q4, k4, v4 = (torch.zeros(b, n, nh, hd) for _ in range(3))
+    rh4, rw4 = tsa.project_rel_tables_hl(
+        q4, torch.zeros(2 * gh - 1, hd), torch.zeros(2 * gw - 1, hd), gh, gw)
+    out = torch.empty(b, n, nh * hd)
+    args = tsa.global_hl_args(q4, k4, v4, rh4, rw4, out)
+    assert args[:6] == tuple(t.data_ptr() for t in (q4, k4, v4, rh4, rw4,
+                                                   out))
+    assert args[6:11] == (b, nh, n, hd, gw) and args[12] == 0
+    token = (3 if fused else 1) * nh * hd
+
+    def hl(t):
+        return [t.stride(0), t.stride(2), t.stride(1)]
+    assert list(args[11]) == [n * token, hd, token] * 3 + hl(rh4) + hl(
+        rw4) + [n * nh * hd, hd, nh * hd]
+    # the tables' token t lies at t·(token stride): evenly spaced, the
+    # staging loop without a division per element (csrc/attention.cuh)
+    for t, width in ((rh4, gh), (rw4, gw)):
+        assert t.shape == (b, n, nh, width) and t.stride(-1) == 1
+    if fused:
+        assert k4.data_ptr() - q4.data_ptr() == nh * hd * 4
+
+
 @pytest.mark.parametrize("b,nh,gh,gw,hd", [(1, 2, 4, 6, 64),
-                                           (2, 1, 6, 6, 80)])
+                                           (2, 1, 6, 6, 80),
+                                           (2, 3, 5, 7, 32)])
 def test_global_v3_matches_pallas(b, nh, gh, gw, hd):
-    """K6 on head-last layouts."""
+    """K6 on head-last layouts: the plain version on the augmented operands
+    of the JAX entry."""
     j, t = _head_last(3, b, nh, gh, gw, hd)
     want = jsa.sam_global_attention_v3(*j, interpret=True)
     got = tsa.sam_global_attention_v3(*t)
