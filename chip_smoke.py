@@ -13,10 +13,11 @@ Phases, each failing loudly (no exception is swallowed):
      shapes, in float32 and bfloat16, with device times (torch.profiler)
      beside the bound, the plain version's and a PyTorch library call's as
      yardsticks (the library call timed by the profiler and by CUDA
-     events); the entries of K2-K7 must put nothing on the card but their
+     events); the entries of K2-K9 must put nothing on the card but their
      kernel; K3, K4 and K5 must give the same bf16 output bit for bit at
-     the engine's shapes (one routine on one set of operands), and K6 on
-     head-last views the same as K3 on head-major copies of the values;
+     the engine's shapes (one routine on one set of operands), K6 on
+     head-last views the same as K3 on head-major copies of the values,
+     and K8 the same as K7, K9 the same as K2 (one window routine);
   3. engine: a small engine on the card against the same engine's plain
      path on the CPU (same weights, same frames), under each kernel
      selection; then the full-width engine (YOLOv8-n 640, SAM ViT-B 1024²,
@@ -27,7 +28,8 @@ Phases, each failing loudly (no exception is swallowed):
      against the expected ones), end-to-end times and a torch.profiler
      breakdown of one batch (device busy share, device time by kernel and
      by launching op); the default run its stage times too, and each other
-     selection its agreement with the default run (masks, SAM embeddings).
+     selection its agreement with the default run (masks, SAM embeddings,
+     and whether its outputs equal the default's bit for bit).
 The line before the last is the kernel record (JSON); the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 without a CUDA device or outside the repository.
@@ -74,18 +76,20 @@ SELECTIONS = (
 )
 # A selection's SAM image embeddings against the default's, as
 # ||a - b||_2 / ||b||_2 over the batch.  Both run in bf16 (eps 2^-8) and
-# round in different places: the augmented kernels round the projected
-# tables to bf16 before they enter a score, and every kernel's output is
+# may round in different places: the head-major and head-last paths project
+# the rel-pos tables by different einsums, and every kernel's output is
 # rounded to bf16 (kernel-level agreement is within 1.6e-2 relative, TOL);
-# 12 encoder layers carry the differences on.  A wrong bias or a wrong
-# head would move the embeddings by O(1).
+# 12 encoder layers carry the differences on.  No kernel takes augmented
+# operands from HBM: the window kernels share window_entry, the global ones
+# global_entry.  A wrong bias or a wrong head would move the embeddings by
+# O(1).
 EMB_RTOL = 5e-2
 
-# the kernels whose entries put nothing on the card but the kernel: K3-K6
-# read q, k, v and the tables where the qkv Linear and the einsum leave
-# them, K2 and K7 take q, k, v and the tables as they are (their routine
-# builds the bias operands in shared memory)
-ENTRY_ALONE = ("K2", "K3", "K4", "K5", "K6", "K7")
+# the kernels whose entries put nothing on the card but the kernel: all of
+# the SAM ones read q, k, v and the tables where the qkv Linear and the
+# einsum leave them (K2 and K7-K9 form the augmented bias columns in shared
+# memory, K3-K6 stage the tables)
+ENTRY_ALONE = ("K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9")
 # the libraries of the Hopper global routine (wgmma): K3, K4, K5, K6
 HOPPER_SOURCES = ("sam_global_attention", "sam_global_attention_v1",
                   "sam_global_attention_v2", "sam_global_attention_v3")
@@ -390,8 +394,8 @@ def check_kernels(batch: int = BATCH):
                 del args, out, ref, plain
                 continue
             # times at the engine's working dtype (bf16 under the policy):
-            # the kernel's own device time inside its entry, and the entry's
-            # (augmented operands built) beside it
+            # the kernel's own device time inside its entry, and the whole
+            # entry's (anything else it launches) beside it
             reps = 5 if layout.startswith("global") else 20
             rec["max_abs_err"] = err
             rec["ms"] = device_ms(lambda: fn(*args), reps, only="lameness::")
@@ -434,7 +438,8 @@ def check_kernels(batch: int = BATCH):
             del args, out, ref, plain
         torch.cuda.empty_cache()
         records[kid] = rec
-    return records, all_ok & check_global_bitwise(batch, gen)
+    return records, (all_ok & check_global_bitwise(batch, gen)
+                     & check_window_bitwise(batch, gen))
 
 
 def check_global_bitwise(batch: int, gen) -> bool:
@@ -471,6 +476,28 @@ def check_global_bitwise(batch: int, gen) -> bool:
     log(f"  K3, K4, K5 bfloat16 ({b * h}, {n}, {d}) and K6 on head-last "
         f"views {tuple(q4.shape)}: bit-identical to K3 {json.dumps(same)}"
         f"  {'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def check_window_bitwise(batch: int, gen) -> bool:
+    """K8 launches K7's route choice (window_entry) on K7's operands, K9
+    K2's on K2's: at the engine's shapes in bf16, K8's output must equal
+    K7's and K9's K2's, bit for bit."""
+    import torch
+    from lameness_tpu_torch.ops import sam_attention as sa
+    same, shapes = {}, {}
+    entry = {kid: e for kid, _, e, *_ in KERNEL_TABLE}
+    for kid, twin, layout in (("K8", "K7", "window_hm"),
+                              ("K9", "K2", "window_hl")):
+        args = kernel_inputs(layout, torch.bfloat16, batch, gen)
+        out, ref = (getattr(sa, entry[k])(*args) for k in (kid, twin))
+        torch.cuda.synchronize()
+        same[f"{kid} = {twin}"] = bool(torch.equal(out, ref))
+        shapes[kid] = tuple(args[0].shape)
+        del args, out, ref
+    ok = all(same.values())
+    log(f"  K8 on {shapes['K8']}, K9 on {shapes['K9']} bfloat16: "
+        f"{json.dumps(same)}  {'ok' if ok else 'FAIL'}")
     return ok
 
 
@@ -731,9 +758,13 @@ def run_engine(batch: int = BATCH):
                     / torch.linalg.vector_norm(ref[1]))
         good = agreement >= 0.995 and rel <= EMB_RTOL
         ok &= good
+        base = dict(leaves(ref[0]))
+        bitwise = torch.equal(emb, ref[1]) and all(
+            np.array_equal(val, base[key]) for key, val in leaves(out))
         log(f"{sel} vs default: mask agreement {agreement:.5f} (gate "
             f">= 0.995); SAM embeddings relative L2 error {rel:.3e} (gate "
             f"<= {EMB_RTOL:g}), max abs {float((emb - ref[1]).abs().max()):.3e}"
+            f"; every output bit for bit {bitwise}"
             f"  {'ok' if good else 'FAIL'}")
     return by_selection, ok
 

@@ -1,37 +1,30 @@
 // One online-softmax attention routine, shared by the port's nine kernels
-// (six of which have a routine of their own for their main shapes, bf16 at
-// head dim 64: K3-K6 hopper_attention.cuh, K2 and K7 window_attention.cuh;
-// their other shapes come here):
+// (eight of which have a routine of their own for their main shapes, bf16
+// at head dim 64: K3-K6 hopper_attention.cuh, K2, K7, K8 and K9
+// window_attention.cuh; their other shapes come here):
 //   K1 attention.cu               softmax(q k^T scale) v               (DINO)
 //   K2 sam_window_attention.cu    + decomposed rel-pos bias, 14x14 windows,
 //                                 head-last views of the qkv output
+//   K9 sam_window_attention_v5.cu the same function and layout
 //   K7 sam_window_attention_v1.cu the same function, head-major windows
+//   K8 sam_window_attention_v2.cu the same function and layout
 //   K3 sam_global_attention.cu    + decomposed rel-pos bias, 64x64 grid
 //   K4 sam_global_attention_v1.cu the same function and layout
 //   K5 sam_global_attention_v2.cu the same function and layout
 //   K6 sam_global_attention_v3.cu the same function, head-last
-//   K8 sam_window_attention_v2.cu augmented operands: [q*scale | rh | rw]
-//                                 against [k | spread^T | mod^T]; head-major
-//   K9 sam_window_attention_v5.cu the same, head-last
 // Each .cu keeps its own C entry point; this header holds the device code and
-// the host-side dispatch over dtype and widths.
-//
-// Widths: QK^T contracts over DQK columns and PV over DV.  K1-K7 have
-// DQK == DV == the head dim.  The augmented kernels (K8, K9) read qk_width
-// columns of q and k (the augmented width, a multiple of 8) and contract
-// over the next instantiated multiple of 16; the columns past qk_width read
-// as zeros in shared memory, so padding never adds to a score.
+// the host-side dispatch over dtype and the head dim D, the width of both
+// QK^T's contraction and PV's output.
 //
 // Bias: BIAS adds rh[t, j / gw] + rw[t, j % gw] to every score, read from
-// the q-projected tables and never materialised (K2-K7).  K1, K8 and K9 take
-// none (K8 and K9 carry both tables in the contraction).
+// the q-projected tables and never materialised (K2-K9).  K1 takes none.
 //
 // Common to both dtypes:
 //   * a block owns 64 query rows of one (batch, head) and walks the keys in
 //     tiles with an online softmax, so no (N, N) score or bias tensor ever
 //     reaches device memory; all accumulation is f32.  The softmax
 //     denominator is applied after PV (the plain versions of K2-K8 divide
-//     before PV, as the TPU kernels do; inside the bf16 tolerance);
+//     before PV, as their TPU kernels do; inside the bf16 tolerance);
 //   * keys past n_k are masked to -inf here, so callers pad nothing;
 //   * tensors are addressed through strides (batch index b splits into
 //     b / heads and b % heads), so head-last views of a fused qkv output are
@@ -50,11 +43,9 @@
 //   the 64x64 grid the rw part then lives in registers: ROW_TILE); the
 //   softmax in the exp2 domain, row max and sum across the 4 lanes of a
 //   row by shuffles; K and V fragments by ldmatrix.  Left for later: wgmma
-//   and TMA, warp specialisation (the Hopper routine of K3-K6 has them), and
-//   K8, K9 onto the window routine, which keeps a window's K/V for all its
-//   rows and builds the bias columns in shared memory.
+//   and TMA, warp specialisation (the Hopper routine of K3-K6 has them).
 // float32 (exact reference path): attention_f32_kernel, plain FMA loops with
-//   a 4x2 (scores) and 4x(DV/16) (output) register tile per thread, one
+//   a 4x2 (scores) and 4x(D/16) (output) register tile per thread, one
 //   thread per row for the softmax, no tensor cores.
 #pragma once
 
@@ -79,7 +70,6 @@ struct AttnArgs {
   int n_k;
   int heads;     // batch index b -> (b / heads, b % heads)
   int gw;        // key j -> bias row j / gw, bias column j % gw
-  int qk_width;  // columns of q and k in memory (<= DQK, a multiple of 8)
   int n_qblocks;  // blocks per (batch, head): ceil(n_q / 64)
   float scale;
   // element strides {outer, head, token}; the feature axis has stride 1
@@ -115,28 +105,27 @@ constexpr int kThreads = 256;
 constexpr int kBlockQ = 64;
 constexpr int kBlockK = 32;
 
-template <int DQK, int DV>
+template <int D>
 constexpr size_t f32_smem_bytes() {
-  // sQ[kBlockQ][DQK+1], sK[kBlockK][DQK+1], sV[kBlockK][DV],
+  // sQ[kBlockQ][D+1], sK[kBlockK][D+1], sV[kBlockK][D],
   // sP[kBlockQ][kBlockK+1], sRow[kBlockQ]
   return sizeof(float) *
-         ((size_t)kBlockQ * (DQK + 1) + (size_t)kBlockK * (DQK + 1) +
-          (size_t)kBlockK * DV + (size_t)kBlockQ * (kBlockK + 1) + kBlockQ);
+         ((size_t)kBlockQ * (D + 1) + (size_t)kBlockK * (D + 1) +
+          (size_t)kBlockK * D + (size_t)kBlockQ * (kBlockK + 1) + kBlockQ);
 }
 
-template <int DQK, int DV, bool BIAS>
+template <int D, bool BIAS>
 __global__ void __launch_bounds__(kThreads)
     attention_f32_kernel(const AttnArgs a) {
-  static_assert(DQK % 16 == 0 && DV % 16 == 0,
-                "widths must be multiples of 16");
-  constexpr int QP = DQK + 1;      // padded rows: conflict-free column reads
+  static_assert(D % 16 == 0, "the head dim must be a multiple of 16");
+  constexpr int QP = D + 1;        // padded rows: conflict-free column reads
   constexpr int PP = kBlockK + 1;
-  constexpr int DJ = DV / 16;      // output columns per thread
+  constexpr int DJ = D / 16;       // output columns per thread
   extern __shared__ float smem[];
   float* sQ = smem;
   float* sK = sQ + kBlockQ * QP;
   float* sV = sK + kBlockK * QP;
-  float* sP = sV + kBlockK * DV;
+  float* sP = sV + kBlockK * D;
   float* sRow = sP + kBlockQ * PP;
 
   const int tid = threadIdx.x;
@@ -158,9 +147,9 @@ __global__ void __launch_bounds__(kThreads)
     rw = static_cast<const float*>(a.rw) + offset(a.rw_s, outer, head);
   }
 
-  for (int i = tid; i < kBlockQ * DQK; i += kThreads) {
-    const int r = i / DQK, d = i % DQK, t = q0 + r;
-    sQ[r * QP + d] = t < a.n_q && d < a.qk_width ? q[t * a.q_s[2] + d] : 0.f;
+  for (int i = tid; i < kBlockQ * D; i += kThreads) {
+    const int r = i / D, d = i % D, t = q0 + r;
+    sQ[r * QP + d] = t < a.n_q ? q[t * a.q_s[2] + d] : 0.f;
   }
 
   float acc[4][DJ];
@@ -172,14 +161,13 @@ __global__ void __launch_bounds__(kThreads)
   float m_run = -INFINITY, l_run = 0.f;
 
   for (int k0 = 0; k0 < a.n_k; k0 += kBlockK) {
-    for (int i = tid; i < kBlockK * DQK; i += kThreads) {
-      const int c = i / DQK, d = i % DQK, t = k0 + c;
-      sK[c * QP + d] =
-          t < a.n_k && d < a.qk_width ? k[t * a.k_s[2] + d] : 0.f;
+    for (int i = tid; i < kBlockK * D; i += kThreads) {
+      const int c = i / D, d = i % D, t = k0 + c;
+      sK[c * QP + d] = t < a.n_k ? k[t * a.k_s[2] + d] : 0.f;
     }
-    for (int i = tid; i < kBlockK * DV; i += kThreads) {
-      const int c = i / DV, d = i % DV, t = k0 + c;
-      sV[c * DV + d] = t < a.n_k ? v[t * a.v_s[2] + d] : 0.f;
+    for (int i = tid; i < kBlockK * D; i += kThreads) {
+      const int c = i / D, d = i % D, t = k0 + c;
+      sV[c * D + d] = t < a.n_k ? v[t * a.v_s[2] + d] : 0.f;
     }
     __syncthreads();
 
@@ -188,7 +176,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int i = 0; i < 4; ++i) s[i][0] = s[i][1] = 0.f;
 #pragma unroll 8
-    for (int d = 0; d < DQK; ++d) {
+    for (int d = 0; d < D; ++d) {
       const float k_a = sK[tx * QP + d];
       const float k_b = sK[(tx + 16) * QP + d];
 #pragma unroll
@@ -248,7 +236,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int c = 0; c < kBlockK; ++c) {
       float vv[DJ];
 #pragma unroll
-      for (int j = 0; j < DJ; ++j) vv[j] = sV[c * DV + tx + 16 * j];
+      for (int j = 0; j < DJ; ++j) vv[j] = sV[c * D + tx + 16 * j];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const float p = sP[(ty * 4 + i) * PP + c];
@@ -287,11 +275,10 @@ __host__ __device__ constexpr int mma_pitch() {
 }
 
 // sQ, then two stages of (sK, sV), then the f32 bias rows (runtime size)
-template <int DQK, int DV>
+template <int D>
 constexpr size_t mma_tile_bytes() {
-  return sizeof(__nv_bfloat16) *
-         ((size_t)mma_pitch<DQK>() * (kMmaBlockQ + 2 * kMmaBlockK) +
-          (size_t)mma_pitch<DV>() * 2 * kMmaBlockK);
+  return sizeof(__nv_bfloat16) * (size_t)mma_pitch<D>() *
+         (kMmaBlockQ + 4 * kMmaBlockK);
 }
 
 inline size_t mma_bias_bytes(int gh, int gw) {
@@ -329,25 +316,21 @@ __device__ __forceinline__ void stage_bias(float* dst, int pitch,
 // tile is one grid row, so kh is the tile index and kw the column in the
 // tile; each lane's rw values are the same in every tile and stay in
 // registers.  Otherwise rh and rw are gathered per score from shared memory.
-template <int DQK, int DV, bool BIAS, bool ROW_TILE>
+template <int D, bool BIAS, bool ROW_TILE>
 __global__ void __launch_bounds__(kMmaThreads)
     attention_mma_kernel(const AttnArgs a) {
-  static_assert(DQK % 16 == 0 && DV % 16 == 0,
-                "widths must be multiples of 16");
+  static_assert(D % 16 == 0, "the head dim must be a multiple of 16");
   static_assert(BIAS || !ROW_TILE, "the row tile needs the bias");
   using T = __nv_bfloat16;
-  constexpr int LDQ = mma_pitch<DQK>();
-  constexpr int LDV = mma_pitch<DV>();
-  constexpr int CHQ = DQK / 8;     // 16-byte chunks per q/k row
-  constexpr int KD = DQK / 16;     // k-steps of QK^T
-  constexpr int ND = DV / 8;       // n-tiles of the output
+  constexpr int LD = mma_pitch<D>();   // row pitch of sQ, sK and sV
+  constexpr int CH = D / 8;        // 16-byte chunks per q/k/v row
+  constexpr int KD = D / 16;       // k-steps of QK^T
+  constexpr int ND = D / 8;        // n-tiles of the output
   constexpr int NT = kMmaBlockK / 8;   // n-tiles of the scores
-  constexpr int STAGE = kMmaBlockK * (LDQ + LDV);   // one (sK, sV) stage
-  // augmented widths: q/k chunks past qk_width are zero-filled
-  constexpr bool PADDED = DQK != DV;
+  constexpr int STAGE = kMmaBlockK * 2 * LD;   // one (sK, sV) stage
   extern __shared__ __align__(16) unsigned char mma_smem[];
   T* sQ = reinterpret_cast<T*>(mma_smem);
-  T* sKV = sQ + kMmaBlockQ * LDQ;   // stage s: K at s·STAGE, V after it
+  T* sKV = sQ + kMmaBlockQ * LD;    // stage s: K at s·STAGE, V after it
   float* sRH = reinterpret_cast<float*>(sKV + 2 * STAGE);
   const int gh = BIAS ? a.n_k / a.gw : 0;
   const int rhp = gh + 1, rwp = a.gw + 1;   // odd pitches: fewer conflicts
@@ -367,25 +350,22 @@ __global__ void __launch_bounds__(kMmaThreads)
   T* o = static_cast<T*>(a.o) + offset(a.o_s, outer, head);
 
   // Q and the first K/V tile: one cp.async group.  Chunks past the rows
-  // (or past qk_width) are zero-filled and read nothing.
-  for (int i = tid; i < kMmaBlockQ * CHQ; i += kMmaThreads) {
-    const int r = i / CHQ, c = (i % CHQ) * 8, tok = q0 + r;
-    const bool ok = tok < a.n_q && (!PADDED || c < a.qk_width);
-    cp_async_16(sQ + r * LDQ + c, q + (ok ? tok * a.q_s[2] + c : 0), ok);
+  // are zero-filled and read nothing.
+  for (int i = tid; i < kMmaBlockQ * CH; i += kMmaThreads) {
+    const int r = i / CH, c = (i % CH) * 8, tok = q0 + r;
+    const bool ok = tok < a.n_q;
+    cp_async_16(sQ + r * LD + c, q + (ok ? tok * a.q_s[2] + c : 0), ok);
   }
   auto load_kv = [&](int stage, int k0) {
     T* sK = sKV + stage * STAGE;
-    T* sV = sK + kMmaBlockK * LDQ;
-    // one pass issues a K chunk and, for the first DV columns, the V chunk
-    for (int i = tid; i < kMmaBlockK * CHQ; i += kMmaThreads) {
-      const int r = i / CHQ, c = (i % CHQ) * 8, tok = k0 + r;
+    T* sV = sK + kMmaBlockK * LD;
+    // one pass issues a K chunk and the V chunk beside it
+    for (int i = tid; i < kMmaBlockK * CH; i += kMmaThreads) {
+      const int r = i / CH, c = (i % CH) * 8, tok = k0 + r;
       const bool ok = tok < a.n_k;
       const long long tk = ok ? tok : 0;
-      const bool in_k = !PADDED || c < a.qk_width;
-      cp_async_16(sK + r * LDQ + c, k + tk * a.k_s[2] + (in_k ? c : 0),
-                  ok && in_k);
-      if (!PADDED || c < DV)
-        cp_async_16(sV + r * LDV + c, v + tk * a.v_s[2] + c, ok);
+      cp_async_16(sK + r * LD + c, k + tk * a.k_s[2] + c, ok);
+      cp_async_16(sV + r * LD + c, v + tk * a.v_s[2] + c, ok);
     }
   };
   load_kv(0, 0);
@@ -426,11 +406,11 @@ __global__ void __launch_bounds__(kMmaThreads)
     if (it == 0) {
 #pragma unroll
       for (int kk = 0; kk < KD; ++kk) {
-        const T* p = sQ + row0 * LDQ + kk * 16 + 2 * t4;
+        const T* p = sQ + row0 * LD + kk * 16 + 2 * t4;
         qf[kk][0] = *reinterpret_cast<const uint32_t*>(p);
-        qf[kk][1] = *reinterpret_cast<const uint32_t*>(p + 8 * LDQ);
+        qf[kk][1] = *reinterpret_cast<const uint32_t*>(p + 8 * LD);
         qf[kk][2] = *reinterpret_cast<const uint32_t*>(p + 8);
-        qf[kk][3] = *reinterpret_cast<const uint32_t*>(p + 8 * LDQ + 8);
+        qf[kk][3] = *reinterpret_cast<const uint32_t*>(p + 8 * LD + 8);
       }
       if (ROW_TILE) {
 #pragma unroll
@@ -443,7 +423,7 @@ __global__ void __launch_bounds__(kMmaThreads)
       }
     }
     const T* sK = sKV + stage * STAGE;
-    const T* sV = sK + kMmaBlockK * LDQ;
+    const T* sV = sK + kMmaBlockK * LD;
 
     // scores S = Q K^T: 16 rows x 64 keys per warp; one ldmatrix gives the
     // K fragments of n-tiles n, n+1 at one k-step
@@ -452,7 +432,7 @@ __global__ void __launch_bounds__(kMmaThreads)
     for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
     for (int n = 0; n < NT; n += 2) {
-      const T* krow = sK + (n * 8 + (lane / 16) * 8 + lane % 8) * LDQ +
+      const T* krow = sK + (n * 8 + (lane / 16) * 8 + lane % 8) * LD +
                       ((lane / 8) % 2) * 8;
 #pragma unroll
       for (int kk = 0; kk < KD; ++kk) {
@@ -532,7 +512,7 @@ __global__ void __launch_bounds__(kMmaThreads)
                               pack_bf16x2(s[2 * c + 1][0], s[2 * c + 1][1]),
                               pack_bf16x2(s[2 * c + 1][2], s[2 * c + 1][3])};
       // one transposed ldmatrix gives the V fragments of n-tiles j, j+1
-      const T* vrow = sV + (c * 16 + ((lane / 8) % 2) * 8 + lane % 8) * LDV +
+      const T* vrow = sV + (c * 16 + ((lane / 8) % 2) * 8 + lane % 8) * LD +
                       (lane / 16) * 8;
 #pragma unroll
       for (int j = 0; j < ND; j += 2) {
@@ -577,28 +557,27 @@ cudaError_t launch_kernel(K kernel, const AttnArgs& a, int blocks,
   return cudaGetLastError();
 }
 
-template <int DQK, int DV, bool BIAS>
+template <int D, bool BIAS>
 cudaError_t launch_d(AttnArgs a, int batch, int dtype, cudaStream_t stream) {
   if (dtype == 0) {
     a.n_qblocks = (a.n_q + kBlockQ - 1) / kBlockQ;
-    return launch_kernel(attention_f32_kernel<DQK, DV, BIAS>, a,
-                         batch * a.n_qblocks, kThreads,
-                         f32_smem_bytes<DQK, DV>(), stream);
+    return launch_kernel(attention_f32_kernel<D, BIAS>, a,
+                         batch * a.n_qblocks, kThreads, f32_smem_bytes<D>(),
+                         stream);
   }
   a.n_qblocks = (a.n_q + kMmaBlockQ - 1) / kMmaBlockQ;
   const int blocks = batch * a.n_qblocks;
   if constexpr (!BIAS) {
-    return launch_kernel(attention_mma_kernel<DQK, DV, false, false>, a,
-                         blocks, kMmaThreads, mma_tile_bytes<DQK, DV>(),
-                         stream);
+    return launch_kernel(attention_mma_kernel<D, false, false>, a, blocks,
+                         kMmaThreads, mma_tile_bytes<D>(), stream);
   } else {
-    const size_t smem = mma_tile_bytes<DQK, DV>() +
-                        mma_bias_bytes(a.n_k / a.gw, a.gw);
+    const size_t smem =
+        mma_tile_bytes<D>() + mma_bias_bytes(a.n_k / a.gw, a.gw);
     if (a.gw == kMmaBlockK)
-      return launch_kernel(attention_mma_kernel<DQK, DV, true, true>, a,
-                           blocks, kMmaThreads, smem, stream);
-    return launch_kernel(attention_mma_kernel<DQK, DV, true, false>, a,
-                         blocks, kMmaThreads, smem, stream);
+      return launch_kernel(attention_mma_kernel<D, true, true>, a, blocks,
+                           kMmaThreads, smem, stream);
+    return launch_kernel(attention_mma_kernel<D, true, false>, a, blocks,
+                         kMmaThreads, smem, stream);
   }
 }
 
@@ -608,8 +587,8 @@ inline bool bad_shape(const AttnArgs& a, int batch, int dtype, bool bias) {
          (bias && (a.gw <= 0 || a.n_k % a.gw != 0));
 }
 
-// K1-K7: DQK == DV == head_dim; BIAS adds rh and rw.  dtype: 0 =
-// float32, 1 = bfloat16.  Returns a cudaError_t as int; an unsupported head
+// K1-K9 at head dim head_dim; BIAS adds rh and rw.  dtype: 0 = float32,
+// 1 = bfloat16.  Returns a cudaError_t as int; an unsupported head
 // dim or dtype is cudaErrorInvalidValue (the Python wrappers reject those
 // before calling).  The bf16 kernel reads 16-byte chunks: the wrappers also
 // check that pointers and strides allow that.
@@ -617,40 +596,12 @@ template <bool BIAS>
 int launch(AttnArgs a, int batch, int head_dim, int dtype, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bad_shape(a, batch, dtype, BIAS)) return (int)cudaErrorInvalidValue;
-  a.qk_width = head_dim;
   switch (head_dim) {
-    case 16: return (int)launch_d<16, 16, BIAS>(a, batch, dtype, st);
-    case 32: return (int)launch_d<32, 32, BIAS>(a, batch, dtype, st);
-    case 64: return (int)launch_d<64, 64, BIAS>(a, batch, dtype, st);
-    case 80: return (int)launch_d<80, 80, BIAS>(a, batch, dtype, st);
-    case 128: return (int)launch_d<128, 128, BIAS>(a, batch, dtype, st);
-  }
-  return (int)cudaErrorInvalidValue;
-}
-
-// K8, K9: q and k hold a.qk_width columns; QK^T runs over the head dim plus
-// the smallest instantiated extra width that holds the rest: 16 or 32
-// (windows: 2·win <= 32).
-template <int DV>
-cudaError_t launch_augmented_dv(const AttnArgs& a, int batch, int dtype,
-                                cudaStream_t st) {
-  const int extra = a.qk_width - DV;
-  if (extra <= 16) return launch_d<DV + 16, DV, false>(a, batch, dtype, st);
-  if (extra <= 32) return launch_d<DV + 32, DV, false>(a, batch, dtype, st);
-  return cudaErrorInvalidValue;
-}
-
-inline int launch_augmented(const AttnArgs& a, int batch, int head_dim,
-                            int dtype, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bad_shape(a, batch, dtype, false) || a.qk_width <= head_dim ||
-      a.qk_width % 8 != 0)
-    return (int)cudaErrorInvalidValue;
-  switch (head_dim) {
-    case 16: return (int)launch_augmented_dv<16>(a, batch, dtype, st);
-    case 32: return (int)launch_augmented_dv<32>(a, batch, dtype, st);
-    case 64: return (int)launch_augmented_dv<64>(a, batch, dtype, st);
-    case 80: return (int)launch_augmented_dv<80>(a, batch, dtype, st);
+    case 16: return (int)launch_d<16, BIAS>(a, batch, dtype, st);
+    case 32: return (int)launch_d<32, BIAS>(a, batch, dtype, st);
+    case 64: return (int)launch_d<64, BIAS>(a, batch, dtype, st);
+    case 80: return (int)launch_d<80, BIAS>(a, batch, dtype, st);
+    case 128: return (int)launch_d<128, BIAS>(a, batch, dtype, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -662,8 +613,8 @@ inline void copy_strides(long long* dst, const long long* src) {
 }
 
 // The arguments of the SAM entries (K2-K9): tensors q, k, v, rh, rw, o with
-// their {outer, head, token} strides in that order in `strides` (18 values;
-// rh and rw may be null, their strides then unused).  The tables' tokens are
+// their {outer, head, token} strides in that order in `strides` (18
+// values).  The tables' tokens are
 // evenly spaced; global_entry (global_attention.cuh) resets the grid-row
 // strides for tables at {head, grid row, grid column}.
 inline AttnArgs sam_args(const void* q, const void* k, const void* v,

@@ -11,8 +11,9 @@
 // MFLOP against ~4*N*hd*2 + 2*N*win*2 bytes (~111 KB bf16), ~90 FLOP/byte --
 // bound by bytes: 0.22 ms for the engine's 550 x 12 window-heads.
 //
-// Routes, chosen by shape here and nowhere else (a failed launch raises in
-// the Python wrapper; nothing falls back):
+// Routes, chosen by shape in window_entry (window_attention.cuh), the one
+// choice of K2, K7, K8 and K9 (a failed launch raises in the Python wrapper;
+// nothing falls back):
 //   * bfloat16, head dim 64, windows of <= 256 tokens (every SAM window):
 //     the window routine of window_attention.cuh -- one block per (window,
 //     head) with the whole window in shared memory, loaded once by cp.async;
@@ -35,7 +36,5 @@ extern "C" int lameness_sam_window_attention(
   const lameness::AttnArgs a =
       lameness::sam_args(q, k, v, rh, rw, o, tokens, heads, win,
                          1.0f / sqrtf((float)head_dim), strides);
-  if (lameness::window_takes(a, windows * heads, head_dim, dtype))
-    return lameness::launch_window(a, windows * heads, stream);
-  return lameness::launch<true>(a, windows * heads, head_dim, dtype, stream);
+  return lameness::window_entry(a, windows * heads, head_dim, dtype, stream);
 }

@@ -8,8 +8,8 @@
 // (BW, nH, N, D); rh, rw (BW, nH, N, win) q-projected tables; output
 // (BW, nH, N, D).  The TPU kernel runs all heads of a window in one program
 // and builds the bias by a one-hot spread matmul and a lane repeat.  Here
-// K2's routes serve it at head-major strides: bfloat16 at head dim 64 takes
-// the window routine (window_attention.cuh: one block per (window, head),
+// K2's routes serve it at head-major strides, chosen by window_entry:
+// bfloat16 at head dim 64 takes the window routine (window_attention.cuh: one block per (window, head),
 // the bias contracted on the tensor cores from one-hot columns built in
 // shared memory), anything else attention.cuh's routine.  q, k and v may be
 // strided views of the qkv output: the head-major transpose is a view, not a
@@ -29,7 +29,5 @@ extern "C" int lameness_sam_window_attention_v1(
   const lameness::AttnArgs a =
       lameness::sam_args(q, k, v, rh, rw, o, tokens, heads, win,
                          1.0f / sqrtf((float)head_dim), strides);
-  if (lameness::window_takes(a, windows * heads, head_dim, dtype))
-    return lameness::launch_window(a, windows * heads, stream);
-  return lameness::launch<true>(a, windows * heads, head_dim, dtype, stream);
+  return lameness::window_entry(a, windows * heads, head_dim, dtype, stream);
 }

@@ -1,10 +1,11 @@
-// The window routine of K2 (sam_window_attention.cu, head-last views) and K7
-// (sam_window_attention_v1.cu, head-major views): SAM ViTDet windowed
-// attention, per (window, head)
+// The window routine of K2 and K9 (sam_window_attention.cu, _v5.cu,
+// head-last views) and K7 and K8 (sam_window_attention_v1.cu, _v2.cu,
+// head-major views): SAM ViTDet windowed attention, per (window, head)
 //   softmax(scale·q·kᵀ + rh[t, j / GW] + rw[t, j % GW]) · v,
 // in bf16 at head dim 64, for windows of at most 256 tokens (SAM's 14 x 14
-// windows: 196).  It computes what the TPU kernels _window_kernel_v3 (K2)
-// and _window_kernel (K7) of lameness_tpu/ops/sam_attention.py compute; pad
+// windows: 196).  It computes what the TPU kernels _window_kernel_v3 (K2),
+// _window_kernel_v5 (K9), _window_kernel (K7) and _window_kernel_v2 (K8) of
+// lameness_tpu/ops/sam_attention.py compute; pad
 // tokens of the edge windows take part unmasked, as in ViTDet, and keys past
 // N (the padding to 16) are masked to -inf.
 //
@@ -43,7 +44,7 @@
 // the larger half.  A persistent variant, one block of 8 warps per SM with
 // a ring of two window-heads, was slower (0.63 / 0.55 ms): the warps of a
 // block wait for each other at every window-head.
-// The entries choose this routine by shape in C (window_takes); float32,
+// The entries choose this routine by shape in C (window_entry); float32,
 // other head dims and larger windows keep attention.cuh's routine.
 #pragma once
 
@@ -286,6 +287,18 @@ inline int launch_window(const AttnArgs& a, int batch, void* stream) {
   if (a.n_k <= 128) return (int)launch_window_kt<8>(a, batch, st);
   if (a.n_k <= 208) return (int)launch_window_kt<13>(a, batch, st);
   return (int)launch_window_kt<16>(a, batch, st);
+}
+
+// The one place that chooses the route of the window kernels (K2, K7, K8,
+// K9) by shape: this routine where window_takes answers yes, else the
+// per-score bias routine of attention.cuh.  batch = windows x heads; dtype
+// 0 = float32, 1 = bfloat16.  Returns a cudaError_t as int (a failed launch
+// raises in the Python wrapper; nothing falls back).
+inline int window_entry(const AttnArgs& a, int batch, int head_dim,
+                        int dtype, void* stream) {
+  if (window_takes(a, batch, head_dim, dtype))
+    return launch_window(a, batch, stream);
+  return launch<true>(a, batch, head_dim, dtype, stream);
 }
 
 }  // namespace lameness

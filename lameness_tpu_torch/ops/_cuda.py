@@ -40,10 +40,6 @@ KERNELS: Dict[str, "CudaKernel"] = {}
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 80, 128)     # instantiated in csrc/attention.cuh
-# the augmented kernels (K8, K9): head dims, and the most columns past the
-# head dim (16 or 32: see attention.cuh)
-AUG_HEAD_DIMS = (16, 32, 64, 80)
-AUG_EXTRA = 32
 
 
 def _nvcc() -> str:
@@ -178,11 +174,3 @@ def check_head_dim(name: str, d: int) -> None:
         raise ValueError(f"{name}: head dim {d} not built "
                          f"(supported: {HEAD_DIMS})")
 
-
-def check_augmented_dims(name: str, d: int, width: int) -> None:
-    """Raise unless an augmented kernel is built for head dim ``d`` and
-    ``width`` (the padded augmented width) columns of qa and ka."""
-    if d not in AUG_HEAD_DIMS or not 0 < width - d <= AUG_EXTRA:
-        raise ValueError(f"{name}: head dim {d} with augmented width {width} "
-                         f"not built (head dims {AUG_HEAD_DIMS}, at most "
-                         f"{AUG_EXTRA} columns past the head dim)")

@@ -21,16 +21,17 @@ Global attention over the whole (GH, GW) grid:
   (K6).
 
 The switches are read at each call, as the JAX package reads them at each
-trace.  K2-K7 add the bias per score.  K8 and K9 take augmented operands,
-built here as the JAX entries build them: q·scale and the tables rounded to
-the compute dtype, exact one-hot selector columns on the k side, so that
-qa·kaᵀ carries the bias; the width is zero-padded to a multiple of 8
-(16-byte bf16 rows).  The plain versions of K5 and K6 run on such operands
-too, as their JAX entries do, but their kernels take K3's arguments: on the
-card the augmented contraction costs more than the per-score add
-(``csrc/sam_global_attention_v2.cu``).  K3, K4, K5 and K6 run one device
-routine (``csrc/global_attention.cuh``) on q, k, v and the tables as the qkv
-Linear and the rel-pos einsum leave them: their entries copy nothing.
+trace.  The JAX entries of K5, K6, K8 and K9 compute on augmented operands
+that they build in HLO: q·scale and the tables rounded to the compute
+dtype, exact one-hot selector columns on the k side, so that qa·kaᵀ carries
+the bias.  The plain versions of those four run on such operands, built
+here as the JAX entries build them (the width zero-padded to a multiple of
+8), but their kernels take the arguments of K3 (K5), K2 (K6, K9) and K7
+(K8) and build nothing.  K3, K4, K5 and K6 run one device routine
+(``csrc/global_attention.cuh``), K2, K7, K8 and K9 another
+(``window_entry`` in ``csrc/window_attention.cuh``, which forms the
+augmented columns in shared memory), both on q, k, v and the tables as the
+qkv Linear and the rel-pos einsum leave them: their entries copy nothing.
 
 On a CPU tensor each entry runs its plain version; on a CUDA tensor it
 launches its kernel (``csrc/<entry>.cu``) or raises.
@@ -44,14 +45,12 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ._cuda import (DTYPE_CODES, CudaKernel, check_augmented_dims,
-                    check_chunked_rows, check_head_dim, check_operands,
-                    strides_array)
+from ._cuda import (DTYPE_CODES, CudaKernel, check_chunked_rows,
+                    check_head_dim, check_operands, strides_array)
 
 _vp, _ci = ctypes.c_void_p, ctypes.c_int
 _HEADS_ARGS = [_vp] * 6 + [_ci] * 5 + [_vp, _ci]
 _GLOBAL_ARGS = [_vp] * 6 + [_ci] * 4 + [_vp, _ci]
-_AUGMENTED_ARGS = [_vp] * 4 + [_ci] * 5 + [_vp, _ci]
 WINDOW_KERNEL = CudaKernel(                                      # K2
     "sam_window_attention_v3", "sam_window_attention",
     "lameness_sam_window_attention", _HEADS_ARGS)
@@ -72,10 +71,10 @@ WINDOW_V1_KERNEL = CudaKernel(                                   # K7
     "lameness_sam_window_attention_v1", _HEADS_ARGS)
 WINDOW_V2_KERNEL = CudaKernel(                                   # K8
     "sam_window_attention_v2", "sam_window_attention_v2",
-    "lameness_sam_window_attention_v2", _AUGMENTED_ARGS)
+    "lameness_sam_window_attention_v2", _HEADS_ARGS)
 WINDOW_V5_KERNEL = CudaKernel(                                   # K9
     "sam_window_attention_v5", "sam_window_attention_v5",
-    "lameness_sam_window_attention_v5", _AUGMENTED_ARGS)
+    "lameness_sam_window_attention_v5", _HEADS_ARGS)
 
 
 def _rel_index(g: int) -> torch.Tensor:
@@ -254,7 +253,7 @@ def window_v5_operands(q4, k4, rh4, rw4):
 # C arguments (all but the stream)
 # ---------------------------------------------------------------------------
 def bias_args(q, k, v, rh, rw, out):
-    """Of the entries with per-head strides (K2, K6, K7): (O, H, N, ·)
+    """Of the entries with per-head strides (K2, K6-K9): (O, H, N, ·)
     views of q, k, v, the tables and the output, with any strides but a
     contiguous last axis; GW is rw's width."""
     o, h, n, d = q.shape
@@ -265,8 +264,8 @@ def bias_args(q, k, v, rh, rw, out):
 
 
 def window_args(q4, k4, v4, rh4, rw4, out):
-    """Of ``lameness_sam_window_attention`` (K2) on head-last operands;
-    ``out`` is (BW, N, nH·hd)."""
+    """Of ``lameness_sam_window_attention`` (K2) and its ``_v5`` twin (K9)
+    on head-last operands; ``out`` is (BW, N, nH·hd)."""
     bw, n, nh, hd = q4.shape
     return bias_args(*(t.transpose(1, 2) for t in (q4, k4, v4, rh4, rw4)),
                      out.view(bw, n, nh, hd).transpose(1, 2))
@@ -294,16 +293,6 @@ def global_args(q, k, v, rel_h, rel_w, out):
             DTYPE_CODES[q.dtype])
 
 
-def augmented_args(qa, ka, v, out):
-    """Of the augmented entries (K8, K9): (O, H, N, ·) views."""
-    o, h, n, width = qa.shape
-    none = (0, 0, 0)
-    st = strides_array(qa.stride()[:3], ka.stride()[:3], v.stride()[:3],
-                       none, none, out.stride()[:3])
-    return (qa.data_ptr(), ka.data_ptr(), v.data_ptr(), out.data_ptr(), o, h,
-            n, v.shape[-1], width, st, DTYPE_CODES[qa.dtype])
-
-
 # ---------------------------------------------------------------------------
 # entries
 # ---------------------------------------------------------------------------
@@ -320,6 +309,29 @@ def _check_windows(name, q, k, v, rh, rw) -> None:
     check_chunked_rows(name, (q, k, v))
 
 
+def _head_last_window(name: str, kernel: CudaKernel, q4, k4, v4, rh4, rw4
+                      ) -> torch.Tensor:
+    """K2 and K9 on the card: head-last q4, k4, v4 and tables read where
+    they lie, the tables in q4's dtype; (BW, N, nH·hd) out."""
+    rh4, rw4 = rh4.to(q4.dtype), rw4.to(q4.dtype)
+    _check_windows(name, *(t.transpose(1, 2) for t in (q4, k4, v4, rh4, rw4)))
+    bw, n, nh, hd = q4.shape
+    out = torch.empty((bw, n, nh * hd), dtype=q4.dtype, device=q4.device)
+    kernel(*window_args(q4, k4, v4, rh4, rw4, out))
+    return out
+
+
+def _head_major_window(name: str, kernel: CudaKernel, q, k, v, rel_h, rel_w
+                       ) -> torch.Tensor:
+    """K7 and K8 on the card: head-major q, k, v and tables read where they
+    lie, the tables in q's dtype; (BW, nH, N, D) out."""
+    rel_h, rel_w = rel_h.to(q.dtype), rel_w.to(q.dtype)
+    _check_windows(name, q, k, v, rel_h, rel_w)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    kernel(*bias_args(q, k, v, rel_h, rel_w, out))
+    return out
+
+
 def sam_window_attention_v3(q4: torch.Tensor, k4: torch.Tensor,
                             v4: torch.Tensor, rh4: torch.Tensor,
                             rw4: torch.Tensor) -> torch.Tensor:
@@ -330,13 +342,8 @@ def sam_window_attention_v3(q4: torch.Tensor, k4: torch.Tensor,
     :func:`project_rel_tables_hl`.  Returns (BW, N, nH·hd)."""
     if q4.device.type == "cpu":
         return window_attention_reference(q4, k4, v4, rh4, rw4)
-    rh4, rw4 = rh4.to(q4.dtype), rw4.to(q4.dtype)
-    _check_windows("sam_window_attention_v3",
-                   *(t.transpose(1, 2) for t in (q4, k4, v4, rh4, rw4)))
-    bw, n, nh, hd = q4.shape
-    out = torch.empty((bw, n, nh * hd), dtype=q4.dtype, device=q4.device)
-    WINDOW_KERNEL(*window_args(q4, k4, v4, rh4, rw4, out))
-    return out
+    return _head_last_window("sam_window_attention_v3", WINDOW_KERNEL, q4, k4,
+                             v4, rh4, rw4)
 
 
 def sam_window_attention_v1(q: torch.Tensor, k: torch.Tensor,
@@ -349,63 +356,40 @@ def sam_window_attention_v1(q: torch.Tensor, k: torch.Tensor,
     Returns (BW, nH, N, D)."""
     if q.device.type == "cpu":
         return window_attention_hm_reference(q, k, v, rel_h, rel_w)
-    rel_h, rel_w = rel_h.to(q.dtype), rel_w.to(q.dtype)
-    _check_windows("sam_window_attention_v1", q, k, v, rel_h, rel_w)
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    WINDOW_V1_KERNEL(*bias_args(q, k, v, rel_h, rel_w, out))
-    return out
-
-
-def _augmented(name: str, kernel: CudaKernel, qa, ka, v, fold: bool,
-               head_last: bool) -> torch.Tensor:
-    """Windowed attention on augmented operands (K8, K9).  Head-last
-    operands are (O, N, H, ·) and give (O, N, H·hd); head-major ones
-    (O, H, N, ·) give (O, H, N, hd)."""
-    def hm(t):
-        return t.transpose(1, 2) if head_last else t
-    qa_, ka_, v_ = hm(qa), hm(ka), hm(v)
-    o, h, n, width = qa_.shape
-    d = v_.shape[-1]
-    if qa.device.type == "cpu":
-        out = augmented_attention_reference(qa_, ka_, v_, fold=fold)
-        return out.transpose(1, 2).reshape(o, n, h * d) if head_last else out
-    check_operands(name, (qa, ka, v))
-    if ka_.shape != qa_.shape or v_.shape != (o, h, n, d):
-        raise ValueError(f"{name}: shapes qa {tuple(qa_.shape)}, ka "
-                         f"{tuple(ka_.shape)}, v {tuple(v_.shape)}")
-    check_augmented_dims(name, d, width)
-    check_chunked_rows(name, (qa, ka, v))
-    if head_last:
-        out = torch.empty((o, n, h * d), dtype=v.dtype, device=v.device)
-        out_ = out.view(o, n, h, d).transpose(1, 2)
-    else:
-        out = out_ = torch.empty((o, h, n, d), dtype=v.dtype,
-                                 device=v.device)
-    kernel(*augmented_args(qa_, ka_, v_, out_))
-    return out
+    return _head_major_window("sam_window_attention_v1", WINDOW_V1_KERNEL, q,
+                              k, v, rel_h, rel_w)
 
 
 def sam_window_attention_v2(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, rel_h: torch.Tensor,
                             rel_w: torch.Tensor) -> torch.Tensor:
-    """K8: K7's function as batched attention on augmented operands
-    (:func:`window_v2_operands`), the bias folded into the contraction.
-    Same signature and layout as :func:`sam_window_attention_v1`."""
-    qa, ka = window_v2_operands(q, k, rel_h, rel_w)
-    return _augmented("sam_window_attention_v2", WINDOW_V2_KERNEL, qa, ka, v,
-                      fold=False, head_last=False)
+    """K8: K7's function, signature and layout.  The plain version runs on
+    the augmented operands of the JAX entry (:func:`window_v2_operands`);
+    the kernel takes K7's arguments (:func:`bias_args`) and builds
+    nothing."""
+    if q.device.type == "cpu":
+        qa, ka = window_v2_operands(q, k, rel_h, rel_w)
+        return augmented_attention_reference(qa, ka, v)
+    return _head_major_window("sam_window_attention_v2", WINDOW_V2_KERNEL, q,
+                              k, v, rel_h, rel_w)
 
 
 def sam_window_attention_v5(q4: torch.Tensor, k4: torch.Tensor,
                             v4: torch.Tensor, rh4: torch.Tensor,
                             rw4: torch.Tensor) -> torch.Tensor:
-    """K9: K2's function on head-last augmented operands
+    """K9: K2's function, signature and layout.  The plain version runs on
+    the head-last augmented operands of the JAX entry
     (:func:`window_v5_operands`), the softmax denominator applied after PV;
-    v4 is read in place.  Same signature and layout as
-    :func:`sam_window_attention_v3`."""
-    qa, ka = window_v5_operands(q4, k4, rh4, rw4)
-    return _augmented("sam_window_attention_v5", WINDOW_V5_KERNEL, qa, ka, v4,
-                      fold=True, head_last=True)
+    the kernel takes K2's arguments (:func:`window_args`) and builds
+    nothing."""
+    if q4.device.type == "cpu":
+        bw, n, nh, hd = q4.shape
+        qa, ka = window_v5_operands(q4, k4, rh4, rw4)
+        out = augmented_attention_reference(
+            *(t.transpose(1, 2) for t in (qa, ka, v4)), fold=True)
+        return out.transpose(1, 2).reshape(bw, n, nh * hd)
+    return _head_last_window("sam_window_attention_v5", WINDOW_V5_KERNEL, q4,
+                             k4, v4, rh4, rw4)
 
 
 def sam_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -1,25 +1,33 @@
 #!/usr/bin/env python3
-"""Time the port's default kernels (K1, K2, K3), K4-K7 of two checkouts on
-one card, in turns.
+"""Time the port's nine kernels (K1-K9) of two checkouts on one card, in
+turns.
 
     python scripts/ab_kernels.py ROOT_A ROOT_B
 
 ROOT_A and ROOT_B are repository roots (e.g. an unpacked ``git archive`` of
 the parent commit, and ``.``).  Each turn is a process of its own that
 imports ``lameness_tpu_torch`` from its root, builds that root's kernels,
-and prints the bf16 device time per call of K1-K7 at the shapes the
-full-width engine gives them for B = 2 clips: torch.profiler's summed time
-of the port's kernels only (anything else an entry runs, such as the
-operand build of a tree whose K6 still had one, left out), over 20 calls
-(K1, K2, K7) or 5 (K3-K6).  The turns run in the order A B B A, so that a drift of the card
-between the first and the last turn shows as a difference between the two A
-rows.  The card's name and power limit come first.
+and prints, per kernel, the bf16 device time per call at the shapes the
+full-width engine gives it for B = 2 clips: torch.profiler's summed time of
+the port's kernels only (``lameness::``; anything else an entry runs, such
+as the augmented operands that a tree's K8 and K9 still build in HBM, left
+out), over 20 calls (K1, K2, K7-K9) or 5 (K3-K6).  For K8 and K9 it also
+prints the whole entry's device time (every kernel and copy the call puts
+on the card), so that an operand build shows.  The turns run in the order
+A B B A, so that a drift of the card between the first and the last turn
+shows as a difference between the two A rows.  The card's name and power
+limit come first; after the turns, whether each kernel's output in the B
+turns equals the A turns' bit for bit (same seeded inputs).
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import subprocess
 import sys
+
+# the kernels whose whole entry is timed beside the kernel
+ENTRY_TIMED = ("K8", "K9")
 
 
 def worker(root: str) -> None:
@@ -51,6 +59,11 @@ def worker(root: str) -> None:
         14))
     calls["K7"] = (lambda: sa.sam_window_attention_v1(q7, k7, v7, rh7, rw7),
                    20)
+    # K8 on K7's operands, K9 on K2's: the engine's v2 and v5 selections
+    calls["K8"] = (lambda: sa.sam_window_attention_v2(q7, k7, v7, rh7, rw7),
+                   20)
+    calls["K9"] = (lambda: sa.sam_window_attention_v5(q4, k4, v4, rh4, rw4),
+                   20)
     qg, kg, vg = (rnd(264, 4096, 64) for _ in range(3))
     rh, rw = sa.project_rel_tables(qg, rnd(127, 64, std=0.1),
                                    rnd(127, 64, std=0.1), 64)
@@ -63,19 +76,28 @@ def worker(root: str) -> None:
                                         rnd(127, 64, std=0.1), 64)
     calls["K6"] = (lambda: sa.sam_global_attention_v3(q6, k6, v6, rh6, rw6),
                    5)
-    times = {}
-    for kid, (fn, reps) in calls.items():
-        fn()
-        torch.cuda.synchronize()
+
+    def device_ms(fn, reps, only):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
         us = sum(e.self_device_time_total for e in prof.key_averages()
                  if e.device_type == torch.autograd.DeviceType.CUDA
-                 and "lameness::" in e.key)
-        times[kid] = us / reps / 1e3
-    print(json.dumps(times), flush=True)
+                 and only in e.key)
+        return us / reps / 1e3
+    times, entry, sha = {}, {}, {}
+    for kid, (fn, reps) in calls.items():
+        out = fn()
+        torch.cuda.synchronize()
+        sha[kid] = hashlib.sha1(out.contiguous().view(torch.int16).cpu()
+                                .numpy().tobytes()).hexdigest()[:12]
+        del out
+        times[kid] = device_ms(fn, reps, "lameness::")
+        if kid in ENTRY_TIMED:
+            entry[kid] = device_ms(fn, reps, "")
+    print(json.dumps({"ms": times, "entry_ms": entry, "sha": sha}),
+          flush=True)
 
 
 def main() -> int:
@@ -86,15 +108,23 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
+    sha = {}
     for turn in "ABBA":
         res = subprocess.run([sys.executable, __file__, "--worker",
                               roots[turn]], capture_output=True, text=True)
         if res.returncode:
             print(res.stdout + res.stderr, file=sys.stderr)
             return res.returncode
-        times = json.loads(res.stdout.strip().splitlines()[-1])
+        rec = json.loads(res.stdout.strip().splitlines()[-1])
+        sha.setdefault(turn, []).append(rec["sha"])
         print(f"{turn} {roots[turn]:24s} " + "  ".join(
-            f"{kid} {ms:.4f} ms" for kid, ms in times.items()), flush=True)
+            f"{kid} {ms:.4f} ms" for kid, ms in rec["ms"].items()) + "  "
+            + "  ".join(f"{kid} entry {ms:.4f} ms"
+                        for kid, ms in rec["entry_ms"].items()), flush=True)
+    same = {kid: all(s[kid] == sha["A"][0][kid] for s in sha["A"] + sha["B"])
+            for kid in sha["A"][0]}
+    print("outputs of B bit for bit equal to A's: " + json.dumps(same),
+          flush=True)
     return 0
 
 

@@ -176,32 +176,39 @@ def main() -> int:
                  sa.global_args(q, k, v, rh, rw, out))
             report("K5", dtype, (b, nh, gh, gw, d), out,
                    sa.sam_global_attention_v2(q, k, v, rh, rw))
-        # K8 (head-major) and K9 (head-last): augmented windows, 16 or 32
-        # columns past the head dim
+        # K9 (head-last, K2's arguments) and K8 (head-major, K7's), through
+        # window_entry: the window routine at bf16 hd 64 (KT = 4, 8, 13;
+        # tables by words, or element by element where win is odd),
+        # attention.cuh's per-score bias routine otherwise (float32, hd 32,
+        # 80 and 16, the 17 x 17 window).  Held against the plain versions
+        # on the augmented operands of the JAX entries, and bit for bit
+        # against K2 and K7 on the same operands
         for bw, win, nh, hd in ((2, 7, 2, 32), (1, 14, 2, 64), (1, 8, 1, 80),
-                                (1, 14, 1, 16)):
+                                (1, 14, 1, 16), (2, 7, 2, 64), (1, 8, 2, 64),
+                                (1, 17, 1, 64)):
             n = win * win
             qkv = rnd(bw, n, 3, nh, hd, dtype=dtype)
             q4, k4, v4 = qkv.unbind(2)
             rh4, rw4 = sa.project_rel_tables_hl(
                 q4, rnd(2 * win - 1, hd, dtype=dtype),
                 rnd(2 * win - 1, hd, dtype=dtype), win)
-            qa, ka = sa.window_v5_operands(q4, k4, rh4, rw4)
-            qa, ka, v = (t.transpose(1, 2) for t in (qa, ka, v4))
-            out = torch.empty(bw, n, nh * hd, dtype=dtype)
-            out_ = out.view(bw, n, nh, hd).transpose(1, 2)
-            call(lib, sa.WINDOW_V5_KERNEL,
-                 sa.augmented_args(qa, ka, v, out_))
-            report("K9", dtype, (bw, win, nh, hd), out_,
-                   sa.augmented_attention_reference(qa, ka, v, fold=True))
-            q, k = (t.transpose(1, 2) for t in (q4, k4))
-            qa, ka = sa.window_v2_operands(q, k, rh4.transpose(1, 2),
-                                           rw4.transpose(1, 2))
-            out = torch.empty(bw, nh, n, hd, dtype=dtype)
-            call(lib, sa.WINDOW_V2_KERNEL,
-                 sa.augmented_args(qa, ka, v, out))
-            report("K8", dtype, (bw, win, nh, hd), out,
-                   sa.augmented_attention_reference(qa, ka, v))
+            hl = (q4, k4, v4, rh4, rw4)
+            hm = tuple(t.transpose(1, 2) for t in hl)
+            for kid, kernel, twin, args, plain, shape in (
+                    ("K9", sa.WINDOW_V5_KERNEL, sa.WINDOW_KERNEL,
+                     sa.window_args, sa.sam_window_attention_v5(*hl),
+                     (bw, n, nh * hd)),
+                    ("K8", sa.WINDOW_V2_KERNEL, sa.WINDOW_V1_KERNEL,
+                     sa.bias_args, sa.sam_window_attention_v2(*hm),
+                     (bw, nh, n, hd))):
+                out, ref = (torch.empty(shape, dtype=dtype) for _ in range(2))
+                call(lib, kernel, args(*(hl if kid == "K9" else hm), out))
+                call(lib, twin, args(*(hl if kid == "K9" else hm), ref))
+                report(kid, dtype, (bw, win, nh, hd), out, plain)
+                same = torch.equal(out, ref)
+                ok &= same
+                print(f"{kid} = {'K2' if kid == 'K9' else 'K7'} bit for bit: "
+                      f"{'ok' if same else 'FAIL'}")
     print("emulated kernels:", "ok" if ok else "FAILED")
     return 0 if ok else 1
 

@@ -2,7 +2,9 @@
 """Where the window routine's time goes on the card: the bf16 device time of
 K2 and K7 at the shapes the full-width engine gives them for B = 2 clips
 (550 windows x 12 heads of 196 tokens, head dim 64, 14 x 14 windows), built
-whole and with parts of the routine left out.
+whole and with parts of the routine left out.  K9 and K8 run the same
+routine on the same operands through the same route choice (window_entry),
+so K2's rows are K9's and K7's are K8's.
 
     python scripts/window_breakdown.py
 
@@ -17,7 +19,7 @@ summed device time of the port's kernel over 20 calls:
                    its output must equal the package entry's, bit for bit;
   mma.sync route   window_takes() answers no: the entry takes the online
                    softmax routine of attention.cuh on the same inputs (the
-                   parent's kernel);
+                   per-score bias route);
   no softmax       loads, staging and products;
   no products      loads, staging and softmax (the mma.sync calls removed,
                    their ldmatrix kept);

@@ -257,36 +257,64 @@ def test_head_major_window_kernels(dev, dtype, tol, win, hd, entry, kernel):
     torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
 
 
+def _window_plain(entry, q, k, v, rh, rw):
+    """The plain version of a window entry: K2's and K7's bias
+    materialised, K8's and K9's on the augmented operands of their JAX
+    entries."""
+    if entry == "sam_window_attention_v3":
+        return sa.window_attention_reference(q, k, v, rh, rw)
+    if entry == "sam_window_attention_v1":
+        return sa.window_attention_hm_reference(q, k, v, rh, rw)
+    if entry == "sam_window_attention_v2":
+        return sa.augmented_attention_reference(
+            *sa.window_v2_operands(q, k, rh, rw), v)
+    qa, ka = sa.window_v5_operands(q, k, rh, rw)
+    out = sa.augmented_attention_reference(
+        *(t.transpose(1, 2) for t in (qa, ka, v)), fold=True)
+    return out.transpose(1, 2).reshape(v.shape[0], v.shape[1], -1)
+
+
+# entry, its launch record, and the entry of the same function and layout
+# on K2's and K7's kernels (K8 and K9 take their arguments)
+WINDOW_ENTRIES = {
+    "sam_window_attention_v3": ("WINDOW_KERNEL", None),                # K2
+    "sam_window_attention_v1": ("WINDOW_V1_KERNEL", None),             # K7
+    "sam_window_attention_v5": ("WINDOW_V5_KERNEL",                    # K9
+                                "sam_window_attention_v3"),
+    "sam_window_attention_v2": ("WINDOW_V2_KERNEL",                    # K8
+                                "sam_window_attention_v1")}
+
+
 def _window_call(dev, dtype, win, hd, entry):
-    """K2 on head-last slices of a fused qkv output, or K7 on its strided
-    head-major views (tables too): the kernel's output, its plain version's
-    and the launches of the entry's kernel."""
+    """A window entry on head-last slices of a fused qkv output (K2, K9) or
+    on their strided head-major views, tables too (K7, K8): its output,
+    after checking that it launched its kernel alone, and its plain
+    version's.  K8's and K9's output must equal K7's and K2's on the same
+    operands bit for bit (one route choice, window_entry, one routine)."""
     qkv = _rnd(dev, dtype, 6, win * win, 3, 4, hd)
     q4, k4, v4 = qkv.unbind(2)
     rh4, rw4 = sa.project_rel_tables_hl(
         q4, _rnd(dev, dtype, 2 * win - 1, hd, seed=1, s=0.1),
         _rnd(dev, dtype, 2 * win - 1, hd, seed=2, s=0.1), win)
-    if entry == "sam_window_attention_v3":
-        args, record = (q4, k4, v4, rh4, rw4), sa.WINDOW_KERNEL
-        plain = sa.window_attention_reference
-    else:
-        args = tuple(t.transpose(1, 2) for t in (q4, k4, v4, rh4, rw4))
-        record, plain = sa.WINDOW_V1_KERNEL, sa.window_attention_hm_reference
-    before = record.launches
-    got = getattr(sa, entry)(*args)
-    return got, plain(*args), record.launches - before
+    args = (q4, k4, v4, rh4, rw4)
+    if entry in ("sam_window_attention_v1", "sam_window_attention_v2"):
+        args = tuple(t.transpose(1, 2) for t in args)
+    kernel, twin = WINDOW_ENTRIES[entry]
+    got = _alone(lambda: getattr(sa, entry)(*args), getattr(sa, kernel))
+    if twin is not None:
+        assert torch.equal(got, getattr(sa, twin)(*args))
+    return got, _window_plain(entry, *args)
 
 
 @pytest.mark.parametrize("win", [14, 7, 8, 16])
-@pytest.mark.parametrize("entry", ["sam_window_attention_v3",       # K2
-                                   "sam_window_attention_v1"])      # K7
+@pytest.mark.parametrize("entry", list(WINDOW_ENTRIES))
 def test_window_routine(dev, win, entry):
     """bf16 at hd 64: the window routine (csrc/window_attention.cuh), one
-    block per (window, head).  win 14: SAM's 196 tokens in 13 key tiles;
-    win 7: 49 tokens, 15 of 64 padded keys masked, tables read element by
-    element (odd rows); win 16: 256 tokens, the largest window it takes."""
-    got, ref, launches = _window_call(dev, torch.bfloat16, win, 64, entry)
-    assert launches == 1
+    block per (window, head), for K2, K7, K8 and K9.  win 14: SAM's 196
+    tokens in 13 key tiles; win 7: 49 tokens, 15 of 64 padded keys masked,
+    tables read element by element (odd rows); win 16: 256 tokens, the
+    largest window it takes."""
+    got, ref = _window_call(dev, torch.bfloat16, win, 64, entry)
     torch.testing.assert_close(got.float(), ref.float(), atol=2e-2,
                                rtol=2e-2)
 
@@ -294,13 +322,12 @@ def test_window_routine(dev, win, entry):
 @pytest.mark.parametrize("dtype,tol,win,hd", [
     (torch.float32, 1e-4, 14, 32), (torch.bfloat16, 2e-2, 14, 32),
     (torch.float32, 1e-4, 14, 64), (torch.bfloat16, 2e-2, 17, 64)])
-@pytest.mark.parametrize("entry", ["sam_window_attention_v3",       # K2
-                                   "sam_window_attention_v1"])      # K7
+@pytest.mark.parametrize("entry", list(WINDOW_ENTRIES))
 def test_window_off_route(dev, dtype, tol, win, hd, entry):
-    """Shapes off the window routine keep attention.cuh's: float32, hd 32,
-    and a 17 x 17 window (289 tokens, 34 bias columns)."""
-    got, ref, launches = _window_call(dev, dtype, win, hd, entry)
-    assert launches == 1
+    """Shapes off the window routine keep attention.cuh's, for K2, K7, K8
+    and K9: float32, hd 32, and a 17 x 17 window (289 tokens, 34 bias
+    columns)."""
+    got, ref = _window_call(dev, dtype, win, hd, entry)
     torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
 
 
@@ -333,8 +360,22 @@ def test_cuda_wrappers_reject_bad_operands(dev):
     q = torch.zeros(2, 4, 16, 65, device=dev, dtype=torch.bfloat16)[..., 1:]
     with pytest.raises(ValueError, match="16-byte"):
         at.flash_attention(q, q, q)
-    # an augmented width past what is built (2·win > 32 for windows)
-    q = torch.zeros(1, 1, 17 * 17, 64, device=dev)
-    rh = torch.zeros(1, 1, 17 * 17, 17, device=dev)
-    with pytest.raises(ValueError, match="augmented width"):
-        sa.sam_window_attention_v2(q, q, q, rh, rh)
+    # K8 and K9: a bf16 operand 2 bytes off 16-byte alignment raises before
+    # any launch (the 17 x 17 window they once refused is in
+    # test_window_off_route)
+    qkv = torch.zeros(1, 16, 3, 2, 64, device=dev, dtype=torch.bfloat16)
+    q4, k4, v4 = qkv.unbind(2)
+    rh4 = torch.zeros(1, 16, 2, 4, device=dev, dtype=torch.bfloat16)
+    bad = torch.empty(q4.numel() + 1, dtype=q4.dtype, device=dev)[1:]
+    bad = bad.view(q4.shape)
+    for entry, kernel, hm in (("sam_window_attention_v5", sa.WINDOW_V5_KERNEL,
+                               False),
+                              ("sam_window_attention_v2", sa.WINDOW_V2_KERNEL,
+                               True)):
+        args = (bad, k4, v4, rh4, rh4)
+        if hm:
+            args = tuple(t.transpose(1, 2) for t in args)
+        before = kernel.launches
+        with pytest.raises(ValueError, match="16-byte"):
+            getattr(sa, entry)(*args)
+        assert kernel.launches == before

@@ -191,6 +191,54 @@ def test_global_hl_args(fused):
         assert k4.data_ptr() - q4.data_ptr() == nh * hd * 4
 
 
+@pytest.mark.parametrize("kid,fused", [("K8", True), ("K8", False),
+                                       ("K9", True), ("K9", False)])
+def test_window_v2_v5_args(kid, fused):
+    """The C arguments of K8 (``bias_args``, K7's) and K9 (``window_args``,
+    K2's): q, k, v, the tables and the output where they lie, at
+    {window, head, token} element strides, with (windows, heads, tokens,
+    head_dim, win) = (BW, nH, N, hd, win).  K8 on the head-major views of a
+    fused qkv output and the tables as the engine's head-major path
+    reshapes them, K9 on the unbind slices and the head-last tables, or
+    contiguous copies; K8 and K9 bind K7's and K2's argument list."""
+    bw, nh, win, hd = 3, 2, 4, 64
+    n = win * win
+    if fused:
+        q4, k4, v4 = torch.zeros(bw, n, 3, nh, hd).unbind(2)
+    else:
+        q4, k4, v4 = (torch.zeros(bw, n, nh, hd) for _ in range(3))
+    token = (3 if fused else 1) * nh * hd
+    tables = torch.zeros(2 * win - 1, hd), torch.zeros(2 * win - 1, hd)
+    if kid == "K8":
+        q, k, v = (t.transpose(1, 2) for t in (q4, k4, v4))
+        rh, rw = (t.reshape(bw, nh, n, win) for t in tsa.project_rel_tables(
+            q.reshape(bw * nh, n, hd), *tables, win))
+        out = torch.empty(bw, nh, n, hd)
+        args = tsa.bias_args(q, k, v, rh, rw, out)
+        ptrs = (q, k, v, rh, rw, out)
+        want = [n * token, hd, token] * 3 + [
+            *rh.stride()[:3], *rw.stride()[:3], nh * n * hd, n * hd, hd]
+        twin = tsa.WINDOW_V1_KERNEL
+    else:
+        rh, rw = tsa.project_rel_tables_hl(q4, *tables, win)
+        out = torch.empty(bw, n, nh * hd)
+        args = tsa.window_args(q4, k4, v4, rh, rw, out)
+        ptrs = (q4, k4, v4, rh, rw, out)
+
+        def hl(t):
+            return [t.stride(0), t.stride(2), t.stride(1)]
+        want = [n * token, hd, token] * 3 + hl(rh) + hl(rw) + [
+            n * nh * hd, hd, nh * hd]
+        twin = tsa.WINDOW_KERNEL
+    assert args[:6] == tuple(t.data_ptr() for t in ptrs)
+    assert args[6:11] == (bw, nh, n, hd, win) and args[12] == 0
+    assert list(args[11]) == want
+    kernel = tsa.WINDOW_V2_KERNEL if kid == "K8" else tsa.WINDOW_V5_KERNEL
+    assert kernel.argtypes == twin.argtypes == tsa.WINDOW_KERNEL.argtypes
+    # every operand's feature axis is contiguous: nothing is copied
+    assert all(t.stride(-1) == 1 for t in ptrs)
+
+
 @pytest.mark.parametrize("b,nh,gh,gw,hd", [(1, 2, 4, 6, 64),
                                            (2, 1, 6, 6, 80),
                                            (2, 3, 5, 7, 32)])
