@@ -7,15 +7,16 @@ Phases, each failing loudly (no exception is swallowed):
   1. setup: card name and power limit, versions, TF32 off, build the
      kernels from csrc/ with nvcc (one process per source, in parallel);
      per library the registers and spills ptxas reports and the HGMMA
-     (wgmma) instructions in its SASS -- those of K3, K4, K5 and K6 (one
-     Hopper routine) must have them;
+     (wgmma) instructions in its SASS -- those of K1 (its Hopper routine)
+     and of K3, K4, K5 and K6 (one Hopper routine) must have them;
   2. kernels: K1-K9 against their plain PyTorch versions at the engine's
      shapes, in float32 and bfloat16, with device times (torch.profiler)
      beside the bound, the plain version's and a PyTorch library call's as
      yardsticks (the library call timed by the profiler and by CUDA
-     events); the entries of K2-K9 must put nothing on the card but their
-     kernel; K3, K4 and K5 must give the same bf16 output bit for bit at
-     the engine's shapes (one routine on one set of operands), K6 on
+     events, as is each entry's whole call); the entries of K1-K9 must put
+     nothing on the card but their kernel; K3, K4 and K5 must give the
+     same bf16 output bit for bit at the engine's shapes (one routine on
+     one set of operands), K6 on
      head-last views the same as K3 on head-major copies of the values,
      and K8 the same as K7, K9 the same as K2 (one window routine);
   3. engine: a small engine on the card against the same engine's plain
@@ -85,14 +86,17 @@ SELECTIONS = (
 # O(1).
 EMB_RTOL = 5e-2
 
-# the kernels whose entries put nothing on the card but the kernel: all of
-# the SAM ones read q, k, v and the tables where the qkv Linear and the
-# einsum leave them (K2 and K7-K9 form the augmented bias columns in shared
-# memory, K3-K6 stage the tables)
-ENTRY_ALONE = ("K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9")
-# the libraries of the Hopper global routine (wgmma): K3, K4, K5, K6
-HOPPER_SOURCES = ("sam_global_attention", "sam_global_attention_v1",
-                  "sam_global_attention_v2", "sam_global_attention_v3")
+# the kernels whose entries put nothing on the card but the kernel: K1
+# reads the DINO layer's head-last q, k, v views and writes its (B, S, H, D)
+# output in place; the SAM ones read q, k, v and the tables where the qkv
+# Linear and the einsum leave them (K2 and K7-K9 form the augmented bias
+# columns in shared memory, K3-K6 stage the tables)
+ENTRY_ALONE = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9")
+# the libraries of the wgmma routines: K1 (csrc/dino_attention.cuh) and the
+# Hopper global routine of K3, K4, K5, K6 (csrc/hopper_attention.cuh)
+HOPPER_SOURCES = ("attention", "sam_global_attention",
+                  "sam_global_attention_v1", "sam_global_attention_v2",
+                  "sam_global_attention_v3")
 
 # H100 SXM dense peaks (NVIDIA data sheet) for the bound of each kernel
 PEAK_BYTES_S = 3.35e12
@@ -786,8 +790,8 @@ def main() -> int:
     smi, hgmma = setup()
     ok_build = all(hgmma[name] > 0 for name in HOPPER_SOURCES)
     if not ok_build:
-        log("a library of K3-K6 holds no HGMMA: its wgmma route was not "
-            "built " + json.dumps({n: hgmma[n] for n in HOPPER_SOURCES}))
+        log("a library of K1 or K3-K6 holds no HGMMA: its wgmma route was "
+            "not built " + json.dumps({n: hgmma[n] for n in HOPPER_SOURCES}))
     log("== phase 2: kernels against their plain versions")
     records, ok_k = check_kernels()
     log("== phase 3: engine")
@@ -803,7 +807,8 @@ def main() -> int:
                               for counts in launches.values())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "library_cuda_ms", "entry_ms", "entry_over_ms", "bound_share")
+            "library_cuda_ms", "entry_ms", "entry_over_ms", "call_ms",
+            "bound_share")
     kern = {"kernels": [{k: rec[k] for k in keys}
                         for rec in records.values()]}
     if not (ok_build and ok_k and ok_small and ok_e):

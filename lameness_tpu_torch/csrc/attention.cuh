@@ -1,7 +1,7 @@
 // One online-softmax attention routine, shared by the port's nine kernels
-// (eight of which have a routine of their own for their main shapes, bf16
-// at head dim 64: K3-K6 hopper_attention.cuh, K2, K7, K8 and K9
-// window_attention.cuh; their other shapes come here):
+// (each of which has a routine of its own for its main shapes, bf16 at head
+// dim 64: K1 dino_attention.cuh, K3-K6 hopper_attention.cuh, K2, K7, K8 and
+// K9 window_attention.cuh; their other shapes come here):
 //   K1 attention.cu               softmax(q k^T scale) v               (DINO)
 //   K2 sam_window_attention.cu    + decomposed rel-pos bias, 14x14 windows,
 //                                 head-last views of the qkv output
@@ -42,8 +42,9 @@
 //   the bias tables of the block's rows staged once in shared memory (on
 //   the 64x64 grid the rw part then lives in registers: ROW_TILE); the
 //   softmax in the exp2 domain, row max and sum across the 4 lanes of a
-//   row by shuffles; K and V fragments by ldmatrix.  Left for later: wgmma
-//   and TMA, warp specialisation (the Hopper routine of K3-K6 has them).
+//   row by shuffles; K and V fragments by ldmatrix.  No wgmma or TMA (the
+//   Hopper routines of K1 and K3-K6 have them), so the CPU emulation runs
+//   it.
 // float32 (exact reference path): attention_f32_kernel, plain FMA loops with
 //   a 4x2 (scores) and 4x(D/16) (output) register tile per thread, one
 //   thread per row for the softmax, no tensor cores.

@@ -1,6 +1,7 @@
-// Hopper (sm_90a) primitives of the wgmma/TMA attention kernel
-// (hopper_attention.cuh): mbarriers, TMA tile loads, shared-memory matrix
-// descriptors, the warpgroup fences and the two products it issues.  The
+// Hopper (sm_90a) primitives of the wgmma/TMA attention routines
+// (hopper_attention.cuh: K3-K6; dino_attention.cuh: K1): mbarriers, TMA
+// tile loads, shared-memory matrix descriptors, the warpgroup fences and
+// the products they issue; on the host, the 4-D TMA maps both build.  The
 // PTX ISA's names throughout ("Asynchronous Warpgroup Level Matrix
 // Multiply-Accumulate", "Tensor Copy", "mbarrier").  Device code only for
 // sm_90a; the CPU emulation of the other kernels does not include it.
@@ -110,6 +111,32 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
       : "memory");
 }
 
+// A box from shared memory (laid out as tma_load_4d leaves it) into a 4-D
+// tensor map; elements past the tensor's extent are not written.  The copy
+// is a bulk group of the issuing thread: bulk_commit, then bulk_wait_read
+// before the shared memory is written again or the block ends.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n"
+      :
+      : "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1),
+        "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+
 // ---------------------------------------------------------------------------
 // wgmma
 // ---------------------------------------------------------------------------
@@ -210,6 +237,22 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
+// d (+)= A·B, a 64x16 tile over k = 16: A (64 x 16) and B (16 x 16) from
+// shared memory, both K-major, as in wgmma_m64n128k16_ss (the last 16 keys
+// of K1's 272)
+__device__ __forceinline__ void wgmma_m64n16k16_ss(float (&d)[8],
+                                                   uint64_t desc_a,
+                                                   uint64_t desc_b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
 // d += A·B, a 64x64 tile over k = 16: A from registers (per warp the A
 // fragment of mma.sync m16n8k16 for its 16 rows: a[0..3]), B (16 x 64) from
 // shared memory, MN-major (imm-trans-b = 1).
@@ -249,4 +292,66 @@ __device__ __forceinline__ void wgmma_m64n8k16_rs(float (&d)[4],
 }
 
 }  // namespace sm90
+
+// ---------------------------------------------------------------------------
+// host side: TMA maps of the bf16 routines (hopper_attention.cuh,
+// dino_attention.cuh)
+// ---------------------------------------------------------------------------
+constexpr int kTileWidth = 64;   // bf16 columns of a tile row: 128 bytes
+
+// cuTensorMapEncodeTiled, looked up through the runtime's entry-point
+// query (the libraries link no -lcuda)
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// An (outer, heads, rows, 64) bf16 tensor at element strides s = {outer,
+// head, row} as a 4-D map {64, rows, heads, outer} with boxes of box_rows
+// rows x 64 columns of one (outer, head) under the 128-byte swizzle; rows
+// past `rows` read as zeros.  With one head the heads axis is never stepped
+// and takes the outer stride (its own slot may be 0).  False unless the
+// address and the strides are multiples of 16 bytes (what TMA takes).
+inline bool tile_map(EncodeTiledFn enc, CUtensorMap* map, const void* ptr,
+                     const long long* s, int outer, int heads, int rows,
+                     int box_rows) {
+  const long long el = 2;   // bf16
+  const long long head_s = heads == 1 ? s[0] : s[1];
+  if (reinterpret_cast<uintptr_t>(ptr) % 16 || (s[0] * el) % 16 ||
+      (head_s * el) % 16 || (s[2] * el) % 16)
+    return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)kTileWidth, (cuuint64_t)rows,
+                              (cuuint64_t)heads, (cuuint64_t)outer};
+  const cuuint64_t strides[3] = {(cuuint64_t)(s[2] * el),
+                                 (cuuint64_t)(head_s * el),
+                                 (cuuint64_t)(s[0] * el)};
+  const cuuint32_t box[4] = {(cuuint32_t)kTileWidth, (cuuint32_t)box_rows, 1,
+                             1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 }  // namespace lameness

@@ -475,60 +475,6 @@ __global__ void __launch_bounds__(kHopThreads, 1)
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
-// cuTensorMapEncodeTiled, looked up through the runtime's entry-point
-// query (the libraries link no -lcuda)
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-inline EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
-// An (outer, heads, rows, 64) bf16 tensor at element strides s = {outer,
-// head, row} as a 4-D map {64, rows, heads, outer} with boxes of box_rows
-// rows x 64 columns of one (outer, head) under the 128-byte swizzle; rows
-// past `rows` read as zeros.  With one head the heads axis is never stepped
-// and takes the outer stride (its own slot may be 0).  False unless the
-// address and the strides are multiples of 16 bytes (what TMA takes).
-inline bool tile_map(EncodeTiledFn enc, CUtensorMap* map, const void* ptr,
-                     const long long* s, int outer, int heads, int rows,
-                     int box_rows) {
-  const long long el = sizeof(__nv_bfloat16);
-  const long long head_s = heads == 1 ? s[0] : s[1];
-  if (reinterpret_cast<uintptr_t>(ptr) % 16 || (s[0] * el) % 16 ||
-      (head_s * el) % 16 || (s[2] * el) % 16)
-    return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)kHopD, (cuuint64_t)rows,
-                              (cuuint64_t)heads, (cuuint64_t)outer};
-  const cuuint64_t strides[3] = {(cuuint64_t)(s[2] * el),
-                                 (cuuint64_t)(head_s * el),
-                                 (cuuint64_t)(s[0] * el)};
-  const cuuint32_t box[4] = {(cuuint32_t)kHopD, (cuuint32_t)box_rows, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 // The shapes this routine takes (batch = outer x heads): bf16, head dim 64,
 // and bias rows that fit in shared memory.
 inline bool hopper_global_takes(const AttnArgs& a, int batch, int head_dim,

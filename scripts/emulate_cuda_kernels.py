@@ -47,8 +47,9 @@ def build() -> ctypes.CDLL:
     for name in _cuda.SOURCES:
         units.append(src / f"{name}.cpp")
         shutil.copy(_cuda.CSRC / f"{name}.cu", units[-1])
-    # LAMENESS_EMULATION: the sources leave out their wgmma/TMA route
-    # (csrc/hopper_attention.cuh), which has no emulation
+    # LAMENESS_EMULATION: the sources leave out their wgmma/TMA routes
+    # (csrc/hopper_attention.cuh, csrc/dino_attention.cuh), which have no
+    # emulation
     flags = ["-std=c++20", "-O2", "-fPIC", "-DLAMENESS_EMULATION", f"-I{EMU}",
              f"-I{src}"]
     procs = [subprocess.Popen(["g++", *flags, "-c", str(u), "-o",
@@ -89,7 +90,9 @@ def main() -> int:
               f"{float(err.max()):.3e}  {'ok' if good else 'FAIL'}")
 
     for dtype in (torch.bfloat16, torch.float32):
-        # K1: head-last views, S not a multiple of the 64-row blocks
+        # K1: head-last views, S not a multiple of the 64-row blocks; the
+        # mma.sync route for every shape (dino_entry leaves the Hopper
+        # routine out here, as global_entry does)
         for b, h, s, d in ((1, 2, 70, 32), (2, 1, 33, 64), (1, 1, 5, 80),
                            (1, 1, 257, 64), (1, 1, 130, 128)):
             qkv = rnd(b, s, 3, h, d, dtype=dtype)

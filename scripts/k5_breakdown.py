@@ -60,7 +60,9 @@ def build(sources=(SOURCE,), header: str = "hopper_attention.cuh",
           rows=ROWS, out=OUT) -> list:
     """One library per row and source, each from its own copy of ``csrc/``
     with the row's stubs put into its copy of ``header``: nvcc all
-    together.  Returns, per row, {source: library}."""
+    together.  A stub (anchor, line) puts the line after the anchor; (anchor,
+    text, True) puts the text in the anchor's place.  Returns, per row,
+    {source: library}."""
     shutil.rmtree(out, ignore_errors=True)
     procs = []
     for i, (label, flags, stubs) in enumerate(rows):
@@ -71,11 +73,12 @@ def build(sources=(SOURCE,), header: str = "hopper_attention.cuh",
             shutil.copy(f, src / f.name)
         path = src / header
         text = path.read_text()
-        for anchor, stub in stubs:
+        for anchor, stub, *replace in stubs:
             if text.count(anchor) != 1:
                 raise SystemExit(f"{label}: '{anchor}' is not in {header} "
                                  f"exactly once")
-            text = text.replace(anchor, f"{anchor}\n    {stub}")
+            text = text.replace(anchor, stub if replace else
+                                f"{anchor}\n    {stub}")
         path.write_text(text)
         for s in sources:
             lib = out / f"lib{s}-{i}.so"

@@ -11,10 +11,15 @@ other orders), bf16 2e-2 (bf16 output rounding; both round the softmax
 weights to bf16 before PV, the kernel before normalising, the plain version
 after).
 """
+import ctypes
+import os
+import subprocess
+
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from lameness_tpu_torch.ops import _cuda
 from lameness_tpu_torch.ops import attention as at
 from lameness_tpu_torch.ops import sam_attention as sa
 from lameness_tpu_torch.ops._cuda import KERNELS
@@ -64,6 +69,104 @@ def test_attention_kernel(dev, dtype, tol, seq, hd):
     assert at.KERNEL.launches == before + 1
     ref = at.reference_attention(q, k, v)
     torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
+
+
+def _dino_qkv(dev, b, h, n, layout, dtype=torch.bfloat16):
+    """K1's q, k, v (B, H, n, 64): head-last views of three separate
+    (B, n, H·64) tensors, as the DINO layer passes its Linear outputs, or
+    contiguous (B, H, n, 64) tensors."""
+    if layout == "head_last":
+        return tuple(_rnd(dev, dtype, b, n, h, 64, seed=i).transpose(1, 2)
+                     for i in range(3))
+    return tuple(_rnd(dev, dtype, b, h, n, 64, seed=i) for i in range(3))
+
+
+@pytest.fixture(scope="module")
+def mma_route():
+    """K1's C entry built with -DLAMENESS_EMULATION, under which
+    dino_entry leaves the Hopper routine out: attention.cuh's route for
+    every shape, on the same arguments."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    lib = _cuda.BUILD_DIR / "tests" / f"libattention_mma.{os.getpid()}.so"
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-DLAMENESS_EMULATION",
+                    "-o", str(lib), str(_cuda.CSRC / "attention.cu")],
+                   check=True, capture_output=True, timeout=600)
+    fn = getattr(ctypes.CDLL(str(lib)), at.KERNEL.symbol)
+    fn.argtypes, fn.restype = at.KERNEL.argtypes, ctypes.c_int
+
+    def call(q, k, v):
+        b, h, s, d = q.shape
+        out = torch.empty((b, s, h, d), dtype=q.dtype,
+                          device=q.device).transpose(1, 2)
+        err = fn(*at.attention_args(q, k, v, out, d ** -0.5),
+                 torch.cuda.current_stream().cuda_stream)
+        assert err == 0, f"cudaError_t {err}"
+        return out
+    yield call
+    lib.unlink()
+
+
+def test_dino_route_engine_shape(dev, mma_route):
+    """K1 at the full-width engine's shape, B = 2 clips of 5 DINO frames:
+    (10, 12, 257, 64) bf16 head-last views, on the Hopper routine
+    (dino_attention.cuh).  The entry launches its kernel alone; the output
+    agrees with the plain version and with attention.cuh's route, and two
+    calls give it bit for bit."""
+    q, k, v = _dino_qkv(dev, 10, 12, 257, "head_last")
+    got = _alone(lambda: at.flash_attention(q, k, v), at.KERNEL)
+    ref = at.reference_attention(q, k, v)
+    torch.testing.assert_close(got.float(), ref.float(), atol=2e-2,
+                               rtol=2e-2)
+    torch.testing.assert_close(got.float(), mma_route(q, k, v).float(),
+                               atol=2e-2, rtol=2e-2)
+    assert torch.equal(got, at.flash_attention(q, k, v))
+
+
+@pytest.mark.parametrize("layout", ["head_last", "contiguous"])
+@pytest.mark.parametrize("n", [1, 8, 63, 64, 65, 136, 137, 255, 256, 257,
+                               258, 272, 273])
+def test_dino_route_token_counts(dev, mma_route, n, layout):
+    """bf16 at head dim 64 around every boundary of the Hopper routine: an
+    8-key n-tile (8), a 64-row tile (63-65), a 136-row TMA box (136, 137),
+    a 128-key block of QKᵀ (255-258), the 272 keys it holds, and one past
+    them (273: attention.cuh's route, equal to it bit for bit).  Against
+    the plain version and against attention.cuh's route within the bf16
+    tolerance."""
+    q, k, v = _dino_qkv(dev, 2, 3, n, layout)
+    got = _alone(lambda: at.flash_attention(q, k, v), at.KERNEL)
+    ref = at.reference_attention(q, k, v)
+    torch.testing.assert_close(got.float(), ref.float(), atol=2e-2,
+                               rtol=2e-2)
+    mma = mma_route(q, k, v)
+    torch.testing.assert_close(got.float(), mma.float(), atol=2e-2,
+                               rtol=2e-2)
+    if n > 272:
+        assert torch.equal(got, mma)
+
+
+@pytest.mark.parametrize("fault", ["address", "stride"])
+def test_dino_route_misaligned(dev, fault):
+    """bf16 operands that TMA cannot read -- an address 2 bytes off 16, or
+    a token stride of 772 elements (1544 bytes) -- raise in the wrapper
+    before any launch, and the C entry itself returns cudaErrorInvalidValue
+    (1): no route gives an answer for them."""
+    q, k, v = _dino_qkv(dev, 2, 3, 257, "head_last")
+    if fault == "address":
+        bad = torch.empty(q.numel() + 1, dtype=q.dtype, device=dev)[1:]
+        bad = bad.view(2, 257, 3, 64).copy_(q.transpose(1, 2)).transpose(1, 2)
+    else:
+        bad = torch.zeros(2, 257, 3 * 64 + 4, dtype=q.dtype, device=dev)
+        bad = bad[..., :3 * 64].unflatten(-1, (3, 64)).transpose(1, 2)
+        bad.copy_(q)
+    before = at.KERNEL.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        at.flash_attention(bad, k, v)
+    out = torch.empty(2, 257, 3, 64, dtype=q.dtype, device=dev).transpose(1, 2)
+    with pytest.raises(RuntimeError, match="cudaError_t 1$"):
+        at.KERNEL(*at.attention_args(bad, k, v, out, 0.125))
+    assert at.KERNEL.launches == before
 
 
 @pytest.mark.parametrize("dtype,tol", DTYPES)

@@ -14,7 +14,9 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "lameness_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "scripts" / "emulate_cuda_kernels.py",
     ROOT / "scripts" / "ab_kernels.py", ROOT / "scripts" / "k5_breakdown.py",
-    ROOT / "scripts" / "window_breakdown.py"]
+    ROOT / "scripts" / "window_breakdown.py",
+    ROOT / "scripts" / "k1_breakdown.py", ROOT / "scripts" / "k1_phases.py",
+    ROOT / "scripts" / "ab_engine.py"]
 
 
 def test_import_leaves_jax_out():
