@@ -31,6 +31,15 @@ Phases, each failing loudly (no exception is swallowed):
      by launching op); the default run its stage times too, and each other
      selection its agreement with the default run (masks, SAM embeddings,
      and whether its outputs equal the default's bit for bit).
+  4. serving modes: the phase-3 default engine through ``with_spec`` (same
+     modules, weights and frames) under pose_pixels=False, split ingest
+     1280x720+640x360 with pose_pixels=False, LAMENESS_YUV_INGEST=1, the
+     rect SAM canvas and sam_encode_chunk=4, each with its launches (held
+     against the expected ones), e2e times, transfer (in and out) and
+     stage times, device busy of one profiled batch and peak memory, and
+     its gate against the default run; the tiny engine, card against CPU,
+     under the same modes; K3 at the rect canvas's shape beside its bound
+     and an SDPA call.
 The line before the last is the kernel record (JSON); the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 without a CUDA device or outside the repository.
@@ -38,6 +47,7 @@ without a CUDA device or outside the repository.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import shutil
@@ -58,11 +68,14 @@ SEED = 0
 # (on the tensor cores), the plain version after (as the JAX kernels do).
 TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 1.6e-2)}
 
+# The switches the engine reads at each call (unset unless a run sets them):
+# the kernel selections and the I420 transfer.
+SWITCHES = ("LAMENESS_WIN_KERNEL", "LAMENESS_GLB_KERNEL",
+            "LAMENESS_YUV_INGEST")
 # The kernel selections of phase 3: the switches set, and the launches
 # expected in one process_clip_batch of B = 2 (every other kernel 0): 12 DINO
 # layers; 8 windowed SAM layers, layers 0-1 split into content and shared pad
 # windows (10); 4 global layers.
-SWITCHES = ("LAMENESS_WIN_KERNEL", "LAMENESS_GLB_KERNEL")
 SELECTIONS = (
     ("default", {}, {"K1": 12, "K2": 10, "K3": 4}),
     ("WIN=v1 GLB=v1", {"LAMENESS_WIN_KERNEL": "v1",
@@ -75,6 +88,30 @@ SELECTIONS = (
                        "LAMENESS_GLB_KERNEL": "v3"},
      {"K1": 12, "K9": 10, "K6": 4}),
 )
+# The serving modes of phase 4, run on the phase-3 default engine through
+# with_spec: name, the full-width spec's fields, the tiny engine's, the
+# switches, and the launches expected in one process_clip_batch of B = 2.
+# The rect canvas (576x1024, grid 36x64) has no pad-row split, so its 8
+# windowed layers launch K2 once each; chunks of 4 of the 22 SAM frames are
+# 6 encoder calls, each with its own pad-row split.
+BASE_LAUNCHES = {"K1": 12, "K2": 10, "K3": 4}
+MODES = (
+    ("pose_pixels=False", {"pose_pixels": False}, {"pose_pixels": False},
+     {}, BASE_LAUNCHES),
+    ("split 1280x720+640x360",
+     {"pose_pixels": False, "lo_height": 360, "lo_width": 640},
+     {"pose_pixels": False, "lo_height": 45, "lo_width": 80}, {},
+     BASE_LAUNCHES),
+    ("yuv420", {}, {}, {"LAMENESS_YUV_INGEST": "1"}, BASE_LAUNCHES),
+    ("sam_rect", {"sam_rect": True}, {"sam_rect": True}, {},
+     {"K1": 12, "K2": 8, "K3": 4}),
+    ("sam_encode_chunk=4", {"sam_encode_chunk": 4}, {"sam_encode_chunk": 4},
+     {}, {"K1": 12, "K2": 60, "K3": 24}),
+)
+# K3 at the rect canvas's global grid: B·11 frames x 12 heads over 36x64
+# tokens
+RECT_GRID = (36, 64)
+
 # A selection's SAM image embeddings against the default's, as
 # ||a - b||_2 / ||b||_2 over the batch.  Both run in bf16 (eps 2^-8) and
 # may round in different places: the head-major and head-last paths project
@@ -517,10 +554,27 @@ def leaves(tree, prefix=""):
             yield prefix + key, np.asarray(val)
 
 
-def check_small_engine(devices=("cpu", "cuda")):
+def rel_l2(a, b) -> float:
+    import torch
+    return float(torch.linalg.vector_norm(a.float() - b.float())
+                 / torch.linalg.vector_norm(b.float()))
+
+
+def same_leaves(out, ref, skip=()) -> bool:
+    """Whether every leaf of ``out`` but ``skip`` equals ``ref``'s bit for
+    bit (same key set)."""
+    a, b = dict(leaves(out)), dict(leaves(ref))
+    return set(a) == set(b) and all(
+        a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k])
+        for k in a if k not in skip)
+
+
+def check_small_engine(spec_kw=None, devices=("cpu", "cuda")):
     """The tiny engine (make_test_engine geometry + a 128² SAM) on the card
-    in f32 against its plain path on the CPU, same weights and frames.  The
-    CPU path is what tests/test_torch_engine.py holds against the JAX
+    in f32 against its plain path on the CPU, same weights and frames; with
+    ``spec_kw``, through ``with_spec`` with those fields changed.  The CPU
+    path is what tests/test_torch_engine.py (and tests/test_torch_ingest.py,
+    tests/test_torch_sam_modes.py for the modes) holds against the JAX
     engine; the gates are that test's."""
     import torch
     from lameness_tpu_torch.pipeline.engine import make_test_engine
@@ -541,6 +595,8 @@ def check_small_engine(devices=("cpu", "cuda")):
         eng.gait = GaitTransformer(input_dim=44, dropout=0.0, device=dev)
         eng.load_state_dicts({"tcn": seeded_state_dict(eng.tcn, gen),
                               "gait": seeded_state_dict(eng.gait, gen)})
+        if spec_kw:
+            eng = eng.with_spec(dataclasses.replace(eng.spec, **spec_kw))
         outs[dev] = dict(leaves(eng.process_clip_batch(frames)))
     log("small engine launches: " + json.dumps(
         {name: k.launches for name, k in KERNELS.items() if k.launches}))
@@ -604,9 +660,11 @@ def check_outputs(out, s, batch: int) -> bool:
 
 def time_stages(eng, frames, reps: int):
     """Median host-clock ms of each stage, synchronised, on packed device
-    frames (the transfer is timed as its own row)."""
+    frames; the transfer in (host frames to device RGB) and the readback
+    (the outputs to numpy in one copy) are timed as rows of their own."""
     import torch
-    times = {k: [] for k in ("transfer", "detect", "sam", "dino", "heads")}
+    times = {k: [] for k in ("transfer", "detect", "sam", "dino", "heads",
+                             "readback")}
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     with torch.no_grad():
         for _ in range(reps):
@@ -618,19 +676,26 @@ def time_stages(eng, frames, reps: int):
                 times[name].append((time.perf_counter() - t0) * 1e3)
                 return out
             dev = timed("transfer", lambda: eng.to_device(frames))
-            det = timed("detect", lambda: eng._detect_stage(dev))
-            timed("sam", lambda: eng._sam_stage(dev, det["primary_boxes"]))
-            timed("dino", lambda: eng._dino_stage(dev))
-            timed("heads", lambda: eng._heads_stage(
-                det["primary_boxes"], det["primary_scores"], gen))
+            out = timed("detect", lambda: eng._detect_stage(dev))
+            out.update(timed("sam", lambda: eng._sam_stage(
+                dev, out["primary_boxes"])))
+            out.update(timed("dino", lambda: eng._dino_stage(dev)))
+            out.update(timed("heads", lambda: eng._heads_stage(
+                out["primary_boxes"], out["primary_scores"], gen)))
+
+            def readback():
+                flat, meta = eng.pack_output(out)
+                return eng.unpack_output(eng._fetch(flat), meta)
+            timed("readback", readback)
     return {k: float(np.median(v)) for k, v in times.items()}
 
 
-def profile_batch(eng, frames, top: int = 12) -> None:
+def profile_batch(eng, frames, top: int = 12):
     """One process_clip_batch under torch.profiler: the device's busy share
     of the wall time (kernels and copies; the profiler's own host overhead
     lengthens the wall, so the idle share is an upper bound) and the device
-    time by kernel name."""
+    time by kernel name.  Returns the device busy ms (None when the
+    profiler recorded nothing)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -645,7 +710,7 @@ def profile_batch(eng, frames, top: int = 12) -> None:
     if not dev:
         log("profile: no device events recorded (device idle share not "
             "measured)")
-        return
+        return None
     busy_us = sum(e.self_device_time_total for e in dev)
     log(f"profile: wall {wall_us / 1e3:.1f} ms, device busy "
         f"{busy_us / 1e3:.1f} ms ({100 * busy_us / wall_us:.1f}%), idle "
@@ -664,11 +729,12 @@ def profile_batch(eng, frames, top: int = 12) -> None:
     for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  "
             f"{e.key[:90]}")
+    return busy_us / 1e3
 
 
 @contextlib.contextmanager
 def switches(env):
-    """The kernel switches set to ``env`` (the others unset), restored
+    """The switches set to ``env`` (the others unset), restored
     afterwards."""
     saved = {k: os.environ.get(k) for k in SWITCHES}
     try:
@@ -684,10 +750,10 @@ def switches(env):
                 os.environ[k] = val
 
 
-def counted_run(eng, frames):
+def counted_run(eng, frames, transfer=None):
     """One process_clip_batch with every launch count from 0: the counts,
-    the outputs and the SAM image embeddings of the batch (copied to the
-    host in this run only)."""
+    the outputs and the SAM image embeddings of the batch (of every encoder
+    call, copied to the host in this run only)."""
     import torch
     from lameness_tpu_torch.ops._cuda import KERNELS
     captured = []
@@ -696,18 +762,20 @@ def counted_run(eng, frames):
     for k in KERNELS.values():
         k.launches = 0
     out = eng.process_clip_batch(
-        frames, generator=torch.Generator(device="cuda").manual_seed(SEED))
+        frames, generator=torch.Generator(device="cuda").manual_seed(SEED),
+        transfer=transfer)
     torch.cuda.synchronize()
     launches = {name: k.launches for name, k in KERNELS.items()}
     hook.remove()
-    return launches, out, captured[0]
+    return launches, out, torch.cat(captured)
 
 
 def run_engine(batch: int = BATCH):
     """The full-width default engine on ``batch`` synthetic 720p clips, then
     the same engine (same weights, same frames) under each other kernel
-    selection.  Returns the launches of each selection and whether every
-    check passed."""
+    selection.  Returns the launches of each selection, whether every check
+    passed, and (engine, frames, the default run's outputs, SAM embeddings
+    and peak GB) for phase 4."""
     import torch
     from lameness_tpu_torch.core.config import Config
     from lameness_tpu_torch.pipeline.engine import EngineSpec, LamenessEngine
@@ -744,6 +812,7 @@ def run_engine(batch: int = BATCH):
                 + f"  clips/s {batch / float(np.median(e2e)):.3f}  peak mem "
                 f"{peak_gb:.2f} GB")
             if ref is None:
+                ref_peak = peak_gb
                 stages = time_stages(eng, frames, REPEATS)
                 log("stage ms (median of " + str(REPEATS) + "): "
                     + json.dumps({k: round(v, 3) for k, v in stages.items()}))
@@ -758,19 +827,201 @@ def run_engine(batch: int = BATCH):
             ref = out, emb
             continue
         agreement = float((out["masks"] == ref[0]["masks"]).mean())
-        rel = float(torch.linalg.vector_norm(emb - ref[1])
-                    / torch.linalg.vector_norm(ref[1]))
+        rel = rel_l2(emb, ref[1])
         good = agreement >= 0.995 and rel <= EMB_RTOL
         ok &= good
-        base = dict(leaves(ref[0]))
-        bitwise = torch.equal(emb, ref[1]) and all(
-            np.array_equal(val, base[key]) for key, val in leaves(out))
+        bitwise = torch.equal(emb, ref[1]) and same_leaves(out, ref[0])
         log(f"{sel} vs default: mask agreement {agreement:.5f} (gate "
             f">= 0.995); SAM embeddings relative L2 error {rel:.3e} (gate "
             f"<= {EMB_RTOL:g}), max abs {float((emb - ref[1]).abs().max()):.3e}"
             f"; every output bit for bit {bitwise}"
             f"  {'ok' if good else 'FAIL'}")
-    return by_selection, ok
+    return by_selection, ok, (eng, frames) + ref + (ref_peak,)
+
+
+# ---------------------------------------------------------------------------
+# phase 4
+# ---------------------------------------------------------------------------
+def mode_gate(name, m, frames, out, emb, peak_gb, ref) -> bool:
+    """The gate of one serving mode (its outputs, SAM embeddings and peak
+    GB) against the default run ``ref`` = (outputs, SAM embeddings, peak
+    GB)."""
+    import torch
+    from lameness_tpu_torch.video.yuv import i420_to_rgb_device, rgb_to_i420
+    ref_out, ref_emb, ref_peak = ref
+    agreement = float((out["masks"] == ref_out["masks"]).mean()) \
+        if out["masks"].shape == ref_out["masks"].shape else float("nan")
+    if name == "pose_pixels=False":
+        ok = same_leaves(out, ref_out) and torch.equal(emb, ref_emb)
+        log(f"  gate a: every output and the SAM embeddings bit for bit the "
+            f"default's {ok}  {'ok' if ok else 'FAIL'}")
+    elif name.startswith("split"):
+        e, e0 = out["embeddings"], ref_out["embeddings"]
+        rel = rel_l2(torch.from_numpy(e), torch.from_numpy(e0)) \
+            if e.shape == e0.shape else float("nan")
+        ok = (same_leaves(out, ref_out, skip=("embeddings",))
+              and torch.equal(emb, ref_emb) and e.shape == e0.shape
+              and bool(np.isfinite(e).all()))
+        log(f"  gate b: det, SAM and heads outputs bit for bit the "
+            f"default's, DINO embeddings finite {e.shape} "
+            f"{'ok' if ok else 'FAIL'}; embeddings relative L2 to the "
+            f"default {rel:.3e} (not gated: 640x360 DINO input)")
+    elif name == "yuv420":
+        packed = m.spec.pack_frames(frames)
+        trip = i420_to_rgb_device(torch.from_numpy(rgb_to_i420(packed)))
+        dev = m.to_device(frames)
+        torch.cuda.synchronize()
+        same_rgb = torch.equal(dev.cpu(), trip)
+        _, rgb_out, rgb_emb = counted_run(m, trip.numpy(), transfer="rgb")
+        same_out = same_leaves(out, rgb_out) and torch.equal(emb, rgb_emb)
+        ok = same_rgb and same_out
+        log(f"  gate c: the card's I420 -> RGB equals the CPU's bit for bit "
+            f"{same_rgb}; every output equals the RGB path's on the "
+            f"round-tripped frames {same_out}  {'ok' if ok else 'FAIL'}; "
+            f"mask agreement with the default (source frames) "
+            f"{agreement:.5f}")
+    elif name == "sam_rect":
+        ok = True
+        log(f"  gate d: mask agreement with the square canvas {agreement:.5f}"
+            f" (reported, not gated: pad tokens join the square canvas's "
+            f"attention); SAM embeddings {tuple(emb.shape)} against "
+            f"{tuple(ref_emb.shape)}")
+    else:
+        rel = rel_l2(emb, ref_emb)
+        ok = agreement >= 0.995 and rel <= EMB_RTOL
+        log(f"  gate e: mask agreement {agreement:.5f} (gate >= 0.995); SAM "
+            f"embeddings relative L2 error {rel:.3e} (gate <= {EMB_RTOL:g}); "
+            f"every output bit for bit {same_leaves(out, ref_out)}; peak "
+            f"{peak_gb:.2f} GB against the default's {ref_peak:.2f}  "
+            f"{'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def ingest_parts(m, frames) -> dict:
+    """The parts of a split or I420 transfer, medians of REPEATS (ms): the
+    host packing (the resize alone), the host I420 conversion, the card's
+    conversion back (CUDA events)."""
+    import torch
+    from lameness_tpu_torch.video.yuv import i420_to_rgb_device, rgb_to_i420
+    s = m.spec
+
+    def host_ms(fn):
+        times = []
+        for _ in range(REPEATS):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times))
+    parts = {}
+    if s.split:
+        parts["split_pack_host"] = host_ms(lambda: s.split_pack_host(frames))
+        lo = frames[:, s.lo_idx]
+        parts["lo_resize"] = host_ms(lambda: torch.nn.functional.interpolate(
+            torch.from_numpy(lo).flatten(0, 1).permute(0, 3, 1, 2),
+            size=(s.lo_height, s.lo_width), mode="bilinear",
+            align_corners=False, antialias=False))
+    if m.default_transfer() == "yuv420":
+        packed = s.pack_frames(frames)
+        parts["rgb_to_i420"] = host_ms(lambda: rgb_to_i420(packed))
+        i420 = torch.from_numpy(rgb_to_i420(packed)).cuda()
+        parts["i420_to_rgb_card"] = cuda_ms(
+            lambda: i420_to_rgb_device(i420), REPEATS)
+    return parts
+
+
+def run_modes(eng, frames, ref_out, ref_emb, ref_peak,
+              batch: int = BATCH) -> bool:
+    """Phase 4: each serving mode of MODES on the default engine's modules
+    (with_spec), weights and frames."""
+    import torch
+    from lameness_tpu_torch.ops._cuda import KERNELS
+    record = {kid: name for kid, name, *_ in KERNEL_TABLE}
+    ok = True
+    for name, spec_kw, _, env, expected in MODES:
+        with switches(env):
+            m = eng.with_spec(dataclasses.replace(eng.spec, **spec_kw))
+            t0 = time.perf_counter()
+            m.warmup(batch=batch)
+            warm = time.perf_counter() - t0
+            torch.cuda.reset_peak_memory_stats()
+            launches, out, emb = counted_run(m, frames)
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            e2e = []
+            for _ in range(REPEATS):
+                t0 = time.perf_counter()
+                m.process_clip_batch(frames)
+                torch.cuda.synchronize()
+                e2e.append(time.perf_counter() - t0)
+            log(f"== mode {name} (packed rows {m.spec.n_packed}"
+                + (f", hi {len(m.spec.hi_idx)} lo {len(m.spec.lo_idx)}"
+                   if m.spec.split else "")
+                + f", transfer {m.default_transfer()}): warmup {warm:.2f} s;"
+                f" launches in one process_clip_batch (B={batch}) "
+                + json.dumps({k: v for k, v in launches.items() if v}))
+            stages = time_stages(m, frames, REPEATS)
+            busy = profile_batch(m, frames, top=6)
+            log("mode record " + json.dumps({
+                "mode": name, "e2e_s": [round(t, 4) for t in e2e],
+                "clips_s": batch / float(np.median(e2e)),
+                "stage_ms": {k: round(v, 3) for k, v in stages.items()},
+                "ingest_parts_ms": ingest_parts(m, frames),
+                "device_busy_ms": busy, "peak_gb": round(peak_gb, 3)}))
+            want = {record[kid]: expected.get(kid, 0) for kid in record}
+            good = launches == want
+            if not good:
+                log(f"launches {launches} != expected {want}")
+            good &= check_outputs(out, m.spec, batch)
+            good &= mode_gate(name, m, frames, out, emb, peak_gb,
+                              (ref_out, ref_emb, ref_peak))
+            ok &= good
+            del m, out, emb
+            torch.cuda.empty_cache()
+    for k in KERNELS.values():
+        k.launches = 0
+    return ok & rect_k3(batch)
+
+
+def rect_k3(batch: int) -> bool:
+    """K3 at the rect canvas's global grid (36x64 tokens, B·11 frames x 12
+    heads, bf16) against its plain version, its device time beside its
+    bound and one SDPA call (the yardstick of phase 2)."""
+    import torch
+    from lameness_tpu_torch.ops import sam_attention as sa
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    gh, gw = RECT_GRID
+    dev = torch.device("cuda")
+
+    def rnd(*shape, std=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * std
+                ).to(torch.bfloat16)
+    q, k, v = (rnd(batch * 11 * 12, gh * gw, 64) for _ in range(3))
+    args = (q, k, v) + sa.project_rel_tables(
+        q, rnd(2 * gh - 1, 64, std=0.1), rnd(2 * gw - 1, 64, std=0.1), gh, gw)
+    fn = sa.sam_global_attention_v4
+    out = fn(*args)
+    ref = plain_version("K3", args)()
+    torch.cuda.synchronize()
+    err, ok = agree("K3 rect", "bfloat16", out, ref)
+    # the profiler's kernel time, the whole entry's, and CUDA events around
+    # back-to-back calls (a profiler session has read this kernel at a
+    # fifth of its time in the engine's profile)
+    ms = device_ms(lambda: fn(*args), 5, only="lameness::")
+    entry = device_ms(lambda: fn(*args), 5)
+    call = cuda_ms(lambda: fn(*args), 20)
+    library = library_call("global", args)
+    lib = device_ms(library, 3)
+    lib_call = cuda_ms(library, 5)
+    flops, nbytes = kernel_work("global", args)
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = flops / PEAK_FLOPS_S["bfloat16"] * 1e3
+    bound = max(t_bytes, t_ops)
+    log("K3 at the rect shape " + json.dumps({
+        "shapes": [tuple(a.shape) for a in args], "ms": ms,
+        "entry_ms": entry, "call_ms": call, "bound_ms": bound,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bound_share_of_call": bound / call, "library_ms": lib,
+        "library_cuda_ms": lib_call, "max_abs_err": err}))
+    return ok
 
 
 def main() -> int:
@@ -800,7 +1051,14 @@ def main() -> int:
         with switches(env):
             log(f"small engine, {sel}:")
             ok_small &= check_small_engine()
-    launches, ok_e = run_engine()
+    launches, ok_e, (eng, frames, *ref) = run_engine()
+    log("== phase 4: serving modes")
+    ok_m = run_modes(eng, frames, *ref)
+    del eng
+    for name, _, small_kw, env, _ in MODES:
+        with switches(env):
+            log(f"small engine, {name}:")
+            ok_m &= check_small_engine(small_kw)
     for kid, rec in records.items():
         # each kernel's count on its own path (K1 runs on every one)
         rec["launches"] = max(counts[rec["name"]]
@@ -811,7 +1069,7 @@ def main() -> int:
             "bound_share")
     kern = {"kernels": [{k: rec[k] for k in keys}
                         for rec in records.values()]}
-    if not (ok_build and ok_k and ok_small and ok_e):
+    if not (ok_build and ok_k and ok_small and ok_e and ok_m):
         log("chip_smoke: FAILED")
         return 1
     log(smi)

@@ -20,6 +20,9 @@ class YoloConfig:
 class SamConfig:
     """SAM ViT encoder + mask decoder (sam3-pipeline/app/main.py:51-100)."""
     variant: str = "vit_b"              # vit_b / vit_l / vit_h
+    # the single-card memory governor: EngineSpec.sam_encode_chunk (0 = the
+    # whole batch in one call)
+    encode_chunk: int = 0
 
 
 @dataclass(frozen=True)

@@ -2,19 +2,27 @@
 
   frames ─ letterbox ─→ YOLO detect (DFL + batched NMS)
         ├─ primary-box select (largest valid cow, full-frame fallback)
-        ├─ SAM: 1024² pad → ViT encoder → box-prompted mask decoder
+        ├─ SAM: 1024² pad (or the pad-free rect canvas) → ViT encoder →
+        │   box-prompted mask decoder
         ├─ DINO: 224² resize-crop → ViT-B/14 → mean-pooled embeddings
         └─ heuristic pose → locomotion features → 44-d sequences →
            TCN + GaitTransformer with batched MC-dropout
 
-Four stages run one after another on device tensors (``run_staged``);
-``process_clip_batch`` packs host frames, moves them to the device and reads
-the output dict back as numpy.  Frames travel as RGB.  Stage sampling
-follows the reference: detect/SAM 2 FPS, DINO 1 FPS, pose 5 FPS.
+Four stages run one after another on device tensors (``run_staged``).
+``to_device`` packs host frames and moves them to the device:
+- only the rows some stage reads travel (33 of 125, or 15 with
+  ``pose_pixels=False``: the heuristic pose reads boxes, never pixels);
+- split ingest (``lo_height``/``lo_width``) sends the DINO and pose rows
+  at a reduced geometry, as a ``{"hi", "lo"}`` dict;
+- the transfer is RGB, or I420 planes rebuilt on the device
+  (``LAMENESS_YUV_INGEST=1``, ``video/yuv.py``).
+``process_clip_batch`` runs the stages and reads the outputs back in one
+copy (``pack_output``/``unpack_output``).  Stage sampling follows the
+reference: detect/SAM 2 FPS, DINO 1 FPS, pose 5 FPS.
 
-Not in this port yet (see ROADMAP.md): I420 and split ingest, the rect
-SAM canvas, chunked SAM encoding, trained pose, the mesh, the monolith and
-pair modes, the packed readback buffer and torch checkpoint loading.
+Not in this port yet (see ROADMAP.md): trained pose, the mesh, the
+monolith and pair modes, torch checkpoint loading and the batch-major
+I420 rows packing.
 """
 from __future__ import annotations
 
@@ -37,6 +45,8 @@ from ..models.tcn import TCN
 from ..models.yolo import YoloV8, detect
 from ..ops import preprocess as prep
 from ..ops.boxes import clip_boxes
+from ..video.yuv import (flat_views, i420_flat_to_rgb_device,
+                          pack_i420_flat, rgb_to_i420)
 
 
 @dataclasses.dataclass
@@ -54,6 +64,23 @@ class EngineSpec:
     use_sam_model: bool = True       # False => bbox-rectangle mask fallback
     sam_mask_size: int = 256         # decoder low-res mask side
     dtype: torch.dtype = torch.float32
+    # split ingest: det/SAM frames travel at frame_* (the coordinate space
+    # of every box), DINO/pose frames at lo_* -- neither reads more than
+    # about 640 px of width (DINO a 224² crop, pose a 640 letterbox)
+    lo_height: Optional[int] = None
+    lo_width: Optional[int] = None
+    # SAM on the pad-free (h·ratio, sam_size) canvas instead of the padded
+    # square: 2304 encoder tokens for 16:9 frames instead of 4096.  Not bit
+    # for bit the square canvas (pad tokens join its attention), so off by
+    # default, as in the JAX package
+    sam_rect: bool = False
+    # the heuristic pose reads boxes, never pose-frame pixels: False drops
+    # the pose-only rows from the packed (33 -> 15) and lo arrays, with the
+    # same outputs
+    pose_pixels: bool = True
+    # encode the B·Td SAM frames in sequential sub-batches of this many
+    # (peak activation memory follows the chunk); 0 = one call
+    sam_encode_chunk: int = 0
 
     @property
     def det_idx(self):               # 2 FPS
@@ -67,11 +94,13 @@ class EngineSpec:
     def pose_idx(self):              # 5 FPS
         return np.arange(0, self.clip_frames, max(1, self.fps // 5))
 
-    # only frames some stage reads travel to the device (33 of 125)
+    # only frames some stage reads travel to the device
     @property
     def packed_idx(self):
-        return np.unique(np.concatenate([self.det_idx, self.dino_idx,
-                                         self.pose_idx]))
+        subsets = [self.det_idx, self.dino_idx]
+        if self.pose_pixels:
+            subsets.append(self.pose_idx)
+        return np.unique(np.concatenate(subsets))
 
     @property
     def n_packed(self) -> int:
@@ -84,6 +113,72 @@ class EngineSpec:
     @property
     def dino_pos(self):
         return np.searchsorted(self.packed_idx, self.dino_idx)
+
+    @property
+    def pose_pos(self):
+        if not self.pose_pixels:
+            raise AssertionError(
+                "pose frames are not packed (pose_pixels=False)")
+        return np.searchsorted(self.packed_idx, self.pose_idx)
+
+    # -- split ingest --------------------------------------------------------
+    @property
+    def split(self) -> bool:
+        return self.lo_height is not None
+
+    @property
+    def hi_idx(self):                # det ∪ SAM frames (SAM reuses det)
+        return self.det_idx
+
+    @property
+    def lo_idx(self):                # dino ∪ pose frames
+        if not self.pose_pixels:
+            return self.dino_idx
+        return np.unique(np.concatenate([self.dino_idx, self.pose_idx]))
+
+    @property
+    def dino_pos_lo(self):
+        return np.searchsorted(self.lo_idx, self.dino_idx)
+
+    @property
+    def pose_pos_lo(self):
+        if not self.pose_pixels:
+            raise AssertionError(
+                "pose frames are not in the lo array (pose_pixels=False)")
+        return np.searchsorted(self.lo_idx, self.pose_idx)
+
+    def split_shapes(self, batch: int) -> Dict[str, tuple]:
+        """The shapes of ``split_pack_host``'s arrays for ``batch`` clips."""
+        return {"hi": (batch, len(self.hi_idx), self.frame_height,
+                       self.frame_width, 3),
+                "lo": (batch, len(self.lo_idx), self.lo_height,
+                       self.lo_width, 3)}
+
+    def split_pack_host(self, frames, out=None) -> Dict[str, np.ndarray]:
+        """(B, T|P, H, W, 3) uint8 RGB at any source resolution ->
+        {"hi": (B, Th, frame_h, frame_w, 3), "lo": (B, Tl, lo_h, lo_w, 3)};
+        T is clip_frames (full clips) or n_packed (rows in packed_idx
+        order).  Rows already at the target size are gathered as they are,
+        the rest resized bilinearly on the CPU (within 1 of cv2's
+        INTER_LINEAR, which the JAX package uses).  With ``out`` (numpy
+        arrays of ``split_shapes``) the rows are written into it."""
+        if not self.split:
+            raise AssertionError("split_pack_host needs lo_height/lo_width")
+        frames = np.asarray(frames)
+        t = frames.shape[1]
+        if t == self.clip_frames:
+            hi_rows, lo_rows = self.hi_idx, self.lo_idx
+        elif t == self.n_packed:
+            hi_rows = np.searchsorted(self.packed_idx, self.hi_idx)
+            lo_rows = np.searchsorted(self.packed_idx, self.lo_idx)
+        else:
+            raise ValueError(f"expected {self.clip_frames} (full) or "
+                             f"{self.n_packed} (packed) frames, got {t}")
+        out = out or {}
+        return {"hi": _rows_at(frames, hi_rows, self.frame_height,
+                               self.frame_width, out.get("hi")),
+                "lo": _rows_at(frames, lo_rows, self.lo_height,
+                               self.lo_width, out.get("lo"))}
 
     def pack_frames(self, frames, out=None):
         """(B, T, H, W, 3) with T == clip_frames -> (B, P, H, W, 3); a
@@ -102,6 +197,28 @@ class EngineSpec:
             # second copy); the indices are in range
             np.take(frames, self.packed_idx, axis=1, out=out, mode="clip")
         return out
+
+
+def _rows_at(frames: np.ndarray, rows, h: int, w: int,
+             out: Optional[np.ndarray] = None) -> np.ndarray:
+    """Host (B, T, H, W, 3) uint8, rows ``rows`` of axis 1 at (h, w), into
+    ``out`` if given: gathered when the size already matches, else resized
+    bilinearly on half-pixel centres without antialiasing, in uint8 on the
+    CPU, as cv2.INTER_LINEAR (within 1)."""
+    b, _, fh, fw, c = frames.shape
+    shape = (b, len(rows), h, w, c)
+    if out is None:
+        out = np.empty(shape, np.uint8)
+    if (fh, fw) == (h, w):
+        # mode="clip": with mode="raise" numpy buffers ``out`` (a second
+        # copy); the rows are in range
+        return np.take(frames, rows, axis=1, out=out, mode="clip")
+    x = torch.from_numpy(np.ascontiguousarray(frames[:, rows]))
+    y = torch.nn.functional.interpolate(
+        x.view((-1,) + x.shape[2:]).permute(0, 3, 1, 2), size=(h, w),
+        mode="bilinear", align_corners=False, antialias=False)
+    np.copyto(out, y.permute(0, 2, 3, 1).numpy().reshape(shape))
+    return out
 
 
 def unpad_mask_logits(masks: torch.Tensor, mh: int, mw: int,
@@ -149,6 +266,10 @@ class LamenessEngine:
         self.device = resolve_device(device)
         self.precision: Dict[str, str] = {}
         self.yolo = self.dino = self.sam = self.tcn = self.gait = None
+        # the config's memory governor reaches the spec also when the
+        # caller installs the models (init_models=False)
+        if self.config.sam.encode_chunk and not self.spec.sam_encode_chunk:
+            self.spec.sam_encode_chunk = self.config.sam.encode_chunk
         if not init_models:
             return
         from ..weights import init_params
@@ -161,6 +282,24 @@ class LamenessEngine:
                 and self.config.compute.dtype == "bfloat16":
             from .precision import apply_engine_policy
             self.precision = apply_engine_policy(self)
+
+    def with_spec(self, spec: EngineSpec) -> "LamenessEngine":
+        """A second engine over the same modules and weights (nothing is
+        copied) with another frame geometry or mode.  The model input sizes
+        must match; the compute dtype and precision policy carry over."""
+        s = self.spec
+        if (spec.yolo_size, spec.pose_size, spec.dino_size,
+                spec.sam_size) != (s.yolo_size, s.pose_size, s.dino_size,
+                                   s.sam_size):
+            raise AssertionError(
+                "with_spec shares the modules: model input sizes must match")
+        eng = LamenessEngine(config=self.config,
+                             spec=dataclasses.replace(spec, dtype=s.dtype),
+                             device=self.device, init_models=False)
+        eng.yolo, eng.dino, eng.sam = self.yolo, self.dino, self.sam
+        eng.tcn, eng.gait = self.tcn, self.gait
+        eng.precision = self.precision
+        return eng
 
     def load_state_dicts(self, state_dicts: Mapping[str, Mapping]) -> None:
         """Install {sub-model name: state dict} (strict key match)."""
@@ -194,13 +333,29 @@ class LamenessEngine:
         ps = torch.where(has, ps, torch.full_like(ps, 0.5))
         return pb, ps, has
 
+    # -- stage frame accessors (one packed tensor, or the split dict) -------
     def _det_frames(self, frames):
+        """The det/SAM rows and their geometry (always frame_*)."""
         s = self.spec
+        if isinstance(frames, dict):
+            return frames["hi"], s.frame_height, s.frame_width
         return frames[:, s.det_pos], s.frame_height, s.frame_width
 
+    def _dino_frames(self, frames):
+        s = self.spec
+        if isinstance(frames, dict):
+            return frames["lo"][:, s.dino_pos_lo], s.lo_height, s.lo_width
+        return frames[:, s.dino_pos], s.frame_height, s.frame_width
+
+    def _pose_frames(self, frames):
+        s = self.spec
+        if isinstance(frames, dict):
+            return frames["lo"][:, s.pose_pos_lo], s.lo_height, s.lo_width
+        return frames[:, s.pose_pos], s.frame_height, s.frame_width
+
     def _detect_stage(self, frames):
-        """frames (B, P, H, W, 3) packed uint8 -> boxes and primaries in
-        frame coordinates."""
+        """frames (B, P, H, W, 3) packed uint8 (or the split dict) -> boxes
+        and primaries in frame coordinates."""
         s = self.spec
         det_frames, h, w = self._det_frames(frames)
         b, td = det_frames.shape[:2]
@@ -235,20 +390,31 @@ class LamenessEngine:
         primary = primary_bt.reshape(b * td, 4)
         if self.sam is not None:
             ratio = s.sam_size / max(h, w)
-            sam_in, _ = prep.pad_to_rect(flat, (s.sam_size, s.sam_size),
-                                         s.sam_size)
+            if s.sam_rect:
+                # the content rounded up to the patch grid (16 px)
+                ch = -(-int(round(h * ratio)) // 16) * 16
+                cw = -(-int(round(w * ratio)) // 16) * 16
+            else:
+                ch = cw = s.sam_size
+            sam_in, _ = prep.pad_to_rect(flat, (ch, cw), s.sam_size)
             sam_in = prep.normalize(sam_in).to(s.dtype)
             # content extent in low-res-mask pixels (mask = canvas / 4)
-            mh = int(round((s.sam_size // 4) * (h * ratio) / s.sam_size))
-            mw = int(round((s.sam_size // 4) * (w * ratio) / s.sam_size))
+            mh = int(round((ch // 4) * (h * ratio) / ch))
+            mw = int(round((cw // 4) * (w * ratio) / cw))
             # landscape frames bottom-pad the square canvas: the pad token
             # rows are image-independent (SamVisionEncoder content_rows).
             # LAMENESS_SAM_PADSPLIT=0 turns the split off, read at each
             # call as the JAX engine reads it at each trace
             crows = 0
-            if w > h and os.environ.get("LAMENESS_SAM_PADSPLIT") != "0":
+            if (not s.sam_rect and w > h
+                    and os.environ.get("LAMENESS_SAM_PADSPLIT") != "0"):
                 crows = -(-int(round(h * ratio)) // 16)
-            emb = self.sam.encode(sam_in, crows)
+            chunk, n_img = s.sam_encode_chunk, sam_in.shape[0]
+            if 0 < chunk < n_img:
+                emb = torch.cat([self.sam.encode(sam_in[i:i + chunk], crows)
+                                 for i in range(0, n_img, chunk)])
+            else:
+                emb = self.sam.encode(sam_in, crows)
             masks, iou_pred = self.sam.decode_boxes(emb, primary * ratio)
             masks = unpad_mask_logits(masks[:, 0], mh, mw, s.sam_mask_size)
             iou_pred = iou_pred[:, 0]
@@ -275,10 +441,10 @@ class LamenessEngine:
     # -- stage 3: embeddings -------------------------------------------------
     def _dino_stage(self, frames):
         s = self.spec
-        dino_frames = frames[:, s.dino_pos]
+        dino_frames, h, w = self._dino_frames(frames)
         b, tdn = dino_frames.shape[:2]
         dino_in = dino_mod.preprocess_frames(dino_frames.reshape(
-            b * tdn, s.frame_height, s.frame_width, 3)).to(s.dtype)
+            b * tdn, h, w, 3)).to(s.dtype)
         out = self.dino(dino_in)
         return {"embeddings": out["pooled"].reshape(b, tdn, -1)}
 
@@ -330,35 +496,96 @@ class LamenessEngine:
         }
 
     # -- public API ----------------------------------------------------------
-    def to_device(self, frames) -> torch.Tensor:
-        """Host (B, T|P, H, W, 3) uint8 RGB -> packed device tensor.  On the
-        card the packed frames are gathered straight into a pinned host
-        buffer (PyTorch's caching host allocator reuses it across calls),
-        whose copy to the device runs asynchronously on the current
-        stream."""
-        frames = np.asarray(frames)
+    @staticmethod
+    def default_transfer() -> str:
+        """'yuv420' when ``LAMENESS_YUV_INGEST=1``, else 'rgb' (the JAX
+        package's choice off the TPU), read at each call."""
+        return "yuv420" if os.environ.get("LAMENESS_YUV_INGEST") == "1" \
+            else "rgb"
+
+    def _put(self, nbytes: int, fill) -> torch.Tensor:
+        """A flat uint8 tensor of ``nbytes`` on the device, written on the
+        host by ``fill(numpy buffer)``.  On the card the buffer is pinned
+        (PyTorch's caching host allocator reuses it across calls) and its
+        copy to the device runs asynchronously on the current stream."""
         if self.device.type != "cuda":
-            return torch.from_numpy(np.ascontiguousarray(
-                self.spec.pack_frames(frames)))
-        host = torch.empty((frames.shape[0], self.spec.n_packed)
-                           + frames.shape[2:], dtype=torch.uint8,
-                           pin_memory=True)
-        self.spec.pack_frames(frames, out=host.numpy())
+            host = np.empty(nbytes, np.uint8)
+            fill(host)
+            return torch.from_numpy(host)
+        host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+        fill(host.numpy())
         return host.to(self.device, non_blocking=True)
 
-    def _check_packed(self, frames_dev: torch.Tensor) -> None:
-        if frames_dev.shape[1] != self.spec.n_packed:
+    def to_device(self, frames, transfer: Optional[str] = None):
+        """Host frames -> device RGB ready for ``run_staged``: a packed
+        (B, P, H, W, 3) tensor, or with split ingest the {"hi", "lo"} dict.
+
+        frames: (B, T|P, H, W, 3) uint8 RGB, or for split ingest the dict
+        of ``spec.split_pack_host``.  ``transfer`` ('rgb' or 'yuv420';
+        None: ``default_transfer()``) is what crosses to the device: the
+        RGB rows, gathered straight into the pinned buffer (the split dict
+        in one buffer and one copy), or the I420 planes of the whole batch
+        as one flat buffer that the device turns back into RGB."""
+        transfer = transfer or self.default_transfer()
+        if transfer not in ("rgb", "yuv420"):
+            raise ValueError(f"transfer must be 'rgb' or 'yuv420', got "
+                             f"{transfer!r}")
+        s = self.spec
+        if isinstance(frames, dict):
+            self._check_packed(frames)
+        if transfer == "yuv420":
+            if not s.split:
+                i420 = rgb_to_i420(s.pack_frames(np.asarray(frames)))
+            else:
+                tree = frames if isinstance(frames, dict) \
+                    else s.split_pack_host(frames)
+                i420 = {k: rgb_to_i420(v) for k, v in tree.items()}
+            flat, layout = pack_i420_flat(i420)
+            dev = self._put(flat.size, lambda buf: np.copyto(buf, flat))
+            return i420_flat_to_rgb_device(dev, layout)
+        if not s.split:
+            frames = np.asarray(frames)
+            layout = (("", (frames.shape[0], s.n_packed) + frames.shape[2:]),)
+
+            def fill(views):
+                s.pack_frames(frames, out=views)
+        else:
+            # hi and lo share one pinned buffer and one copy
+            batch = len(frames["hi"] if isinstance(frames, dict) else frames)
+            layout = tuple(sorted(s.split_shapes(batch).items()))
+
+            def fill(views):
+                if isinstance(frames, dict):
+                    for k, view in views.items():
+                        np.copyto(view, frames[k])
+                else:
+                    s.split_pack_host(frames, out=views)
+        nbytes = sum(int(np.prod(shape)) for _, shape in layout)
+        return flat_views(self._put(nbytes, lambda buf: fill(
+            flat_views(buf, layout))), layout)
+
+    def _check_packed(self, frames_dev) -> None:
+        s = self.spec
+        if isinstance(frames_dev, dict):
+            if (frames_dev["hi"].shape[1] != len(s.hi_idx)
+                    or frames_dev["lo"].shape[1] != len(s.lo_idx)):
+                raise ValueError(
+                    f"split frames need hi T={len(s.hi_idx)} / lo "
+                    f"T={len(s.lo_idx)}, got {frames_dev['hi'].shape[1]}/"
+                    f"{frames_dev['lo'].shape[1]}")
+            return
+        if frames_dev.shape[1] != s.n_packed:
             raise ValueError(
-                f"expected packed frames (P={self.spec.n_packed}), got "
+                f"expected packed frames (P={s.n_packed}), got "
                 f"T={frames_dev.shape[1]}; use spec.pack_frames() or "
                 f"process_clip_batch")
 
     @torch.no_grad()
-    def run_staged(self, frames_dev: torch.Tensor,
+    def run_staged(self, frames_dev,
                    generator: Optional[torch.Generator] = None
                    ) -> Dict[str, Any]:
-        """The four stages on packed device frames; outputs stay on the
-        device."""
+        """The four stages on packed device frames (or the split dict);
+        outputs stay on the device."""
         self._check_packed(frames_dev)
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
@@ -369,29 +596,88 @@ class LamenessEngine:
                                      out["primary_scores"], generator))
         return out
 
+    def pack_output(self, out: Dict[str, Any]):
+        """The output tree -> (one flat uint8 device tensor, meta), for one
+        copy to the host (``unpack_output``).  bool leaves travel as 0/1
+        bytes, bf16 leaves as f32 (numpy has no bf16), the rest as their
+        raw bytes."""
+        paths, layout, parts = [], [], []
+        for path, x in _flat_items(out):
+            if x.dtype == torch.bool:
+                x, dtype = x.to(torch.uint8), np.dtype(bool)
+            else:
+                if x.dtype == torch.bfloat16:
+                    x = x.float()
+                dtype = torch.empty(0, dtype=x.dtype).numpy().dtype
+            paths.append(path)
+            layout.append((tuple(x.shape), dtype))
+            parts.append(x.contiguous().view(-1).view(torch.uint8))
+        return torch.cat(parts), (paths, layout)
+
+    @staticmethod
+    def unpack_output(buf: np.ndarray, meta) -> Dict[str, Any]:
+        """The inverse of ``pack_output`` on the host: one uint8 buffer ->
+        the nested numpy output dict, shapes and dtypes restored."""
+        paths, layout = meta
+        buf = np.asarray(buf)
+        out: Dict[str, Any] = {}
+        off = 0
+        for path, (shape, dtype) in zip(paths, layout):
+            n = int(np.prod(shape, dtype=np.int64))
+            nbytes = n * dtype.itemsize
+            # a copy is aligned for its dtype whatever the offset
+            arr = buf[off:off + nbytes].copy().view(dtype).reshape(shape)
+            node = out
+            for key in path[:-1]:
+                node = node.setdefault(key, {})
+            node[path[-1]] = arr
+            off += nbytes
+        return out
+
+    def _fetch(self, flat: torch.Tensor) -> np.ndarray:
+        """One copy of a flat device buffer to the host (pinned memory)."""
+        if flat.device.type != "cuda":
+            return flat.numpy()
+        host = torch.empty(flat.shape, dtype=torch.uint8, pin_memory=True)
+        host.copy_(flat)
+        return host.numpy()
+
     def process_clip_batch(self, frames,
                            generator: Optional[torch.Generator] = None,
+                           transfer: Optional[str] = None,
                            readback: bool = True) -> Dict[str, Any]:
         """frames: (B, T, H, W, 3) uint8 RGB with T == clip_frames (packed
-        here) or n_packed, or an already packed device tensor.  Returns the
-        JAX engine's output dict as numpy (bf16 leaves read back as f32), or
-        with ``readback=False`` the device tensors."""
-        if isinstance(frames, torch.Tensor) and frames.device == self.device:
+        here) or n_packed, the split dict (host or device), or an already
+        packed device tensor; ``transfer`` as in ``to_device``.  Returns the
+        JAX engine's output dict as numpy (bf16 leaves read back as f32)
+        through one device-to-host copy, or with ``readback=False`` the
+        device tensors."""
+        leaves = frames.values() if isinstance(frames, dict) else [frames]
+        if all(isinstance(x, torch.Tensor) and x.device == self.device
+               for x in leaves):
             frames_dev = frames
         else:
-            frames_dev = self.to_device(frames)
+            frames_dev = self.to_device(frames, transfer)
         out = self.run_staged(frames_dev, generator)
         if not readback:
             return out
-        return _to_numpy(out)
+        flat, meta = self.pack_output(out)
+        return self.unpack_output(self._fetch(flat), meta)
 
     def warmup(self, batch: int = 1) -> Dict[str, float]:
         """Run each stage once on zero frames (kernel builds, library
         autotuning, allocator growth).  Returns seconds per stage."""
         s = self.spec
-        frames = torch.zeros((batch, s.n_packed, s.frame_height,
-                              s.frame_width, 3), dtype=torch.uint8,
-                             device=self.device)
+
+        def zeros(t, h, w):
+            return torch.zeros((batch, t, h, w, 3), dtype=torch.uint8,
+                               device=self.device)
+        if s.split:
+            frames = {"hi": zeros(len(s.hi_idx), s.frame_height,
+                                  s.frame_width),
+                      "lo": zeros(len(s.lo_idx), s.lo_height, s.lo_width)}
+        else:
+            frames = zeros(s.n_packed, s.frame_height, s.frame_width)
         boxes = torch.tensor([1.0, 1.0, 10.0, 10.0],
                              device=self.device).expand(
                                  batch, len(s.det_idx), 4).contiguous()
@@ -410,6 +696,15 @@ class LamenessEngine:
                     torch.cuda.synchronize(self.device)
                 timings[name] = round(time.perf_counter() - t0, 3)
         return timings
+
+
+def _flat_items(tree, prefix=()):
+    """(key path, leaf) of a nested dict, depth first in key order."""
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            yield from _flat_items(val, prefix + (key,))
+        else:
+            yield prefix + (key,), val
 
 
 def _to_numpy(tree):

@@ -116,9 +116,17 @@ def _matches_jax_engine(monkeypatch):
     monkeypatch.setattr(teng.sam, "encode", spy)
     frames = np.random.default_rng(0).integers(0, 256, (2, 15, 90, 160, 3),
                                                dtype=np.uint8)
-    want = dict(_leaves(jeng.process_clip_batch(frames)))
-    got = dict(_leaves(teng.process_clip_batch(
-        frames, generator=torch.Generator().manual_seed(0))))
+    want = jeng.process_clip_batch(frames)
+    got = teng.process_clip_batch(
+        frames, generator=torch.Generator().manual_seed(0))
+    _assert_gates(got, want)
+    return rows
+
+
+def _assert_gates(got, want):
+    """The port's output tree against the JAX engine's, held to the gates
+    of the module docstring (key by key; ``locomotion`` flattened)."""
+    want, got = dict(_leaves(want)), dict(_leaves(got))
     assert set(got) == set(want)
     for key, w in want.items():
         g = got[key]
@@ -132,8 +140,9 @@ def _matches_jax_engine(monkeypatch):
         else:
             np.testing.assert_allclose(g, w, atol=1e-4, rtol=0,
                                        err_msg=key)
-    assert want["det_valid"].any(), "no detection: the comparison is idle"
-    return rows
+    if "det_valid" in want:
+        assert want["det_valid"].any(), \
+            "no detection: the comparison is idle"
 
 
 def test_process_clip_batch_matches_jax_engine(monkeypatch):

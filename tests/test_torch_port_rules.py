@@ -1,6 +1,6 @@
 """Rules of the PyTorch/CUDA port (``lameness_tpu_torch``, ``chip_smoke.py``):
-no JAX and nothing of the JAX package, the card by default, and the
-PERF.md kernel table."""
+no JAX and nothing of the JAX package, no OpenCV (the machine with the card
+has none), the card by default, and the PERF.md kernel table."""
 import ast
 import re
 import subprocess
@@ -21,29 +21,40 @@ PORT_FILES = sorted((ROOT / "lameness_tpu_torch").rglob("*.py")) + [
 
 def test_import_leaves_jax_out():
     code = ("import sys, lameness_tpu_torch.pipeline.engine, "
-            "lameness_tpu_torch.weights; "
+            "lameness_tpu_torch.video.yuv, lameness_tpu_torch.weights; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'lameness_tpu')]; "
+            "('jax', 'jaxlib', 'flax', 'lameness_tpu', 'cv2')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
 
 
+def _imports(path):
+    """(line, top-level module) of every import in a file."""
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom):
+            yield node.lineno, (node.module or "").split(".")[0]
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
 def test_no_jax_imports(path):
-    tree = ast.parse(path.read_text())
-    for node in ast.walk(tree):
-        if isinstance(node, ast.Import):
-            names = [a.name for a in node.names]
-        elif isinstance(node, ast.ImportFrom):
-            names = [node.module or ""]
-        else:
-            continue
-        for name in names:
-            top = name.split(".")[0]
-            assert top not in ("jax", "jaxlib", "flax", "lameness_tpu"), \
-                f"{path.name}:{node.lineno} imports {name}"
+    for line, top in _imports(path):
+        assert top not in ("jax", "jaxlib", "flax", "lameness_tpu"), \
+            f"{path.name}:{line} imports {top}"
+
+
+@pytest.mark.parametrize(
+    "path", sorted((ROOT / "lameness_tpu_torch").rglob("*.py"))
+    + [ROOT / "chip_smoke.py"], ids=lambda p: p.name)
+def test_no_cv2_imports(path):
+    """The host-side converters of the port (I420, the split-ingest
+    resize) are its own: the machine with the card has no OpenCV."""
+    for line, top in _imports(path):
+        assert top != "cv2", f"{path.name}:{line} imports cv2"
 
 
 def test_engine_needs_cuda_unless_cpu(monkeypatch):
