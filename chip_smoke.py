@@ -40,6 +40,18 @@ Phases, each failing loudly (no exception is swallowed):
      its gate against the default run; the tiny engine, card against CPU,
      under the same modes; K3 at the rect canvas's shape beside its bound
      and an SDPA call.
+  5. checkpoints: (a) the phase-3 engine's ``process_clip_batch`` of its
+     own ``to_device`` output (packed, and the split dict) bit for bit the
+     host path's, with no second transfer; (b) a default engine with a
+     seeded trained pose model and its YOLO written as ultralytics ``.pt``
+     files and installed by ``restore_engine``: hits and misses, detect,
+     SAM and DINO bit for bit the default run's, its record; the tiny
+     engine with trained pose, card against CPU, full and split ingest;
+     (c) the engine at SAM ViT-H (16 heads of 80) with seeded weights, by
+     default (K2, K3) and under v1/v1 (K7, K4), each against the other,
+     its record, K2, K3, K4 and K7 at ViT-H's shapes against their plain
+     versions beside their bounds and SDPA, and the tiny engine with a SAM
+     at head dim 80, card against CPU.
 The line before the last is the kernel record (JSON); the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 without a CUDA device or outside the repository.
@@ -135,6 +147,12 @@ HOPPER_SOURCES = ("attention", "sam_global_attention",
                   "sam_global_attention_v1", "sam_global_attention_v2",
                   "sam_global_attention_v3")
 
+# the seeded trained pose model: kernels times POSE_GAIN, the class kernel of
+# the level that carries its detections times POSE_SPREAD
+# (seeded_pose_tree, calibrate_pose_tree)
+POSE_GAIN = 1.55
+POSE_SPREAD = 100.0
+
 # H100 SXM dense peaks (NVIDIA data sheet) for the bound of each kernel
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS_S = {"bfloat16": 989e12, "float32": 67e12}
@@ -147,6 +165,13 @@ ENGINE_KEYS = {
     "mask_area_frac", "embeddings", "keypoints", "pose_boxes", "locomotion",
     "seq_features", "seq_mask", "tcn_probability", "tcn_uncertainty",
     "gait_probability", "gait_uncertainty", "gait_saliency"}
+# and with trained pose installed (lameness_tpu/pipeline/engine.py:822-828)
+POSE_KEYS = {"keypoints_model", "pose_trained_mask"}
+# the outputs trained pose leaves as they are: detect, SAM, DINO, pose boxes
+UPSTREAM_KEYS = ("det_boxes", "det_scores", "det_classes", "det_valid",
+                 "primary_boxes", "primary_scores", "primary_valid", "masks",
+                 "mask_iou_pred", "mask_area_frac", "embeddings",
+                 "pose_boxes")
 
 
 def log(*args) -> None:
@@ -299,12 +324,13 @@ KERNEL_TABLE = (
 )
 
 
-def kernel_inputs(layout: str, dtype, batch: int, gen):
+def kernel_inputs(layout: str, dtype, batch: int, gen, heads: int = 12,
+                  hd: int = 64):
     """Inputs at the shapes the full-width engine gives each kernel for a
     batch of ``batch`` clips (EngineSpec() defaults): B·5 DINO frames,
-    B·11 SAM frames of 25 windows (14x14, 12 heads of 64) and of one 64x64
-    global grid.  q, k, v are views of a fused qkv tensor where the engine
-    reads them so."""
+    B·11 SAM frames of 25 windows (14x14, ``heads`` heads of ``hd``: ViT-B
+    12 of 64, ViT-H 16 of 80) and of one 64x64 global grid.  q, k, v are
+    views of a fused qkv tensor where the engine reads them so."""
     import torch
     from lameness_tpu_torch.ops import sam_attention as sa
     dev = torch.device("cuda")
@@ -316,7 +342,7 @@ def kernel_inputs(layout: str, dtype, batch: int, gen):
         n_img, s, h, d = batch * 5, 257, 12, 64
         return tuple(rnd(n_img, s, h, d).transpose(1, 2) for _ in range(3))
     if layout in ("window_hl", "window_hm"):
-        bw, n, h, d, win = batch * 11 * 25, 196, 12, 64, 14
+        bw, n, h, d, win = batch * 11 * 25, 196, heads, hd, 14
         q4, k4, v4 = rnd(bw, n, 3, h, d).unbind(2)
         tables = (rnd(2 * win - 1, d, std=0.1), rnd(2 * win - 1, d, std=0.1))
         if layout == "window_hl":
@@ -324,12 +350,12 @@ def kernel_inputs(layout: str, dtype, batch: int, gen):
         q, k, v = (t.transpose(1, 2) for t in (q4, k4, v4))
         rh, rw = sa.project_rel_tables(q.reshape(bw * h, n, d), *tables, win)
         return (q, k, v) + tuple(t.reshape(bw, h, n, win) for t in (rh, rw))
-    g, d = 64, 64
+    g, d = 64, hd
     tables = (rnd(2 * g - 1, d, std=0.1), rnd(2 * g - 1, d, std=0.1))
     if layout == "global_hl":
-        q4, k4, v4 = rnd(batch * 11, g * g, 3, 12, d).unbind(2)
+        q4, k4, v4 = rnd(batch * 11, g * g, 3, heads, d).unbind(2)
         return (q4, k4, v4) + sa.project_rel_tables_hl(q4, *tables, g)
-    q, k, v = (rnd(batch * 11 * 12, g * g, d) for _ in range(3))
+    q, k, v = (rnd(batch * 11 * heads, g * g, d) for _ in range(3))
     return (q, k, v) + sa.project_rel_tables(q, *tables, g)
 
 
@@ -569,22 +595,33 @@ def same_leaves(out, ref, skip=()) -> bool:
         for k in a if k not in skip)
 
 
-def check_small_engine(spec_kw=None, devices=("cpu", "cuda")):
+def check_small_engine(spec_kw=None, devices=("cpu", "cuda"), pose=False,
+                       sam=None):
     """The tiny engine (make_test_engine geometry + a 128² SAM) on the card
     in f32 against its plain path on the CPU, same weights and frames; with
-    ``spec_kw``, through ``with_spec`` with those fields changed.  The CPU
-    path is what tests/test_torch_engine.py (and tests/test_torch_ingest.py,
-    tests/test_torch_sam_modes.py for the modes) holds against the JAX
-    engine; the gates are that test's."""
+    ``spec_kw``, through ``with_spec`` with those fields changed; with
+    ``pose``, trained pose installed (``calibrate_pose_tree`` on the CPU
+    engine, the same tree on the card; the frames are seeded 5x5-pixel
+    blocks, which the pose letterbox does not average to grey); with
+    ``sam`` (Sam keyword arguments), that SAM instead of the 128² one.  The
+    CPU path is what tests/test_torch_engine.py (and
+    tests/test_torch_ingest.py, tests/test_torch_sam_modes.py,
+    tests/test_torch_pose.py, tests/test_torch_weights.py) holds against the
+    JAX engine; the gates are those tests'."""
     import torch
+    from lameness_tpu_torch.models.sam import Sam
     from lameness_tpu_torch.pipeline.engine import make_test_engine
     from lameness_tpu_torch.models.gait_transformer import GaitTransformer
     from lameness_tpu_torch.models.tcn import TCN
     from lameness_tpu_torch.weights import seeded_state_dict
     rng = np.random.default_rng(SEED)
-    frames = rng.integers(0, 256, (2, 15, 90, 160, 3), dtype=np.uint8)
+    if pose:
+        frames = rng.integers(0, 256, (2, 15, 18, 32, 3), dtype=np.uint8
+                              ).repeat(5, axis=2).repeat(5, axis=3)
+    else:
+        frames = rng.integers(0, 256, (2, 15, 90, 160, 3), dtype=np.uint8)
     from lameness_tpu_torch.ops._cuda import KERNELS
-    outs = {}
+    outs, tree = {}, None
     for dev in devices:
         for k in KERNELS.values():
             k.launches = 0
@@ -595,8 +632,19 @@ def check_small_engine(spec_kw=None, devices=("cpu", "cuda")):
         eng.gait = GaitTransformer(input_dim=44, dropout=0.0, device=dev)
         eng.load_state_dicts({"tcn": seeded_state_dict(eng.tcn, gen),
                               "gait": seeded_state_dict(eng.gait, gen)})
+        if sam:
+            eng.sam = Sam(img_size=128, device=dev, **sam)
+            eng.load_state_dicts({"sam": seeded_state_dict(eng.sam, gen)})
         if spec_kw:
             eng = eng.with_spec(dataclasses.replace(eng.spec, **spec_kw))
+        if pose and tree is None:
+            tree, level, margin = calibrate_pose_tree(
+                eng, seeded_pose_tree(torch.Generator().manual_seed(SEED)),
+                eng.to_device(frames))
+            log(f"small engine pose: level {level} carries the detections, "
+                f"smallest margin of a frame's top logit {margin:.3g}")
+        elif pose:
+            eng.install_pose_params(tree)
         outs[dev] = dict(leaves(eng.process_clip_batch(frames)))
     log("small engine launches: " + json.dumps(
         {name: k.launches for name, k in KERNELS.items() if k.launches}))
@@ -623,16 +671,90 @@ def check_small_engine(spec_kw=None, devices=("cpu", "cuda")):
         f"{worst['masks']:.5f}; int/bool mismatch share "
         f"{max(v for k, v in worst.items() if k not in floats and k != 'masks'):.3g}"
         f"; float max_abs_err {floats[top]:.3e} ({top})")
+    if pose:
+        hit = cpu["pose_trained_mask"]
+        mixed = bool(hit.any() and not hit.all())
+        ok &= mixed
+        log(f"small engine trained pose: hits {int(hit.sum())} of "
+            f"{hit.size} pose frames (hits and misses: {mixed})")
     log(f"small engine agreement: {'ok' if ok else 'FAIL'}")
     return ok
 
 
-def check_outputs(out, s, batch: int) -> bool:
-    """The JAX engine's key set, finite values, the expected shapes."""
-    ok = set(out) == ENGINE_KEYS
+def seeded_pose_tree(generator, gain: float = POSE_GAIN):
+    """Seeded weights of the trained pose model (YOLOv8-n, one class, 20
+    keypoints) as a flax-layout tree (numpy leaves): ``seeded_state_dict``
+    with its kernels times ``gain``.  At the lecun draw alone the pose head
+    hardly reads the frame (its keypoints move by about 1e-4 px between
+    frames), and the locomotion ratios of such strides turn float rounding
+    into percent."""
+    from lameness_tpu_torch.models import pose as pose_mod
+    from lameness_tpu_torch.models.yolo import YoloV8
+    from lameness_tpu_torch.weights import (conv_tree_from_state_dict,
+                                            seeded_state_dict)
+    model = YoloV8("n", num_classes=1, num_keypoints=pose_mod.NUM_KEYPOINTS,
+                   device="cpu")
+    return conv_tree_from_state_dict(seeded_state_dict(model, generator,
+                                                       gain))
+
+
+def calibrate_pose_tree(eng, tree, frames_dev, spread: float = POSE_SPREAD):
+    """The pose ``tree`` with its class head set so that trained pose hits
+    on about half of the pose frames of ``frames_dev`` and misses on the
+    rest; installs it in ``eng`` and returns (tree, level, margin).
+
+    Seeded weights detect nothing in particular, so a hit is made, not
+    found: the one level whose boxes overlap the primaries (most hits with
+    every anchor of it passing the threshold, the others suppressed) keeps
+    its class kernel times ``spread`` (the frames' scores then differ by
+    O(1) logits), and its class bias is minus the median over frames of
+    its largest logit.  ``margin`` is the smallest distance of a frame's
+    largest logit from the threshold."""
+    import copy
+    import torch
+    from lameness_tpu_torch.ops import preprocess as prep
+    s = eng.spec
+    with torch.no_grad():
+        det = eng._detect_stage(frames_dev)
+        near = np.abs(s.pose_idx[:, None] - s.det_idx[None, :]).argmin(1)
+        pose_boxes = det["primary_boxes"][:, torch.as_tensor(
+            near, device=eng.device)]
+
+        def variant(level, bias, kernel_scale):
+            t = copy.deepcopy(tree)
+            for i in range(3):
+                node = t["params"][f"detect{i}"]["cls2"]
+                node["bias"] = np.full_like(node["bias"], bias if i == level
+                                            else -30.0)
+                if i == level:
+                    node["kernel"] = node["kernel"] * kernel_scale
+            return t
+        hits = []
+        for level in range(3):
+            eng.install_pose_params(variant(level, 30.0, 1.0))
+            hits.append(float(eng._trained_pose(frames_dev, pose_boxes)[2]
+                              .float().mean()))
+        level = int(np.argmax(hits))
+        eng.install_pose_params(variant(level, 0.0, spread))
+        frames, h, w = eng._pose_frames(frames_dev)
+        canvases, _, _ = prep.letterbox(frames.reshape((-1, h, w, 3)),
+                                        s.pose_size)
+        logits = eng.pose_model(canvases.to(s.dtype))["levels"][level]["cls"]
+        top = logits.flatten(1).amax(1).float().cpu().numpy()
+    mid = float(np.median(top))
+    tree = variant(level, -mid, spread)
+    eng.install_pose_params(tree)
+    return tree, level, float(np.abs(top - mid).min())
+
+
+def check_outputs(out, s, batch: int, pose: bool = False) -> bool:
+    """The JAX engine's key set (with trained pose, its two leaves more),
+    finite values, the expected shapes."""
+    keys = ENGINE_KEYS | (POSE_KEYS if pose else set())
+    ok = set(out) == keys
     if not ok:
-        log(f"key mismatch: extra {sorted(set(out) - ENGINE_KEYS)} missing "
-            f"{sorted(ENGINE_KEYS - set(out))}")
+        log(f"key mismatch: extra {sorted(set(out) - keys)} missing "
+            f"{sorted(keys - set(out))}")
     flat = dict(leaves(out))
     for key, arr in flat.items():
         if arr.dtype.kind == "f" and not np.isfinite(arr).all():
@@ -648,6 +770,9 @@ def check_outputs(out, s, batch: int) -> bool:
               "seq_features": (batch, 125, 44),
               "tcn_probability": (batch,), "gait_saliency": (batch, 125),
               "locomotion.lameness_score": (batch,)}
+    if pose:
+        shapes.update({"keypoints_model": (batch, tp, 20, 3),
+                       "pose_trained_mask": (batch, tp)})
     for key, shape in shapes.items():
         if key not in flat or flat[key].shape != shape:
             log(f"shape {key}: {flat.get(key, np.empty(0)).shape} != {shape}")
@@ -681,7 +806,7 @@ def time_stages(eng, frames, reps: int):
                 dev, out["primary_boxes"])))
             out.update(timed("dino", lambda: eng._dino_stage(dev)))
             out.update(timed("heads", lambda: eng._heads_stage(
-                out["primary_boxes"], out["primary_scores"], gen)))
+                out["primary_boxes"], out["primary_scores"], gen, dev)))
 
             def readback():
                 flat, meta = eng.pack_output(out)
@@ -793,7 +918,6 @@ def run_engine(batch: int = BATCH):
     rng = np.random.default_rng(SEED)
     frames = rng.integers(0, 256, (batch, s.clip_frames, s.frame_height,
                                    s.frame_width, 3), dtype=np.uint8)
-    record = {kid: name for kid, name, *_ in KERNEL_TABLE}
     ok, by_selection, ref = True, {}, None
     for sel, env, expected in SELECTIONS:
         with switches(env):
@@ -817,10 +941,7 @@ def run_engine(batch: int = BATCH):
                 log("stage ms (median of " + str(REPEATS) + "): "
                     + json.dumps({k: round(v, 3) for k, v in stages.items()}))
             profile_batch(eng, frames, top=12 if ref is None else 8)
-        want = {record[kid]: expected.get(kid, 0) for kid in record}
-        if launches != want:
-            log(f"launches {launches} != expected {want}")
-            ok = False
+        ok &= expect_launches(launches, expected)
         ok &= check_outputs(out, s, batch)
         by_selection[sel] = launches
         if ref is None:
@@ -935,7 +1056,6 @@ def run_modes(eng, frames, ref_out, ref_emb, ref_peak,
     (with_spec), weights and frames."""
     import torch
     from lameness_tpu_torch.ops._cuda import KERNELS
-    record = {kid: name for kid, name, *_ in KERNEL_TABLE}
     ok = True
     for name, spec_kw, _, env, expected in MODES:
         with switches(env):
@@ -966,10 +1086,7 @@ def run_modes(eng, frames, ref_out, ref_emb, ref_peak,
                 "stage_ms": {k: round(v, 3) for k, v in stages.items()},
                 "ingest_parts_ms": ingest_parts(m, frames),
                 "device_busy_ms": busy, "peak_gb": round(peak_gb, 3)}))
-            want = {record[kid]: expected.get(kid, 0) for kid in record}
-            good = launches == want
-            if not good:
-                log(f"launches {launches} != expected {want}")
+            good = expect_launches(launches, expected)
             good &= check_outputs(out, m.spec, batch)
             good &= mode_gate(name, m, frames, out, emb, peak_gb,
                               (ref_out, ref_emb, ref_peak))
@@ -1024,6 +1141,221 @@ def rect_k3(batch: int) -> bool:
     return ok
 
 
+# ---------------------------------------------------------------------------
+# phase 5
+# ---------------------------------------------------------------------------
+# ViT-H's launches in one process_clip_batch of B = 2: 28 windowed layers,
+# the 7 before the first global one (layer 7) split into content and
+# shared pad windows (35); 4 global layers; 12 DINO layers
+VIT_H_SELECTIONS = (
+    ("default", {}, {"K1": 12, "K2": 35, "K3": 4}),
+    ("WIN=v1 GLB=v1", {"LAMENESS_WIN_KERNEL": "v1",
+                       "LAMENESS_GLB_KERNEL": "v1"},
+     {"K1": 12, "K7": 35, "K4": 4}),
+)
+# the tiny SAM at ViT-H's head dim (tests/test_sam_variants.py:202)
+HD80_SAM = dict(encoder_dim=160, encoder_depth=3, encoder_heads=2,
+                global_attn_indexes=(1,))
+
+
+def engine_record(name, eng, frames, launches, peak_gb,
+                  batch: int = BATCH) -> None:
+    """e2e (REPEATS runs), stage ms, device busy of one profiled batch and
+    peak memory of one engine, as a ``checkpoint record`` line."""
+    import torch
+    e2e = []
+    for _ in range(REPEATS):
+        t0 = time.perf_counter()
+        eng.process_clip_batch(frames)
+        torch.cuda.synchronize()
+        e2e.append(time.perf_counter() - t0)
+    stages = time_stages(eng, frames, REPEATS)
+    busy = profile_batch(eng, frames, top=8)
+    log("checkpoint record " + json.dumps({
+        "engine": name, "launches": {k: v for k, v in launches.items() if v},
+        "e2e_s": [round(t, 4) for t in e2e],
+        "clips_s": batch / float(np.median(e2e)),
+        "stage_ms": {k: round(v, 3) for k, v in stages.items()},
+        "device_busy_ms": busy, "peak_gb": round(peak_gb, 3)}))
+
+
+def expect_launches(launches, expected) -> bool:
+    record = {kid: name for kid, name, *_ in KERNEL_TABLE}
+    want = {record[kid]: expected.get(kid, 0) for kid in record}
+    if launches != want:
+        log(f"launches {launches} != expected {want}")
+    return launches == want
+
+
+def pass_through(eng, frames) -> bool:
+    """5a: ``process_clip_batch`` of the engine's own ``to_device`` output
+    (the packed tensor, and the split dict through ``with_spec``) equals
+    the host path's bit for bit, with no second transfer."""
+    ok = True
+    split = eng.with_spec(dataclasses.replace(eng.spec, lo_height=360,
+                                              lo_width=640))
+    for name, m in (("packed", eng), ("split dict", split)):
+        dev = m.to_device(frames)
+        calls = []
+        to_device = m.to_device
+        m.to_device = lambda *a, **k: calls.append(a) or to_device(*a, **k)
+        try:
+            got = m.process_clip_batch(dev)
+        finally:
+            del m.to_device
+        want = m.process_clip_batch(frames)
+        leaves_of = dev.values() if isinstance(dev, dict) else [dev]
+        same = same_leaves(got, want) and not calls
+        ok &= same
+        log(f"  pass-through, {name} on {[str(t.device) for t in leaves_of]}"
+            f" (engine device {m.device}): transfers inside the call "
+            f"{len(calls)}; every output bit for bit the host path's {same}"
+            f"  {'ok' if same else 'FAIL'}")
+    return ok
+
+
+def trained_pose(ref_out, frames, batch: int = BATCH) -> bool:
+    """5b: the default engine with trained pose, installed from ``.pt``
+    files (the seeded pose model and the phase-3 engine's YOLO, in the
+    ultralytics layout) through ``restore_engine``."""
+    import tempfile
+    from pathlib import Path
+    import torch
+    from lameness_tpu_torch.core.config import Config
+    from lameness_tpu_torch.models.yolo import export_ultralytics_state_dict
+    from lameness_tpu_torch.pipeline.checkpoint import restore_engine
+    from lameness_tpu_torch.pipeline.engine import EngineSpec, LamenessEngine
+    from lameness_tpu_torch.weights import conv_tree_from_state_dict
+    eng = LamenessEngine(Config(), EngineSpec(),
+                         generator=torch.Generator().manual_seed(SEED))
+    tree, level, margin = calibrate_pose_tree(
+        eng, seeded_pose_tree(torch.Generator().manual_seed(SEED + 1)),
+        eng.to_device(frames))
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, src, pose in (
+                ("yolo", conv_tree_from_state_dict(eng.yolo.state_dict()),
+                 False), ("pose", tree, True)):
+            path = Path(tmp) / name / f"{name}.pt"
+            path.parent.mkdir()
+            torch.save({k: torch.as_tensor(v) for k, v in
+                        export_ultralytics_state_dict(src, pose).items()},
+                       path)
+        loaded = restore_engine(eng, Path(tmp))
+    ok = loaded.get("yolo") is True and loaded.get("pose") is True
+    log(f"  restore_engine: {json.dumps(loaded)}; pose level {level}, "
+        f"smallest margin of a frame's top logit {margin:.3g}; precision "
+        f"{json.dumps(eng.precision)}  {'ok' if ok else 'FAIL'}")
+    eng.warmup(batch=batch)
+    torch.cuda.reset_peak_memory_stats()
+    launches, out, _ = counted_run(eng, frames)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ok &= expect_launches(launches, BASE_LAUNCHES)
+    ok &= check_outputs(out, eng.spec, batch, pose=True)
+    hit = out["pose_trained_mask"]
+    mixed = bool(hit.any() and not hit.all())
+    same = same_leaves({k: out[k] for k in UPSTREAM_KEYS},
+                       {k: ref_out[k] for k in UPSTREAM_KEYS})
+    ok &= mixed and same
+    log(f"  trained pose: hits {int(hit.sum())} of {hit.size} pose frames "
+        f"(hits and misses: {mixed}); keypoints_model zero on misses "
+        f"{bool((out['keypoints_model'][~hit] == 0).all())}; detect, SAM "
+        f"and DINO outputs bit for bit the default run's (the YOLO file is "
+        f"its weights) {same}  {'ok' if ok else 'FAIL'}")
+    engine_record("trained pose", eng, frames, launches, peak_gb)
+    return ok
+
+
+def hd80_kernels(launches, batch: int = BATCH) -> bool:
+    """K2, K3, K4 and K7 at ViT-H's shapes (16 heads of 80) in bf16: each
+    against its plain version on one image's slice (the batch's plain K3
+    would hold about 24 GB of f32 scores), its device time (the profiler's,
+    and by CUDA events around back-to-back calls) beside its bound and one
+    SDPA call; one ``kernel shape record`` line each."""
+    import torch
+    from lameness_tpu_torch.ops import sam_attention as sa
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    entries = {kid: (name, entry, layout) for kid, name, entry, layout, *_
+               in KERNEL_TABLE}
+    ok = True
+    for kid in ("K2", "K3", "K4", "K7"):
+        name, entry, layout = entries[kid]
+        fn = getattr(sa, entry)
+        args = kernel_inputs(layout, torch.bfloat16, batch, gen, heads=16,
+                             hd=80)
+        one = 25 if layout.startswith("window") else 16    # one image
+        out = fn(*args)
+        ref = plain_version(kid, tuple(a[:one] for a in args))()
+        torch.cuda.synchronize()
+        err, good = agree(f"{kid} hd 80", "bfloat16", out[:one], ref)
+        ok &= good
+        reps = 5 if layout.startswith("global") else 20
+        ms = device_ms(lambda: fn(*args), reps, only="lameness::")
+        call = cuda_ms(lambda: fn(*args), reps)
+        library = library_call(layout, args)
+        lib = device_ms(library, 3)
+        lib_call = cuda_ms(library, 3)
+        del library
+        flops, nbytes = kernel_work(layout, args)
+        t_bytes = nbytes / PEAK_BYTES_S * 1e3
+        t_ops = flops / PEAK_FLOPS_S["bfloat16"] * 1e3
+        bound = max(t_bytes, t_ops)
+        log("kernel shape record " + json.dumps({
+            "id": kid, "name": name, "shapes": [tuple(a.shape) for a in args],
+            "ms": ms, "call_ms": call, "launches": launches.get(name, 0),
+            "bound_ms": bound,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_share": bound / ms, "library_ms": lib,
+            "library_cuda_ms": lib_call, "max_abs_err": err,
+            "flops": flops, "bytes": nbytes}))
+        del args, out, ref
+        torch.cuda.empty_cache()
+    return ok
+
+
+def vit_h(frames, batch: int = BATCH) -> bool:
+    """5c: the engine at SAM ViT-H (32 layers, 16 heads of 80) with seeded
+    weights, by default and under WIN=v1 GLB=v1, and its kernels at hd 80."""
+    import torch
+    from lameness_tpu_torch.core.config import Config, SamConfig
+    from lameness_tpu_torch.pipeline.engine import EngineSpec, LamenessEngine
+    t0 = time.perf_counter()
+    eng = LamenessEngine(Config(sam=SamConfig(variant="vit_h")),
+                         EngineSpec(),
+                         generator=torch.Generator().manual_seed(SEED))
+    torch.cuda.synchronize()
+    heads = eng.sam.vision_encoder.layer0.attn.heads
+    log(f"  ViT-H engine init {time.perf_counter() - t0:.2f} s: "
+        f"{sum(p.numel() for p in eng.sam.parameters()) / 1e6:.1f} M SAM "
+        f"parameters, {heads} heads of {eng.sam.encoder_dim // heads}")
+    with switches({}):
+        eng.warmup(batch=batch)
+    ok, ref, counts = True, None, {}
+    for sel, env, expected in VIT_H_SELECTIONS:
+        with switches(env):
+            torch.cuda.reset_peak_memory_stats()
+            launches, out, emb = counted_run(eng, frames)
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            log(f"  ViT-H, {sel}: launches {json.dumps(launches)}")
+            ok &= expect_launches(launches, expected)
+            ok &= check_outputs(out, eng.spec, batch)
+            counts.update({k: v for k, v in launches.items() if v})
+            if ref is None:
+                ref = out, emb
+                engine_record("vit_h", eng, frames, launches, peak_gb)
+                continue
+            agreement = float((out["masks"] == ref[0]["masks"]).mean())
+            rel = rel_l2(emb, ref[1])
+            good = agreement >= 0.995 and rel <= EMB_RTOL
+            ok &= good
+            log(f"  ViT-H {sel} vs default: mask agreement {agreement:.5f} "
+                f"(gate >= 0.995); SAM embeddings relative L2 error "
+                f"{rel:.3e} (gate <= {EMB_RTOL:g}); every output bit for "
+                f"bit {same_leaves(out, ref[0])}  {'ok' if good else 'FAIL'}")
+    del eng, ref, out, emb
+    torch.cuda.empty_cache()
+    return ok & hd80_kernels(counts, batch)
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -1054,11 +1386,24 @@ def main() -> int:
     launches, ok_e, (eng, frames, *ref) = run_engine()
     log("== phase 4: serving modes")
     ok_m = run_modes(eng, frames, *ref)
-    del eng
     for name, _, small_kw, env, _ in MODES:
         with switches(env):
             log(f"small engine, {name}:")
             ok_m &= check_small_engine(small_kw)
+    log("== phase 5: checkpoints")
+    with switches({}):
+        ok_c = pass_through(eng, frames)
+        del eng
+        torch.cuda.empty_cache()
+        ok_c &= trained_pose(ref[0], frames)
+        for name, kw in (("full", None),
+                         ("split", {"lo_height": 45, "lo_width": 80})):
+            log(f"small engine, trained pose, {name} ingest:")
+            ok_c &= check_small_engine(kw, pose=True)
+        torch.cuda.empty_cache()
+        ok_c &= vit_h(frames)
+        log("small engine, SAM at head dim 80:")
+        ok_c &= check_small_engine(sam=HD80_SAM)
     for kid, rec in records.items():
         # each kernel's count on its own path (K1 runs on every one)
         rec["launches"] = max(counts[rec["name"]]
@@ -1069,7 +1414,7 @@ def main() -> int:
             "bound_share")
     kern = {"kernels": [{k: rec[k] for k in keys}
                         for rec in records.values()]}
-    if not (ok_build and ok_k and ok_small and ok_e and ok_m):
+    if not (ok_build and ok_k and ok_small and ok_e and ok_m and ok_c):
         log("chip_smoke: FAILED")
         return 1
     log(smi)

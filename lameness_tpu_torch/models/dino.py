@@ -5,11 +5,15 @@ the 37x37 pretrain position grid resized bicubically to the input grid,
 pre-norm blocks with layer scale, LayerNorm eps 1e-6, mean-pooled output.
 Attention runs through ``ops.attention.flash_attention`` (kernel K1 on the
 card).  Inputs are channels-last (B, H, W, 3), normalised.
+``convert_hf_state_dict`` turns an HF ``Dinov2Model`` state dict into the
+JAX package's flax tree (numpy leaves; ``weights.from_jax_params`` does the
+rest).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -110,6 +114,52 @@ class DinoV2(nn.Module):
             x = getattr(self, f"block{i}")(x)
         x = self.norm(x)
         return {"last_hidden_state": x, "pooled": x.mean(dim=1)}
+
+
+def _lin(sd, prefix):
+    return {"kernel": np.asarray(sd[prefix + ".weight"]).T,
+            "bias": np.asarray(sd[prefix + ".bias"])}
+
+
+def _ln(sd, prefix):
+    return {"scale": np.asarray(sd[prefix + ".weight"]),
+            "bias": np.asarray(sd[prefix + ".bias"])}
+
+
+def convert_hf_state_dict(sd: Dict[str, Any], num_layers: int = 12) -> Dict:
+    """An HF ``Dinov2Model.state_dict()`` (the 37x37+1 position grid) ->
+    {"params": flax tree} with numpy leaves, as the JAX converter gives."""
+    sd = {k: v.detach().cpu().numpy() if hasattr(v, "detach") else v
+          for k, v in sd.items()}
+    p: Dict[str, Any] = {}
+    p["patch_embed"] = {
+        # torch conv OIHW -> flax HWIO
+        "kernel": np.transpose(
+            sd["embeddings.patch_embeddings.projection.weight"], (2, 3, 1, 0)),
+        "bias": sd["embeddings.patch_embeddings.projection.bias"],
+    }
+    p["cls_token"] = sd["embeddings.cls_token"]
+    p["pos_embed"] = sd["embeddings.position_embeddings"]
+    for i in range(num_layers):
+        t = f"encoder.layer.{i}"
+        p[f"block{i}"] = {
+            "norm1": _ln(sd, f"{t}.norm1"),
+            "norm2": _ln(sd, f"{t}.norm2"),
+            "ls1": sd[f"{t}.layer_scale1.lambda1"],
+            "ls2": sd[f"{t}.layer_scale2.lambda1"],
+            "attn": {
+                "query": _lin(sd, f"{t}.attention.attention.query"),
+                "key": _lin(sd, f"{t}.attention.attention.key"),
+                "value": _lin(sd, f"{t}.attention.attention.value"),
+                "out": _lin(sd, f"{t}.attention.output.dense"),
+            },
+            "mlp": {
+                "fc1": _lin(sd, f"{t}.mlp.fc1"),
+                "fc2": _lin(sd, f"{t}.mlp.fc2"),
+            },
+        }
+    p["norm"] = _ln(sd, "layernorm")
+    return {"params": p}
 
 
 def preprocess_frames(frames: torch.Tensor) -> torch.Tensor:

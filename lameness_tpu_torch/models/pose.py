@@ -1,10 +1,12 @@
-"""Heuristic cow pose + locomotion features, device path (port of the
-device functions of ``lameness_tpu/models/pose.py``).
+"""Cow pose + locomotion features, device path (port of the device
+functions of ``lameness_tpu/models/pose.py``).
 
 ``heuristic_keypoints_device`` is the reference's anatomical-proportion
-fallback (tleap:199-265) over boxes; ``locomotion_features_device`` the
-masked, static-shape locomotion features (tleap:338-436).  The tables are
-copies of the JAX module's (this package imports nothing of it).
+fallback (tleap:199-265) over boxes; ``map_roboflow_to_old_device`` turns a
+trained model's 20 Roboflow keypoints into the heuristic's (old animal-pose)
+order; ``locomotion_features_device`` the masked, static-shape locomotion
+features (tleap:338-436).  The tables are copies of the JAX module's (this
+package imports nothing of it).
 """
 from __future__ import annotations
 
@@ -12,6 +14,34 @@ from typing import Dict
 
 import numpy as np
 import torch
+
+# the trained model's 20 Roboflow keypoints, the published skeleton
+# contract (tleap:43-64)
+KEYPOINT_NAMES = [
+    "left_ear_base", "neck", "withers", "mid_back", "right_hind_hip",
+    "right_hind_mid_leg", "right_hind_fetlock", "left_hind_shoulder",
+    "left_hind_mid_leg", "left_hind_fetlock", "right_front_shoulder",
+    "right_front_mid_leg", "right_front_lower_leg", "left_front_shoulder",
+    "left_front_mid_leg", "left_front_lower_leg", "right_front_hoof",
+    "left_front_hoof", "right_hind_hoof", "left_hind_hoof",
+]
+NUM_KEYPOINTS = len(KEYPOINT_NAMES)
+
+# Roboflow -> old names, so locomotion features resolve in trained mode too
+ROBOFLOW_TO_OLD = {
+    "left_ear_base": "left_ear", "neck": "throat", "withers": "withers",
+    "mid_back": "tailbase",
+    "left_front_hoof": "left_front_paw", "right_front_hoof": "right_front_paw",
+    "left_hind_hoof": "left_back_paw", "right_hind_hoof": "right_back_paw",
+    "left_front_mid_leg": "left_front_knee",
+    "right_front_mid_leg": "right_front_knee",
+    "left_hind_mid_leg": "left_back_knee",
+    "right_hind_mid_leg": "right_back_knee",
+    "left_front_shoulder": "left_front_elbow",
+    "right_front_shoulder": "right_front_elbow",
+    "left_hind_shoulder": "left_back_elbow",
+    "right_hind_hip": "right_back_elbow",
+}
 
 # (name, ax, ay, conf): x = x1 + ax·w, y = y1 + ay·h (tleap:210-263)
 _H = [
@@ -42,6 +72,14 @@ H_CONF = np.array([r[3] for r in _H], np.float32)
 H_NAMES = [r[0] for r in _H]
 _OLD_IDX = {n: i for i, n in enumerate(H_NAMES)}
 
+# old-name slot -> its source in the Roboflow order; old names with no
+# Roboflow source (eyes, nose, right_ear) stay masked (confidence 0)
+_OLD_FROM_ROBO = {old: rb for rb, old in ROBOFLOW_TO_OLD.items()}
+_ROBO_IDX = {n: i for i, n in enumerate(KEYPOINT_NAMES)}
+_R2O_SRC = np.array([_ROBO_IDX.get(_OLD_FROM_ROBO.get(n, ""), 0)
+                     for n in H_NAMES], np.int32)
+_R2O_OK = np.array([n in _OLD_FROM_ROBO for n in H_NAMES], bool)
+
 
 def heuristic_keypoints_device(boxes: torch.Tensor) -> torch.Tensor:
     """(..., 4) xyxy -> (..., 20, 3) xy + conf in H_NAMES order."""
@@ -54,6 +92,16 @@ def heuristic_keypoints_device(boxes: torch.Tensor) -> torch.Tensor:
     ys = y1 + t(_H_AY) * h
     conf = t(H_CONF).expand(xs.shape)
     return torch.stack([xs, ys, conf], dim=-1)
+
+
+def map_roboflow_to_old_device(kpts: torch.Tensor) -> torch.Tensor:
+    """(..., 20, 3) keypoints in KEYPOINT_NAMES order -> (..., 20, 3) in
+    H_NAMES order, the slots with no source confidence-masked."""
+    src = torch.as_tensor(_R2O_SRC, dtype=torch.long, device=kpts.device)
+    ok = torch.as_tensor(_R2O_OK, device=kpts.device)
+    mapped = kpts[..., src, :]
+    conf = torch.where(ok, mapped[..., 2], torch.zeros_like(mapped[..., 2]))
+    return torch.cat([mapped[..., :2], conf[..., None]], dim=-1)
 
 
 def _masked_mean(x, m):

@@ -9,14 +9,17 @@ on the card; the JAX package's switches select K4-K9 instead
 (:class:`VisionAttention`, ``ops/sam_attention.py``).  The decoder's small
 attentions stay plain PyTorch, as they are plain jnp in the JAX package.
 Parameter names mirror the flax tree, so ``weights.from_jax_params``
-converts one to one.
+converts one to one.  ``convert_hf_state_dict`` (HF ``SamModel``) and
+``convert_sa_state_dict`` (segment-anything ``.pth``) give the JAX
+package's flax tree with numpy leaves, as its converters do.
 """
 from __future__ import annotations
 
 import math
 import os
-from typing import Any, Dict, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -457,6 +460,15 @@ SAM_VARIANTS: Dict[str, Dict[str, Any]] = {
 }
 
 
+def infer_variant(encoder_dim: int) -> str:
+    """Checkpoint geometry -> variant name (the widths are unique), as the
+    reference selects a variant by checkpoint name (sam3:57-63)."""
+    for name, geo in SAM_VARIANTS.items():
+        if geo["encoder_dim"] == encoder_dim:
+            return name
+    raise ValueError(f"no SAM variant has encoder_dim={encoder_dim}")
+
+
 class Sam(nn.Module):
     """Encoder + prompt encoder + decoder; call ``encode`` and
     ``decode_boxes`` separately so an image is encoded once."""
@@ -499,3 +511,216 @@ def build_sam(variant: str = "vit_b", img_size: int = 1024,
         raise ValueError(f"unknown SAM variant {variant!r}; expected one of "
                          f"{sorted(SAM_VARIANTS)}") from None
     return Sam(img_size=img_size, device=device, **geo)
+
+
+# ---------------------------------------------------------------------------
+# torch checkpoints (HF SamModel, segment-anything) -> the flax tree
+# ---------------------------------------------------------------------------
+def _lin(sd, prefix):
+    return {"kernel": np.asarray(sd[prefix + ".weight"]).T,
+            "bias": np.asarray(sd[prefix + ".bias"])}
+
+
+def _ln(sd, prefix):
+    return {"scale": np.asarray(sd[prefix + ".weight"]),
+            "bias": np.asarray(sd[prefix + ".bias"])}
+
+
+def _ln2d(sd, prefix):
+    return {"weight": np.asarray(sd[prefix + ".weight"]),
+            "bias": np.asarray(sd[prefix + ".bias"])}
+
+
+def _attn(sd, prefix):
+    return {"q_proj": _lin(sd, prefix + ".q_proj"),
+            "k_proj": _lin(sd, prefix + ".k_proj"),
+            "v_proj": _lin(sd, prefix + ".v_proj"),
+            "out_proj": _lin(sd, prefix + ".out_proj")}
+
+
+def _ffn(sd, prefix, num_layers=3):
+    out = {"proj_in": _lin(sd, prefix + ".proj_in"),
+           "proj_out": _lin(sd, prefix + ".proj_out")}
+    for i in range(num_layers - 2):
+        out[f"layer{i}"] = _lin(sd, f"{prefix}.layers.{i}")
+    return out
+
+
+def sa_to_hf_state_dict(sd: Dict[str, Any]) -> Dict[str, Any]:
+    """Rename an original ``segment-anything`` checkpoint (the
+    ``sam_vit_{b,l,h}_*.pth`` files the reference registry loads,
+    services/sam3-pipeline/app/main.py:51-72) into the HF ``SamModel``
+    key naming that :func:`convert_hf_state_dict` reads.
+
+    Tensor VALUES are identical between the two layouts (HF's SamModel
+    was converted from these checkpoints) — this is purely a key rename,
+    so a dropped reference checkpoint converts without the
+    segment-anything package installed.
+    """
+    import re
+    rules = [
+        (r"^image_encoder\.patch_embed\.proj\.",
+         "vision_encoder.patch_embed.projection."),
+        (r"^image_encoder\.blocks\.(\d+)\.norm1\.",
+         r"vision_encoder.layers.\1.layer_norm1."),
+        (r"^image_encoder\.blocks\.(\d+)\.norm2\.",
+         r"vision_encoder.layers.\1.layer_norm2."),
+        (r"^image_encoder\.blocks\.(\d+)\.", r"vision_encoder.layers.\1."),
+        (r"^image_encoder\.neck\.0\.", "vision_encoder.neck.conv1."),
+        (r"^image_encoder\.neck\.1\.", "vision_encoder.neck.layer_norm1."),
+        (r"^image_encoder\.neck\.2\.", "vision_encoder.neck.conv2."),
+        (r"^image_encoder\.neck\.3\.", "vision_encoder.neck.layer_norm2."),
+        (r"^image_encoder\.", "vision_encoder."),
+        (r"^prompt_encoder\.pe_layer\.positional_encoding_gaussian_matrix$",
+         "prompt_encoder.shared_embedding.positional_embedding"),
+        (r"^prompt_encoder\.point_embeddings\.",
+         "prompt_encoder.point_embed."),
+        # mask_downscaling is unused on the box-prompt path but mapped so
+        # a torch-side SamModel.load_state_dict can be key-complete
+        (r"^prompt_encoder\.mask_downscaling\.0\.",
+         "prompt_encoder.mask_embed.conv1."),
+        (r"^prompt_encoder\.mask_downscaling\.1\.",
+         "prompt_encoder.mask_embed.layer_norm1."),
+        (r"^prompt_encoder\.mask_downscaling\.3\.",
+         "prompt_encoder.mask_embed.conv2."),
+        (r"^prompt_encoder\.mask_downscaling\.4\.",
+         "prompt_encoder.mask_embed.layer_norm2."),
+        (r"^prompt_encoder\.mask_downscaling\.6\.",
+         "prompt_encoder.mask_embed.conv3."),
+        (r"^mask_decoder\.transformer\.norm_final_attn\.",
+         "mask_decoder.transformer.layer_norm_final_attn."),
+        (r"^mask_decoder\.transformer\.layers\.(\d+)\.norm([1-4])\.",
+         r"mask_decoder.transformer.layers.\1.layer_norm\2."),
+        (r"^mask_decoder\.output_upscaling\.0\.",
+         "mask_decoder.upscale_conv1."),
+        (r"^mask_decoder\.output_upscaling\.1\.",
+         "mask_decoder.upscale_layer_norm."),
+        (r"^mask_decoder\.output_upscaling\.3\.",
+         "mask_decoder.upscale_conv2."),
+        # 3-layer MLPs: SA uses layers.{0,1,2}; HF names them
+        # proj_in / layers.0 / proj_out
+        (r"^(mask_decoder\.(?:output_hypernetworks_mlps\.\d+|"
+         r"iou_prediction_head))\.layers\.0\.", r"\1.proj_in."),
+        (r"^(mask_decoder\.(?:output_hypernetworks_mlps\.\d+|"
+         r"iou_prediction_head))\.layers\.1\.", r"\1.layers.0."),
+        (r"^(mask_decoder\.(?:output_hypernetworks_mlps\.\d+|"
+         r"iou_prediction_head))\.layers\.2\.", r"\1.proj_out."),
+    ]
+    out: Dict[str, Any] = {}
+    for k, v in sd.items():
+        nk = k
+        for pat, rep in rules:
+            nk2 = re.sub(pat, rep, nk)
+            if nk2 != nk:
+                nk = nk2
+                break
+        out[nk] = v
+    return out
+
+
+def detect_sam_layout(sd: Dict[str, Any]) -> str:
+    """'hf' (transformers SamModel), 'sa' (original segment-anything),
+    or raises for anything else."""
+    if any(k.startswith("vision_encoder.") for k in sd):
+        return "hf"
+    if any(k.startswith("image_encoder.") for k in sd):
+        return "sa"
+    raise ValueError("state dict is neither HF SamModel nor "
+                     "segment-anything layout")
+
+
+def convert_sa_state_dict(sd: Dict[str, Any],
+                          depth: Optional[int] = None,
+                          decoder_depth: int = 2) -> Dict:
+    """Convert an original segment-anything checkpoint (key rename +
+    :func:`convert_hf_state_dict`)."""
+    return convert_hf_state_dict(sa_to_hf_state_dict(sd), depth=depth,
+                                 decoder_depth=decoder_depth)
+
+
+def convert_hf_state_dict(sd: Dict[str, Any], depth: Optional[int] = None,
+                          decoder_depth: int = 2) -> Dict:
+    """Map ``SamModel.state_dict()`` to the flax tree ({"params": ...},
+    numpy leaves) whose names this module's parameters carry.
+
+    ``depth`` defaults to the number of encoder layers present in the
+    state dict, so vit_b/l/h checkpoints (12/24/32 layers,
+    SAM_VARIANTS) all convert without a geometry argument — matching
+    the reference's by-checkpoint-name variant selection
+    (services/sam3-pipeline/app/main.py:51-72).
+    """
+    sd = {k: v.detach().cpu().numpy() if hasattr(v, "detach") else np.asarray(v)
+          for k, v in sd.items()}
+    if depth is None:
+        depth = 1 + max(
+            int(k.split(".")[2]) for k in sd
+            if k.startswith("vision_encoder.layers."))
+    ve: Dict[str, Any] = {
+        "patch_embed": {
+            "kernel": np.transpose(
+                sd["vision_encoder.patch_embed.projection.weight"],
+                (2, 3, 1, 0)),
+            "bias": sd["vision_encoder.patch_embed.projection.bias"],
+        },
+        "pos_embed": sd["vision_encoder.pos_embed"],
+        "neck_conv1": {"kernel": np.transpose(
+            sd["vision_encoder.neck.conv1.weight"], (2, 3, 1, 0))},
+        "neck_ln1": _ln2d(sd, "vision_encoder.neck.layer_norm1"),
+        "neck_conv2": {"kernel": np.transpose(
+            sd["vision_encoder.neck.conv2.weight"], (2, 3, 1, 0))},
+        "neck_ln2": _ln2d(sd, "vision_encoder.neck.layer_norm2"),
+    }
+    for i in range(depth):
+        t = f"vision_encoder.layers.{i}"
+        ve[f"layer{i}"] = {
+            "ln1": _ln(sd, f"{t}.layer_norm1"),
+            "ln2": _ln(sd, f"{t}.layer_norm2"),
+            "attn": {
+                "qkv": _lin(sd, f"{t}.attn.qkv"),
+                "proj": _lin(sd, f"{t}.attn.proj"),
+                "rel_pos_h": sd[f"{t}.attn.rel_pos_h"],
+                "rel_pos_w": sd[f"{t}.attn.rel_pos_w"],
+            },
+            "mlp": {"lin1": _lin(sd, f"{t}.mlp.lin1"),
+                    "lin2": _lin(sd, f"{t}.mlp.lin2")},
+        }
+
+    pe: Dict[str, Any] = {
+        "shared_embedding": {"positional_embedding":
+                             sd["prompt_encoder.shared_embedding.positional_embedding"]},
+        "not_a_point_embed": sd["prompt_encoder.not_a_point_embed.weight"],
+        "no_mask_embed": sd["prompt_encoder.no_mask_embed.weight"],
+    }
+    for i in range(4):
+        pe[f"point_embed_{i}"] = sd[f"prompt_encoder.point_embed.{i}.weight"]
+
+    md: Dict[str, Any] = {
+        "iou_token": sd["mask_decoder.iou_token.weight"],
+        "mask_tokens": sd["mask_decoder.mask_tokens.weight"],
+        "ln_final": _ln(sd, "mask_decoder.transformer.layer_norm_final_attn"),
+        "final_attn": _attn(sd, "mask_decoder.transformer.final_attn_token_to_image"),
+        # torch ConvTranspose2d weight (in, out, kh, kw) -> ours (in, out, kh, kw)
+        "upscale_conv1": sd["mask_decoder.upscale_conv1.weight"],
+        "upscale_conv1_bias": sd["mask_decoder.upscale_conv1.bias"],
+        "upscale_conv2": sd["mask_decoder.upscale_conv2.weight"],
+        "upscale_conv2_bias": sd["mask_decoder.upscale_conv2.bias"],
+        "upscale_ln": _ln2d(sd, "mask_decoder.upscale_layer_norm"),
+        "iou_head": _ffn(sd, "mask_decoder.iou_prediction_head"),
+    }
+    for i in range(4):
+        md[f"hyper{i}"] = _ffn(sd, f"mask_decoder.output_hypernetworks_mlps.{i}")
+    for i in range(decoder_depth):
+        t = f"mask_decoder.transformer.layers.{i}"
+        md[f"layer{i}"] = {
+            "self_attn": _attn(sd, f"{t}.self_attn"),
+            "cross_attn_t2i": _attn(sd, f"{t}.cross_attn_token_to_image"),
+            "cross_attn_i2t": _attn(sd, f"{t}.cross_attn_image_to_token"),
+            "ln1": _ln(sd, f"{t}.layer_norm1"),
+            "ln2": _ln(sd, f"{t}.layer_norm2"),
+            "ln3": _ln(sd, f"{t}.layer_norm3"),
+            "ln4": _ln(sd, f"{t}.layer_norm4"),
+            "mlp": {"lin1": _lin(sd, f"{t}.mlp.lin1"),
+                    "lin2": _lin(sd, f"{t}.mlp.lin2")},
+        }
+    return {"params": {"vision_encoder": ve, "prompt_encoder": pe,
+                       "mask_decoder": md}}

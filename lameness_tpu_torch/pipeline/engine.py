@@ -5,8 +5,8 @@
         ├─ SAM: 1024² pad (or the pad-free rect canvas) → ViT encoder →
         │   box-prompted mask decoder
         ├─ DINO: 224² resize-crop → ViT-B/14 → mean-pooled embeddings
-        └─ heuristic pose → locomotion features → 44-d sequences →
-           TCN + GaitTransformer with batched MC-dropout
+        └─ heuristic or trained pose → locomotion features → 44-d
+           sequences → TCN + GaitTransformer with batched MC-dropout
 
 Four stages run one after another on device tensors (``run_staged``).
 ``to_device`` packs host frames and moves them to the device:
@@ -17,12 +17,16 @@ Four stages run one after another on device tensors (``run_staged``).
 - the transfer is RGB, or I420 planes rebuilt on the device
   (``LAMENESS_YUV_INGEST=1``, ``video/yuv.py``).
 ``process_clip_batch`` runs the stages and reads the outputs back in one
-copy (``pack_output``/``unpack_output``).  Stage sampling follows the
-reference: detect/SAM 2 FPS, DINO 1 FPS, pose 5 FPS.
+copy (``pack_output``/``unpack_output``); device tensors on the engine's
+device pass through.  Stage sampling follows the reference: detect/SAM
+2 FPS, DINO 1 FPS, pose 5 FPS.  ``load_torch_weights`` installs the
+reference's torch checkpoints (HF DINOv2, HF or segment-anything SAM at the
+checkpoint's variant, ultralytics YOLO and the trained pose model);
+``install_pose_params`` switches the heads stage to trained pose with a
+per-frame heuristic fallback.
 
-Not in this port yet (see ROADMAP.md): trained pose, the mesh, the
-monolith and pair modes, torch checkpoint loading and the batch-major
-I420 rows packing.
+Not in this port yet (see ROADMAP.md): the mesh, the monolith and pair
+modes and the batch-major I420 rows packing.
 """
 from __future__ import annotations
 
@@ -38,13 +42,14 @@ from ..core.config import Config
 from ..core.device import resolve_device
 from ..models import dino as dino_mod
 from ..models import pose as pose_mod
+from ..models import sam as sam_mod
 from ..models import sequence_features as seqf
 from ..models.gait_transformer import GaitTransformer
 from ..models.sam import Sam, build_sam
 from ..models.tcn import TCN
-from ..models.yolo import YoloV8, detect
+from ..models.yolo import YoloV8, convert_ultralytics_state_dict, detect
 from ..ops import preprocess as prep
-from ..ops.boxes import clip_boxes
+from ..ops.boxes import clip_boxes, pairwise_iou
 from ..video.yuv import (flat_views, i420_flat_to_rgb_device,
                           pack_i420_flat, rgb_to_i420)
 
@@ -250,11 +255,12 @@ def build_models(spec: EngineSpec, config: Config, device) -> Dict[str, Any]:
 class LamenessEngine:
     """Owns the sub-models and runs the four stages on ``device``.
 
-    ``device=None`` means the CUDA device (and raises without one); only an
-    explicit ``"cpu"`` runs the plain PyTorch path on the CPU.  Weights are
-    seeded from ``generator`` (``weights.init_params``) unless
+    ``device=None`` means the current CUDA device (and raises without one);
+    only an explicit ``"cpu"`` runs the plain PyTorch path on the CPU.
+    Weights are seeded from ``generator`` (``weights.init_params``) unless
     ``init_models=False``; ``load_state_dicts`` installs others (e.g. from
-    ``weights.from_jax_params``).  On the card the bf16 policy applies when
+    ``weights.from_jax_params``), ``load_torch_weights`` the reference's
+    checkpoints.  On the card the bf16 policy applies when
     ``config.compute.dtype == "bfloat16"``."""
 
     def __init__(self, config: Optional[Config] = None,
@@ -266,6 +272,9 @@ class LamenessEngine:
         self.device = resolve_device(device)
         self.precision: Dict[str, str] = {}
         self.yolo = self.dino = self.sam = self.tcn = self.gait = None
+        self.pose_model: Optional[YoloV8] = None   # built when pose installs
+        self.loaded_weights = {k: False for k in
+                               ("yolo", "dino", "sam", "pose", "tcn", "gait")}
         # the config's memory governor reaches the spec also when the
         # caller installs the models (init_models=False)
         if self.config.sam.encode_chunk and not self.spec.sam_encode_chunk:
@@ -286,18 +295,25 @@ class LamenessEngine:
     def with_spec(self, spec: EngineSpec) -> "LamenessEngine":
         """A second engine over the same modules and weights (nothing is
         copied) with another frame geometry or mode.  The model input sizes
-        must match; the compute dtype and precision policy carry over."""
+        must match; the compute dtype, precision policy, trained pose model
+        and loaded-weights record carry over (the record is shared)."""
         s = self.spec
         if (spec.yolo_size, spec.pose_size, spec.dino_size,
                 spec.sam_size) != (s.yolo_size, s.pose_size, s.dino_size,
                                    s.sam_size):
             raise AssertionError(
                 "with_spec shares the modules: model input sizes must match")
+        if self.loaded_weights.get("pose") and not spec.pose_pixels:
+            raise ValueError(
+                "with_spec: a trained pose model is installed but the new "
+                "spec has pose_pixels=False (no pose frames on the wire)")
         eng = LamenessEngine(config=self.config,
                              spec=dataclasses.replace(spec, dtype=s.dtype),
                              device=self.device, init_models=False)
         eng.yolo, eng.dino, eng.sam = self.yolo, self.dino, self.sam
         eng.tcn, eng.gait = self.tcn, self.gait
+        eng.pose_model = self.pose_model
+        eng.loaded_weights = self.loaded_weights
         eng.precision = self.precision
         return eng
 
@@ -307,6 +323,68 @@ class LamenessEngine:
             model = getattr(self, name)
             model.load_state_dict(sd, strict=True)
             model.eval()
+
+    # -- the reference's torch checkpoints -----------------------------------
+    def load_torch_weights(self, name: str, state_dict) -> None:
+        """Convert and install a torch checkpoint: ``dino`` (HF
+        Dinov2Model), ``sam`` (HF SamModel or segment-anything; a checkpoint
+        of another encoder width rebuilds SAM at its variant, as the
+        reference selects the variant by checkpoint, sam3:51-72), ``yolo``
+        and ``pose`` (ultralytics; ``pose`` is the 20-keypoint cow model of
+        tleap:122-137).  Each converter gives the JAX package's flax tree,
+        which ``weights.from_jax_params`` turns into the state dict."""
+        if name == "dino":
+            tree = dino_mod.convert_hf_state_dict(state_dict)
+        elif name == "sam":
+            if sam_mod.detect_sam_layout(state_dict) == "sa":
+                state_dict = sam_mod.sa_to_hf_state_dict(state_dict)
+            tree = sam_mod.convert_hf_state_dict(state_dict)
+            dim = tree["params"]["vision_encoder"]["pos_embed"].shape[-1]
+            if self.sam is not None and dim != self.sam.encoder_dim:
+                self.sam = build_sam(sam_mod.infer_variant(dim),
+                                     img_size=self.spec.sam_size,
+                                     device=self.device)
+        elif name == "yolo":
+            tree = convert_ultralytics_state_dict(state_dict)
+        elif name == "pose":
+            self.install_pose_params(
+                convert_ultralytics_state_dict(state_dict, has_pose=True))
+            return
+        else:
+            raise ValueError(f"no torch checkpoint format for {name!r}")
+        self._install(name, tree)
+
+    def install_pose_params(self, tree) -> None:
+        """Install trained pose weights (a flax-layout tree, as
+        ``convert_ultralytics_state_dict(..., has_pose=True)`` gives) and
+        switch the heads stage to trained inference with a per-frame
+        heuristic fallback (tleap:142-197's hybrid)."""
+        if not self.spec.pose_pixels:
+            raise ValueError(
+                "this engine's spec has pose_pixels=False (heuristic-pose "
+                "wire trim: no pose frames are transferred) — rebuild with "
+                "EngineSpec(pose_pixels=True) to run a trained pose model")
+        if self.pose_model is None:
+            self.pose_model = YoloV8("n", num_classes=1,
+                                     num_keypoints=pose_mod.NUM_KEYPOINTS,
+                                     device=self.device)
+        self._install("pose", tree)
+
+    def _install(self, name: str, tree) -> None:
+        """A flax-layout tree into sub-model ``name``; a module built after
+        the bf16 policy (a rebuilt SAM, a new pose model) is recast, one
+        that already follows it keeps its dtypes (``load_state_dict`` copies
+        into them)."""
+        from ..weights import from_jax_params
+        module = self.pose_model if name == "pose" else getattr(self, name)
+        if module is not None:
+            module.load_state_dict(from_jax_params({name: tree})[name],
+                                   strict=True)
+            module.eval()
+            if self.spec.dtype == torch.bfloat16:
+                from .precision import recast_installed
+                self.precision[name] = recast_installed(name, module)
+        self.loaded_weights[name] = True
 
     # -- stage 1: detection --------------------------------------------------
     def _primary_boxes(self, boxes, scores, classes, valid, h: float,
@@ -448,12 +526,58 @@ class LamenessEngine:
         out = self.dino(dino_in)
         return {"embeddings": out["pooled"].reshape(b, tdn, -1)}
 
+    # -- trained pose (tleap:122-197's hybrid) -------------------------------
+    def _trained_pose(self, frames, pose_boxes):
+        """The trained 20-keypoint model at 5 FPS, with the heuristic
+        standing in on each frame where no detection overlaps the primary
+        box (IoU > 0.1).  Returns (kpts_old (B, Tp, 20, 3) in H_NAMES order
+        for locomotion, kpts_model (B, Tp, 20, 3) in KEYPOINT_NAMES order,
+        zero on misses, and the hit mask (B, Tp))."""
+        s = self.spec
+        b, tp = pose_boxes.shape[:2]
+        pose_frames, ph, pw = self._pose_frames(frames)
+        canvases, ratio, pad = prep.letterbox(
+            pose_frames.reshape(b * tp, ph, pw, 3), s.pose_size)
+        levels = self.pose_model(canvases.to(s.dtype))["levels"]
+        det = detect(levels,
+                     conf_threshold=self.config.yolo.confidence_threshold,
+                     max_det=4)
+        boxes = prep.unletterbox_boxes(det["boxes"], ratio, pad)
+        kxy = (det["keypoints"][..., :2] - pad[:, None, None, :]) \
+            / ratio[:, None, None, None]
+        kconf = det["keypoints"][..., 2:]
+        # split ingest: the lo frames' coordinates scaled to the frame_*
+        # space (same aspect ratio, one factor)
+        if pw != s.frame_width:
+            sc = s.frame_width / pw
+            boxes = boxes * sc
+            kxy = kxy * sc
+        prim = pose_boxes.reshape(b * tp, 4)
+        iou = pairwise_iou(prim[:, None, :], boxes)[:, 0]     # (N, K)
+        iou = torch.where(det["valid"], iou, torch.full_like(iou, -1.0))
+        best = torch.argmax(iou, dim=-1)
+        rows = torch.arange(b * tp, device=iou.device)
+        hit = iou[rows, best] > 0.1
+        kpts_model = torch.cat([kxy[rows, best], kconf[rows, best]], dim=-1)
+        kpts_old = torch.where(
+            hit[:, None, None], pose_mod.map_roboflow_to_old_device(
+                kpts_model), pose_mod.heuristic_keypoints_device(prim))
+        # misses carry no keypoints of a padding slot: locomotion reads the
+        # heuristic rows, the model-order rows are zero
+        kpts_model = torch.where(hit[:, None, None], kpts_model,
+                                 torch.zeros_like(kpts_model))
+        return (kpts_old.reshape(b, tp, -1, 3),
+                kpts_model.reshape(b, tp, -1, 3), hit.reshape(b, tp))
+
     # -- stage 4: pose + sequence heads --------------------------------------
     def _heads_stage(self, primary_bt, score_bt,
-                     generator: torch.Generator):
+                     generator: torch.Generator, frames=None):
         """primary_bt: (B, Td, 4) detection-frame boxes; heads run at 5 FPS.
-        MC-dropout is one batched forward of ``mc_samples`` replicas with
-        masks drawn from ``generator``."""
+        With trained pose installed, the pose model reads ``frames`` (the
+        packed tensor or split dict) and the outputs gain
+        ``keypoints_model`` and ``pose_trained_mask``.  MC-dropout is one
+        batched forward of ``mc_samples`` replicas with masks drawn from
+        ``generator``."""
         s = self.spec
         b = primary_bt.shape[0]
         pose_idx = s.pose_idx
@@ -464,7 +588,17 @@ class LamenessEngine:
         pose_scores = score_bt[:, nearest]
         pose_valid = torch.ones((b, tp), dtype=torch.bool,
                                 device=primary_bt.device)
-        kpts = pose_mod.heuristic_keypoints_device(pose_boxes)
+        extra = {}
+        if self.loaded_weights.get("pose") and self.pose_model is not None:
+            if frames is None:
+                raise ValueError("trained pose reads the pose frames: pass "
+                                 "frames to _heads_stage")
+            kpts, kpts_model, trained = self._trained_pose(frames,
+                                                           pose_boxes)
+            extra = {"keypoints_model": kpts_model,
+                     "pose_trained_mask": trained}
+        else:
+            kpts = pose_mod.heuristic_keypoints_device(pose_boxes)
         loco = pose_mod.locomotion_features_device(
             kpts[..., :2], kpts[..., 2], pose_valid)
         feats, low_conf = seqf.extract_from_arrays(
@@ -483,6 +617,7 @@ class LamenessEngine:
                                )["probability"].view(n_mc, b)
         gait_det = self.gait(feats_p, mask_p)
         return {
+            **extra,
             "keypoints": kpts,
             "pose_boxes": pose_boxes,
             "locomotion": loco,
@@ -593,7 +728,8 @@ class LamenessEngine:
         out.update(self._sam_stage(frames_dev, out["primary_boxes"]))
         out.update(self._dino_stage(frames_dev))
         out.update(self._heads_stage(out["primary_boxes"],
-                                     out["primary_scores"], generator))
+                                     out["primary_scores"], generator,
+                                     frames_dev))
         return out
 
     def pack_output(self, out: Dict[str, Any]):
@@ -653,8 +789,11 @@ class LamenessEngine:
         through one device-to-host copy, or with ``readback=False`` the
         device tensors."""
         leaves = frames.values() if isinstance(frames, dict) else [frames]
-        if all(isinstance(x, torch.Tensor) and x.device == self.device
-               for x in leaves):
+        # type and index, not device equality: an unindexed "cuda" does not
+        # equal the "cuda:0" of a tensor on it
+        if all(isinstance(x, torch.Tensor)
+               and x.device.type == self.device.type
+               and x.device.index == self.device.index for x in leaves):
             frames_dev = frames
         else:
             frames_dev = self.to_device(frames, transfer)
@@ -686,7 +825,8 @@ class LamenessEngine:
         stages = {"detect": lambda: self._detect_stage(frames),
                   "sam": lambda: self._sam_stage(frames, boxes),
                   "dino": lambda: self._dino_stage(frames),
-                  "heads": lambda: self._heads_stage(boxes, scores, gen)}
+                  "heads": lambda: self._heads_stage(boxes, scores, gen,
+                                                     frames)}
         timings = {}
         with torch.no_grad():
             for name, fn in stages.items():

@@ -11,6 +11,8 @@ they are.
 
 ``init_params`` is the seeded initialisation at the same shapes, from a
 ``torch.Generator``, for the card (where there is no JAX).
+``conv_tree_from_state_dict`` is the inverse for convolutional models
+(YOLO), so seeded weights can be written in a reference file layout.
 """
 from __future__ import annotations
 
@@ -68,7 +70,30 @@ def from_jax_params(tree: Mapping[str, Any]) -> Dict[str, Dict[str,
     return out
 
 
-def _fill(name: str, t: torch.Tensor, gen: torch.Generator) -> None:
+def conv_tree_from_state_dict(sd: Mapping[str, torch.Tensor]
+                              ) -> Dict[str, Any]:
+    """A convolutional model's state dict (YOLO: Conv2d weights, biases, BN
+    leaves) -> {"params": flax tree} with numpy leaves, the inverse of
+    ``from_jax_params`` for such models: OIHW weights to HWIO kernels
+    (bf16 tensors read as f32)."""
+    tree: Dict[str, Any] = {}
+    for key, val in sd.items():
+        *path, leaf = key.split(".")
+        t = val.detach().cpu()
+        arr = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+        if leaf == "weight":
+            if arr.ndim != 4:
+                raise ValueError(f"{key}: not a convolution ({arr.shape})")
+            leaf, arr = "kernel", np.transpose(arr, (2, 3, 1, 0))
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = arr
+    return {"params": tree}
+
+
+def _fill(name: str, t: torch.Tensor, gen: torch.Generator,
+          gain: float = 1.0) -> None:
     leaf = name.rsplit(".", 1)[-1]
 
     def normal(std: float) -> torch.Tensor:
@@ -84,24 +109,25 @@ def _fill(name: str, t: torch.Tensor, gen: torch.Generator) -> None:
     elif leaf == "v":                 # TCN conv: he-normal over (in, k)
         t.copy_(normal(math.sqrt(2.0 / (t.shape[1] * t.shape[2]))))
     elif leaf == "weight":            # Linear/Conv (out, in, ...): lecun
-        t.copy_(normal(1.0 / math.sqrt(t[0].numel())))
+        t.copy_(normal(gain / math.sqrt(t[0].numel())))
     elif leaf.startswith("upscale_conv"):   # (in, out, 2, 2)
         t.copy_(normal(1.0 / math.sqrt(t.shape[0])))
     else:                             # prompt / token embeddings
         t.copy_(normal(1.0))
 
 
-def seeded_state_dict(model: torch.nn.Module, generator: torch.Generator
-                      ) -> Dict[str, torch.Tensor]:
+def seeded_state_dict(model: torch.nn.Module, generator: torch.Generator,
+                      gain: float = 1.0) -> Dict[str, torch.Tensor]:
     """A CPU state dict of ``model`` with every tensor drawn (or set) from
     ``generator`` in key order: zeros for biases and BN means, ones for
-    norm scales and BN variances, lecun-normal kernels, he-normal TCN
-    kernels, N(0, 0.02²) positional tables, N(0, 1) prompt embeddings."""
+    norm scales and BN variances, lecun-normal kernels (times ``gain``),
+    he-normal TCN kernels, N(0, 0.02²) positional tables, N(0, 1) prompt
+    embeddings."""
     with torch.no_grad():
         sd = {k: v.detach().to("cpu", copy=True)
               for k, v in model.state_dict().items()}
         for key in sorted(sd):
-            _fill(key, sd[key], generator)
+            _fill(key, sd[key], generator, gain)
     return sd
 
 

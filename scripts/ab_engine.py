@@ -12,7 +12,10 @@ and saves its outputs under ``lameness_tpu_torch/_build/ab_engine/`` of
 this script's checkout.  The script then prints, for B against A: the share
 of mask pixels that agree, the relative L2 distance of the DINO embeddings
 (``embeddings``), and which outputs are equal bit for bit.  The card's name
-and power limit come first.
+and power limit come first.  The roots run in the turns A B B A, each
+printing its end-to-end seconds of REPEATS batches after one warm batch
+and the device busy ms of one batch (torch.profiler), so that the two are
+compared on one card in one call.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ import numpy as np
 
 BATCH = 2
 SEED = 0
+REPEATS = 5
 SAVED = Path(__file__).resolve().parents[1] / "lameness_tpu_torch" / \
     "_build" / "ab_engine"
 
@@ -53,6 +57,22 @@ def worker(root: str, saved: str) -> None:
     out = eng.process_clip_batch(
         frames, generator=torch.Generator(device="cuda").manual_seed(SEED))
     np.savez(saved, **dict(leaves(out)))
+    import json
+    import time
+    from torch.profiler import ProfilerActivity, profile
+    e2e = []
+    for _ in range(REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.process_clip_batch(frames)
+        torch.cuda.synchronize()
+        e2e.append(round(time.perf_counter() - t0, 4))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        eng.process_clip_batch(frames)
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    print(json.dumps({"e2e_s": e2e, "device_busy_ms": busy}), flush=True)
 
 
 def main() -> int:
@@ -65,14 +85,17 @@ def main() -> int:
                          text=True, check=True).stdout.strip(), flush=True)
     SAVED.mkdir(parents=True, exist_ok=True)
     outs = {}
-    for turn, root in roots.items():
+    for turn in "ABBA":
         path = SAVED / f"{turn}.npz"
-        res = subprocess.run([sys.executable, __file__, "--worker", root,
-                              str(path)], capture_output=True, text=True)
+        res = subprocess.run([sys.executable, __file__, "--worker",
+                              roots[turn], str(path)], capture_output=True,
+                             text=True)
         if res.returncode:
             print(res.stdout + res.stderr, file=sys.stderr)
             return res.returncode
-        outs[turn] = dict(np.load(path))
+        print(f"turn {turn}: {res.stdout.strip().splitlines()[-1]}",
+              flush=True)
+        outs.setdefault(turn, dict(np.load(path)))
     a, b = outs["A"], outs["B"]
     if set(a) != set(b):
         print(f"output keys differ: {sorted(set(a) ^ set(b))}")

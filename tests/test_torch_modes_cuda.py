@@ -12,14 +12,20 @@ one.  The file imports no JAX (tests/conftest.py does, hence
 - ``to_device``'s transfers (RGB, split RGB in one buffer, I420) give the
   CPU engine's frames bit for bit;
 - ``pack_output``/``unpack_output`` round-trip card tensors to
-  ``_to_numpy``'s tree bit for bit.
+  ``_to_numpy``'s tree bit for bit;
+- a default engine (``device=None``) takes its own ``to_device`` output
+  (the packed tensor, the split dict) as it is, and gives the host path's
+  outputs bit for bit;
+- the tiny engine with trained pose (full and split ingest) and with a
+  SAM at ViT-H's head dim 80, card against CPU (``chip_smoke.py``'s
+  ``check_small_engine``, with its gates).
 """
 import numpy as np
 import pytest
 import torch
 
 from lameness_tpu_torch.pipeline.engine import (EngineSpec, LamenessEngine,
-                                                _to_numpy)
+                                                _to_numpy, make_test_engine)
 from lameness_tpu_torch.video.yuv import i420_to_rgb_device, rgb_to_i420
 
 pytestmark = pytest.mark.cuda
@@ -99,3 +105,47 @@ def test_pack_output_round_trip_on_the_card(dev):
         assert got[key].dtype == want[key].dtype, key
         np.testing.assert_array_equal(got[key], want[key])
     np.testing.assert_array_equal(got["loco"]["x"], want["loco"]["x"])
+
+
+@pytest.mark.parametrize("split", [False, True])
+def test_default_engine_passes_its_device_frames_through(dev, split):
+    eng = make_test_engine(with_sam=True)
+    assert eng.device == torch.device("cuda", torch.cuda.current_device())
+    if split:
+        eng = eng.with_spec(EngineSpec(**SPEC, yolo_size=64, pose_size=64,
+                                       dino_size=56, sam_size=128,
+                                       sam_mask_size=64, lo_height=46,
+                                       lo_width=80))
+    frames = np.random.default_rng(2).integers(0, 256, (2, 15, 90, 160, 3),
+                                               dtype=np.uint8)
+    frames_dev = eng.to_device(frames)
+
+    def no_transfer(*args, **kwargs):
+        raise AssertionError("device frames went through to_device again")
+    eng.to_device = no_transfer
+    got = eng.process_clip_batch(frames_dev)
+    del eng.to_device
+    want = eng.process_clip_batch(frames)
+    assert list(got) == list(want)
+    for key, val in want.items():
+        if isinstance(val, dict):
+            for k, v in val.items():
+                np.testing.assert_array_equal(got[key][k], v, err_msg=k)
+        else:
+            assert got[key].dtype == val.dtype, key
+            np.testing.assert_array_equal(got[key], val, err_msg=key)
+
+
+@pytest.mark.parametrize("case", ["pose", "pose_split", "sam_hd80"])
+def test_small_engine_card_equals_cpu(dev, case, monkeypatch):
+    import chip_smoke
+    # f32 products in f32, as chip_smoke.py sets them (cuDNN's default
+    # TF32 convolutions move the detections by 1e-3)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    if case == "sam_hd80":
+        assert chip_smoke.check_small_engine(sam=chip_smoke.HD80_SAM)
+    else:
+        split = {"lo_height": 45, "lo_width": 80} if case == "pose_split" \
+            else None
+        assert chip_smoke.check_small_engine(split, pose=True)

@@ -21,6 +21,7 @@ PORT_FILES = sorted((ROOT / "lameness_tpu_torch").rglob("*.py")) + [
 
 def test_import_leaves_jax_out():
     code = ("import sys, lameness_tpu_torch.pipeline.engine, "
+            "lameness_tpu_torch.pipeline.checkpoint, "
             "lameness_tpu_torch.video.yuv, lameness_tpu_torch.weights; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'lameness_tpu', 'cv2')]; "
@@ -68,6 +69,14 @@ def test_engine_needs_cuda_unless_cpu(monkeypatch):
     eng = LamenessEngine(spec=EngineSpec(use_sam_model=False),
                          device="cpu", init_models=False)
     assert eng.device.type == "cpu"
+    # with a card, the default is the current device with its index: a
+    # tensor on it reports cuda:0, which an unindexed "cuda" does not equal
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    eng = LamenessEngine(spec=EngineSpec(use_sam_model=False),
+                         init_models=False)
+    assert eng.device == torch.device("cuda", 0)
+    assert eng.device.index == 0
 
 
 def test_perf_md_lists_all_nine_kernels():
