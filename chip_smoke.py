@@ -52,12 +52,28 @@ Phases, each failing loudly (no exception is swallowed):
      its record, K2, K3, K4 and K7 at ViT-H's shapes against their plain
      versions beside their bounds and SDPA, and the tiny engine with a SAM
      at head dim 80, card against CPU.
+  6. serving: the default engine (phase 3's weights) with YOLO's cow class
+     set to find a synthetic cow (``calibrate_yolo``: seeded weights find
+     nothing); (a) the batched curation detector over a 125-frame 720p
+     clip at chunks 16 and 48 in bf16 (frames/s, copy in a chunk,
+     dispatches), and in f32 on the card against the CPU (the None
+     pattern; every anchor's box and score before NMS); (b)
+     ``PipelineDriver.process_stream`` over 32 jobs of 8 in-memory 720p
+     clips at B = 4, 2 and 8 (clips/s, the stage timers, launches = the
+     batches times phase 3's, six valid result files a clip, peak GB),
+     the serial path at B = 2 (its files byte for byte the stream's) and 4,
+     the outputs across batch sizes under phase 3's gates, the writer's
+     ms a mask, the host's synchronising calls by source line, and one
+     profiled stream at B = 4 (busy share of a batch, copies in and out
+     overlapped by kernels), beside the same with the engine's constants
+     made at each call; (c) the tiny engine's stream, card against CPU.
 The line before the last is the kernel record (JSON); the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 without a CUDA device or outside the repository.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import json
@@ -1356,6 +1372,713 @@ def vit_h(frames, batch: int = BATCH) -> bool:
     return ok & hd80_kernels(counts, batch)
 
 
+# ---------------------------------------------------------------------------
+# phase 6
+# ---------------------------------------------------------------------------
+# the serving stream: STREAM_JOBS jobs over STREAM_CLIPS clips held in
+# memory, at each batch size (the serving batcher's max_batch of 4 first);
+# the curation detector's chunks
+STREAM_CLIPS = 8
+STREAM_JOBS = 32
+STREAM_BATCHES = (4, 2, 8)
+CURATION_CHUNKS = (16, 48)
+RESULT_KINDS = ("yolo", "sam3", "dinov3", "tleap", "tcn", "transformer")
+TIMER_STAGES = ("decode", "transfer", "engine_stream", "readback",
+                "write_results")
+# the host calls that wait for the device
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize", "cudaMemcpy")
+
+
+class MemoryReader:
+    """The stream's reader over clips held in memory: ``reader(path)`` for
+    the clip named by the path's file name (up to its last "~"), with the
+    ``info`` and ``read_selected`` of a decoder (RGB frames, no copy)."""
+
+    def __init__(self, clips, fps: int = 25):
+        self.clips, self.fps = clips, fps
+
+    def __call__(self, path):
+        frames = self.clips[path.name.split("~")[0]]
+        fps = self.fps
+
+        class Clip:
+            info = {"width": frames.shape[2], "height": frames.shape[1],
+                    "fps": fps, "total_frames": len(frames)}
+
+            def read_selected(self, indices):
+                return {i: frames[i] for i in indices if i < len(frames)}
+        return Clip()
+
+
+def default_engine():
+    """The phase-3 default engine: the same construction and seed, so the
+    same weights."""
+    import torch
+    from lameness_tpu_torch.core.config import Config
+    from lameness_tpu_torch.pipeline.engine import EngineSpec, LamenessEngine
+    return LamenessEngine(Config(), EngineSpec(),
+                          generator=torch.Generator().manual_seed(SEED))
+
+
+# the synthetic cow of phase 6's clips: a bright textured block of COW_SIZE
+# (w, h) frame pixels walking left to right over frames COW_FRAMES
+COW_SIZE = (480, 300)
+COW_FRAMES = (40, 100)
+# how far, in logits, calibrate_yolo puts the frames with the cow above the
+# engine's threshold (0.5) and the cow-free frames below curation's (0.3)
+# -- no further: scores near 1 lose their order in float32 (sigmoid's
+# slope), and equal scores let NMS keep other boxes on the card and the CPU
+COW_MARGIN = 1.0
+CURATION_LOGIT = float(np.log(0.3 / 0.7))
+
+
+def walking_clip(rng, spec):
+    """A clip of uniform noise in which a bright textured block (the "cow")
+    walks left to right over the frames COW_FRAMES.  Returns the frames and
+    the cow's box (x1, y1, x2, y2) in each frame, or None."""
+    t, h, w = spec.clip_frames, spec.frame_height, spec.frame_width
+    frames = rng.integers(0, 256, (t, h, w, 3), dtype=np.uint8)
+    cw, ch = COW_SIZE
+    # a fixed bright texture of 6-pixel cells: no two of YOLO's cells on
+    # the cow see the same pixels (a periodic pattern ties their scores)
+    cells = np.random.default_rng(SEED).integers(
+        170, 256, (-(-ch // 6), -(-cw // 6), 3), dtype=np.uint8)
+    cow = cells.repeat(6, 0).repeat(6, 1)[:ch, :cw]
+    y = (h - ch) // 2
+    f0, f1 = COW_FRAMES
+    boxes = [None] * t
+    for i in range(f0, min(f1, t - 1) + 1):
+        x = round((i - f0) * (w - cw) / (f1 - f0))
+        frames[i, y:y + ch, x:x + cw] = cow
+        boxes[i] = (x, y, x + cw, y + ch)
+    return frames, boxes
+
+
+def calibrate_yolo(eng, frames, boxes, margin: float = COW_MARGIN):
+    """YOLO's cow class made to find the synthetic cow of ``walking_clip``.
+    Seeded weights find no box on these frames (none reaches the engine's
+    0.5 or curation's 0.3), and the stream's writer would then measure no
+    mask.  A hit is made, not found, as for the pose model: on the level
+    whose classification features (``cls1``) part the cow best, the cow
+    kernel becomes the difference of the mean feature of the cells inside
+    the cow and that of the cells of the cow-free frames, its bias puts the
+    weakest frame with the cow ``margin`` logits above the engine's
+    threshold and the strongest cow-free frame ``margin`` below curation's;
+    the other levels' cow bias is -30.  Returns (the level, the gap between
+    the two sides relative to the projections' spread, the largest cow
+    logit); raises when no level parts them."""
+    import torch
+    from lameness_tpu_torch.ops import preprocess as prep
+    s, cow = eng.spec, eng.config.yolo.cow_class_id
+    feats = {i: [] for i in range(3)}
+    hooks = [getattr(eng.yolo, f"detect{i}").cls1.register_forward_hook(
+        lambda mod, inp, out, i=i: feats[i].append(out.float().cpu()))
+        for i in range(3)]
+    try:
+        with torch.no_grad():
+            for o in range(0, len(frames), 16):
+                x = torch.from_numpy(np.ascontiguousarray(frames[o:o + 16]))
+                canvas, ratio, pad = prep.letterbox(x.to(eng.device),
+                                                    s.yolo_size)
+                eng.yolo(canvas.to(s.dtype))
+    finally:
+        for h in hooks:
+            h.remove()
+    r, (px, py) = float(ratio[0]), pad[0].tolist()
+    has = np.array([b is not None for b in boxes])
+    best = None
+    for i in range(3):
+        f = torch.cat(feats[i])                          # (N, C, gh, gw)
+        stride = s.yolo_size // f.shape[-1]
+        cell = (torch.arange(f.shape[-1]) * stride).double()
+        inside = torch.zeros(f.shape[0], f.shape[2], f.shape[3], dtype=bool)
+        for n, b in enumerate(boxes):
+            if b is not None:
+                x1, y1, x2, y2 = (b[0] * r + px, b[1] * r + py,
+                                  b[2] * r + px, b[3] * r + py)
+                inside[n] = (((cell >= y1) & (cell + stride <= y2))[:, None]
+                             & ((cell >= x1) & (cell + stride <= x2))[None])
+        if not inside.flatten(1).any(1)[torch.from_numpy(has)].all():
+            continue                  # a frame's cow covers no whole cell
+        pos = f.permute(0, 2, 3, 1)[inside]
+        free = f[torch.from_numpy(~has)]
+        d = pos.mean(0) - free.mean((0, 2, 3))
+        proj = torch.einsum("nchw,c->nhw", f, d)
+        neg_top = float(proj[torch.from_numpy(~has)].max())
+        pos_tops = torch.where(inside, proj, torch.full_like(proj, -1e30)
+                               ).flatten(1).amax(1)[torch.from_numpy(has)]
+        gap = float(pos_tops.min()) - neg_top
+        rel = gap / float(proj.std())
+        if best is None or rel > best[1]:
+            best = (i, rel, d, neg_top, gap, float(proj.max()))
+    if best is None or not best[4] > 0:
+        raise RuntimeError(f"calibrate_yolo: no level parts the cow from "
+                           f"the cow-free frames ({best and best[4]})")
+    level, rel, d, neg_top, gap, top = best
+    # logits k·(p - t): ``margin`` at the weakest frame with the cow,
+    # CURATION_LOGIT - ``margin`` at the strongest cow-free one
+    k = (2 * margin - CURATION_LOGIT) / gap
+    t = neg_top + gap - margin / k
+    with torch.no_grad():
+        for i in range(3):
+            head = getattr(eng.yolo, f"detect{i}").cls2
+            if i == level:
+                head.weight[cow] = (k * d).to(head.weight)[:, None, None]
+                head.bias[cow] = -k * t
+            else:
+                head.weight[cow] = 0
+                head.bias[cow] = -30.0
+    return level, rel, k * (top - t)
+
+
+def curation_detector(eng, clip) -> bool:
+    """6a: the engine's YOLOv8-n at 640 as the batched curation detector
+    over one 125-frame 720p clip: on the card in the engine's dtype at
+    chunks 16 and 48 (frames/s, the copy in per chunk, dispatches), and in
+    f32 on the card against the same f32 detector on the CPU."""
+    import copy
+    import torch
+    from lameness_tpu_torch.core.streams import host_to_device
+    from lameness_tpu_torch.models.yolo import decode_predictions
+    from lameness_tpu_torch.ops import preprocess as prep
+    from lameness_tpu_torch.video.curation import BatchedYoloDetector
+    s = eng.spec
+    ok = True
+    runs = {}
+    for chunk in CURATION_CHUNKS:
+        det = BatchedYoloDetector(eng.yolo, size=s.yolo_size, chunk=chunk)
+        det.detect_batch(clip, bgr=False)                 # warm
+        times = []
+        for _ in range(REPEATS):
+            det.dispatches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = det.detect_batch(clip, bgr=False)
+            times.append(time.perf_counter() - t0)
+        want = -(-len(clip) // chunk)
+        ok &= det.dispatches == want and len(got) == len(clip)
+        h2d = []
+        for o in range(0, len(clip), chunk):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            host_to_device(clip[o:o + chunk], eng.device)
+            torch.cuda.synchronize()
+            h2d.append((time.perf_counter() - t0) * 1e3)
+        runs[chunk] = got
+        log("curation record " + json.dumps({
+            "chunk": chunk, "dtype": str(det.dtype),
+            "dispatches": det.dispatches, "expected_dispatches": want,
+            "s": [round(t, 4) for t in times],
+            "frames_s": len(clip) / float(np.median(times)),
+            "h2d_ms_per_chunk": float(np.median(h2d)),
+            "detections": sum(d is not None for d in got)}))
+
+    def boxes_of(sel):
+        return np.array([d["bbox"] if d else [np.nan] * 4 for d in sel])
+    # the f32 detector on the card against the same on the CPU: the None
+    # pattern, and every anchor's decoded box and score before NMS (the
+    # seeded head gives every anchor of a level the same box size and the
+    # cow's anchors scores within 1e-6 of each other, so which equal-area
+    # box NMS and _best_detection keep turns on float rounding: reported)
+    gpu32 = copy.deepcopy(eng.yolo).float()
+    cpu32 = copy.deepcopy(eng.yolo).float().cpu()
+    card = BatchedYoloDetector(gpu32, size=s.yolo_size, chunk=16)
+    host = BatchedYoloDetector(cpu32, size=s.yolo_size, chunk=16)
+    a, b = card.detect_batch(clip, bgr=False), host.detect_batch(clip,
+                                                                  bgr=False)
+    same_none = [x is None for x in a] == [y is None for y in b]
+    both = [i for i, (x, y) in enumerate(zip(a, b)) if x and y]
+    picked = float(np.abs(boxes_of(a)[both] - boxes_of(b)[both]).max()) \
+        if both else 0.0
+    box_err = score_err = 0.0
+    with torch.no_grad():
+        for o in range(0, len(clip), 16):
+            cand = []
+            for model in (gpu32, cpu32):
+                x = torch.from_numpy(clip[o:o + 16]).to(
+                    model.stem.conv.weight.device)
+                canvas = prep.letterbox(x, s.yolo_size)[0]
+                boxes, scores, _ = decode_predictions(model(canvas)["levels"])
+                cand.append((boxes.cpu(), scores.cpu()))
+            box_err = max(box_err, float((cand[0][0] - cand[1][0]).abs()
+                                         .max()))
+            score_err = max(score_err, float((cand[0][1] - cand[1][1])
+                                             .abs().max()))
+    good = (same_none and box_err <= 1e-2 and score_err <= 1e-4
+            and 0 < len(both) < len(a))
+    ok &= good
+    log(f"  curation f32, card against CPU: the same None pattern "
+        f"{same_none} ({len(both)} frames with a detection of {len(a)}, "
+        f"some and not all); every anchor before NMS: max box error "
+        f"{box_err:.3e} px (gate <= 1e-2), score {score_err:.3e} (gate <= "
+        f"1e-4)  {'ok' if good else 'FAIL'}; the picked boxes differ by "
+        f"up to {picked:.3f} px (reported)")
+    # the engine dtype's selections beside the f32 ones (reported)
+    for chunk, sel in runs.items():
+        agree_none = float(np.mean([(x is None) == (y is None)
+                                    for x, y in zip(sel, a)]))
+        both = [i for i, (x, y) in enumerate(zip(sel, a)) if x and y]
+        err = float(np.abs(boxes_of(sel)[both] - boxes_of(a)[both]).max()) \
+            if both else 0.0
+        log(f"  curation {eng.spec.dtype} chunk {chunk} against f32: None "
+            f"pattern agreement {agree_none:.4f}; max box difference "
+            f"{err:.3f} px over {len(both)} frames (reported)")
+    del gpu32, cpu32, card, host
+    torch.cuda.empty_cache()
+    return ok
+
+
+def stream_gaps(prof, wall_s, batches: int):
+    """From one profiled stream: the device's busy share over a batch (from
+    the last but one batch's frame copy in to the last one's), the share
+    of each frame copy in and readback that overlaps kernels, the device's
+    idle time before each frame copy, the largest idle gap in the window,
+    and the host's calls that wait for the device (SYNC_CALLS), per batch.
+    None when the profiler recorded no device events."""
+    import torch
+    events = prof.events()
+    dev = [e for e in events
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        return None
+
+    def span(e):
+        return e.time_range.start, e.time_range.end
+    h2d = sorted(span(e) for e in dev if "HtoD" in e.name)
+    d2h = sorted(span(e) for e in dev if "DtoH" in e.name)
+    compute = sorted(span(e) for e in dev if "Memcpy" not in e.name)
+    frames_in = [iv for iv in h2d if iv[1] - iv[0] > 1000]   # > 1 ms
+
+    def union(ivs):
+        out = []
+        for a, b in sorted(ivs):
+            if out and a <= out[-1][1]:
+                out[-1][1] = max(out[-1][1], b)
+            else:
+                out.append([a, b])
+        return out
+    busy = union([span(e) for e in dev])
+    kern = union(compute)
+
+    def covered(iv, by):
+        a, b = iv
+        return sum(max(0, min(b, y) - max(a, x)) for x, y in by) / max(
+            b - a, 1e-9)
+
+    def idle_before(iv):
+        ends = [b for a, b in kern if b <= iv[0]]
+        return (iv[0] - max(ends)) / 1e3 if ends else None
+    syncs = [e for e in events
+             if e.device_type == torch.autograd.DeviceType.CPU
+             and e.name in SYNC_CALLS]
+
+    def ancestors(e):
+        out = []
+        while e.cpu_parent is not None:
+            e = e.cpu_parent
+            out.append(e)
+        return out
+    rec = {"frame_copies_in": len(frames_in),
+           "copy_in_ms": [round((b - a) / 1e3, 3) for a, b in frames_in],
+           "copy_in_overlapped": [round(covered(iv, kern), 3)
+                                  for iv in frames_in],
+           "device_idle_before_copy_in_ms": [
+               None if idle_before(iv) is None else round(idle_before(iv), 3)
+               for iv in frames_in],
+           "readbacks_overlapped": [round(covered(iv, kern), 3)
+                                    for iv in d2h if iv[1] - iv[0] > 20],
+           "device_busy_share_of_stream": sum(b - a for a, b in busy)
+           / (wall_s * 1e6),
+           "host_syncs_per_batch": len(syncs) / batches,
+           "host_sync_ms_per_batch": sum(
+               e.time_range.end - e.time_range.start for e in syncs)
+           / 1e3 / batches,
+           "host_syncs_by_call": {n: sum(e.name == n for e in syncs)
+                                  for n in SYNC_CALLS},
+           "host_syncs_under": sorted(collections.Counter(
+               " < ".join(a.name for a in ancestors(e)[:3])
+               for e in syncs).items(), key=lambda kv: -kv[1])[:8]}
+    if len(frames_in) >= 2:
+        w0, w1 = frames_in[-2][0], frames_in[-1][0]
+        inside = [(max(a, w0), min(b, w1)) for a, b in busy
+                  if b > w0 and a < w1]
+        gaps = [b2 - a2 for (_, a2), (b2, _) in zip(inside[:-1], inside[1:])]
+        rec.update({"batch_window_ms": (w1 - w0) / 1e3,
+                    "device_busy_share_of_batch":
+                        sum(b - a for a, b in inside) / (w1 - w0),
+                    "largest_idle_gap_ms": max(gaps, default=0) / 1e3})
+    return rec
+
+
+def writer_costs(drv, outs) -> None:
+    """The writer's mask features (``_mask_features`` at 1280x720) on the
+    stream's measured masks, ms a mask, beside their 8-connected
+    components, and on an ellipse (a cow-like blob) of the same size."""
+    from scipy import ndimage
+    from lameness_tpu_torch.serve.contours import resize_nearest
+    info = {"width": 1280, "height": 720, "fps": 25, "total_frames": 125}
+    masks = [o["masks"][t] for o in outs.values()
+             for t in np.flatnonzero(o["primary_valid"])]
+    yy, xx = np.mgrid[:256, :256]
+    blob = ((yy - 128) ** 2 / 60 ** 2 + (xx - 128) ** 2 / 90 ** 2 < 1)
+
+    def ms(m):
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            drv._mask_features(m.astype(np.uint8), info)
+            times.append((time.perf_counter() - t0) * 1e3)
+        return min(times)
+    each = [ms(m) for m in masks]
+    comps = [ndimage.label(resize_nearest(m, 1280, 720),
+                           structure=np.ones((3, 3), int))[1] for m in masks]
+    log("writer record " + json.dumps({
+        "masks": len(masks), "mask_features_ms_p50": float(np.median(each))
+        if each else None, "mask_features_ms_max": max(each, default=None),
+        "components_p50": float(np.median(comps)) if comps else None,
+        "fill_p50": float(np.median([m.mean() for m in masks]))
+        if masks else None, "blob_ms": ms(blob)}))
+
+
+def sync_sites(eng, frames) -> list:
+    """Where the host waits for the device in one batch of the stream's
+    consumer (the transfer on the copy-in stream, the stages, the packed
+    output and its copy out): PyTorch's CUDA sync debug mode warns at each
+    synchronising call; the count by message and the port's source line
+    nearest to it."""
+    import traceback
+    import warnings
+    import torch
+    from lameness_tpu_torch.core.streams import Overlap
+    lanes = Overlap(eng.device)
+    torch.cuda.synchronize()
+    sites = collections.Counter()
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "synchronizing" not in str(message):
+            return                      # the mode's own notice
+        here = [f"{f.filename.split('lameness_tpu_torch/')[-1]}:{f.lineno}"
+                for f in traceback.extract_stack()
+                if "lameness_tpu_torch" in f.filename]
+        sites[here[-1] if here else f"{filename}:{lineno}"] += 1
+    saved = warnings.showwarning
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fd = lanes.put(lambda: eng.to_device(frames))
+            out = eng.process_clip_batch(fd, readback=False)
+            flat, _ = eng.pack_output(out)
+            lanes.fetch([flat])()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            warnings.showwarning = saved
+    return sorted(sites.items(), key=lambda kv: -kv[1])
+
+
+@contextlib.contextmanager
+def per_call_constants():
+    """The engine's small constant tensors made from host data at each call
+    (as before the port cached them), each copy to the card synchronising
+    the stream: the comparison for the stream's overlap."""
+    from lameness_tpu_torch.core import device as dev_mod
+    from lameness_tpu_torch.ops import sam_attention as sa
+    cached, index = dev_mod._constant, sa._rel_index
+    dev_mod._constant = cached.__wrapped__
+    sa._rel_index = index.__wrapped__
+    try:
+        yield
+    finally:
+        dev_mod._constant, sa._rel_index = cached, index
+
+
+def serve_stream(eng, clips) -> bool:
+    """6b: ``PipelineDriver.process_stream`` on the default engine over
+    STREAM_JOBS jobs of the 125-frame 720p ``clips`` held in memory, at each
+    of STREAM_BATCHES (batch_size = pad_to), each into a fresh data root;
+    the serial path (process_clip_batch, then the writer) at B = 2 and 4;
+    profiled streams at B = 4, with the engine's constants cached and made
+    at each call."""
+    import tempfile
+    from pathlib import Path
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from lameness_tpu_torch.core.config import Config, DataDirs
+    from lameness_tpu_torch.io import schemas
+    from lameness_tpu_torch.ops._cuda import KERNELS
+    from lameness_tpu_torch.serve.driver import PipelineDriver
+    from lameness_tpu_torch.utils.timing import TIMERS
+    reader = MemoryReader(clips, fps=eng.spec.fps)
+    names = sorted(clips)
+    jobs = [(f"{n[:-4]}_{r}", Path(f"{n}~{r}")) for r in
+            range(-(-STREAM_JOBS // len(names))) for n in names][:STREAM_JOBS]
+    keep = ("masks", "embeddings", "det_boxes", "det_valid", "keypoints",
+            "primary_valid")
+    ok, files, outs, rates = True, {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        def driver(tag):
+            drv = PipelineDriver(config=Config(dirs=DataDirs(
+                root=f"{tmp}/{tag}")), engine=eng, reader=reader)
+            seen = outs.setdefault(tag, {})
+            write = drv._write_stage_results
+
+            def capture(video_id, out, bi, scale, info):
+                seen[video_id] = {k: np.array(out[k][bi]) for k in keep}
+                return write(video_id, out, bi, scale, info)
+            drv._write_stage_results = capture
+            return drv
+
+        def read_files(drv, tag):
+            good = True
+            files[tag] = {}
+            for vid, _ in jobs:
+                for kind in RESULT_KINDS:
+                    path = drv.dirs.results_for(kind) / f"{vid}_{kind}.json"
+                    if not path.exists():
+                        log(f"  {tag}: missing {path.name}")
+                        good = False
+                        continue
+                    files[tag][path.name] = path.read_bytes()
+                    missing = schemas.validate(kind, json.loads(
+                        files[tag][path.name]))
+                    if missing:
+                        log(f"  {tag}: {path.name} misses {missing}")
+                        good = False
+            return good
+
+        for b in STREAM_BATCHES:
+            eng.warmup(batch=b)
+            launches = counted_run(eng, np.stack(
+                [clips[n] for n in names[:b]]))[0]
+            ok &= expect_launches(launches, BASE_LAUNCHES)
+            log(f"  counted_run at B={b}: "
+                + json.dumps({k: v for k, v in launches.items() if v}))
+            drv = driver(f"stream{b}")
+            TIMERS.reset()
+            for k in KERNELS.values():
+                k.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = drv.process_stream(jobs, batch_size=b, pad_to=b)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = {name: k.launches for name, k in KERNELS.items()}
+            n_batches = -(-STREAM_JOBS // b)
+            ok &= expect_launches(counts, {k: v * n_batches for k, v in
+                                           BASE_LAUNCHES.items()})
+            good = len(res) == STREAM_JOBS and read_files(drv, f"stream{b}")
+            ok &= good
+            summ = TIMERS.summary()
+            rates[b] = STREAM_JOBS / wall
+            log("stream record " + json.dumps({
+                "batch": b, "clips": STREAM_JOBS, "wall_s": wall,
+                "clips_s": rates[b],
+                "launches": {k: v for k, v in counts.items() if v},
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "timers": {k: {"count": summ[k]["count"],
+                               "mean_s": summ[k]["mean_s"],
+                               "p50_s": summ[k]["p50_s"],
+                               "total_s": summ[k]["mean_s"]
+                               * summ[k]["count"]}
+                           for k in TIMER_STAGES if k in summ},
+                "masks_measured": int(sum(o["primary_valid"].sum() for o in
+                                          outs[f"stream{b}"].values())),
+                "files_ok": good}))
+
+        # the serial path: process_clip_batch (transfer, stages, blocking
+        # readback), then the writer, batch after batch
+        for b in (2, 4):
+            drv = driver(f"serial{b}")
+            TIMERS.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for o in range(0, STREAM_JOBS, b):
+                loaded = [drv._load_engine_frames(p) for _, p in
+                          jobs[o:o + b]]
+                out = eng.process_clip_batch(np.concatenate(
+                    [f for f, _, _ in loaded]))
+                for bi, ((vid, _), (_, scale, info)) in enumerate(
+                        zip(jobs[o:o + b], loaded)):
+                    drv._write_stage_results(vid, out, bi, scale, info)
+            wall = time.perf_counter() - t0
+            ok &= read_files(drv, f"serial{b}")
+            wr = TIMERS.summary().get("write_results", {})
+            log("serial record " + json.dumps({
+                "batch": b, "wall_s": wall, "clips_s": STREAM_JOBS / wall,
+                "write_results_mean_s": wr.get("mean_s"),
+                "stream_over_serial": rates[b] / (STREAM_JOBS / wall)}))
+        same = files["stream2"] == files["serial2"]
+        ok &= same
+        log(f"  stream at B=2 against the serial path: every result file "
+            f"byte for byte the same {same} ({len(files['stream2'])} files)"
+            f"  {'ok' if same else 'FAIL'}")
+
+        # across batch sizes, the engine outputs behind the yolo, sam3,
+        # dinov3 and tleap files under phase 3's gates (masks, embeddings),
+        # the detection flags and the keypoints (relative L2).  tcn and
+        # transformer only validate: MC-dropout draws follow the batch's
+        # shape
+        ref = outs["stream2"]
+        for b in (4, 8):
+            got = outs[f"stream{b}"]
+            masks = min(float((got[v]["masks"] == ref[v]["masks"]).mean())
+                        for v in ref)
+            emb = max(rel_l2(torch.from_numpy(got[v]["embeddings"]),
+                             torch.from_numpy(ref[v]["embeddings"]))
+                      for v in ref)
+            valid = min(float((got[v]["det_valid"] == ref[v]["det_valid"]
+                               ).mean()) for v in ref)
+            kp = max(rel_l2(torch.from_numpy(got[v]["keypoints"]),
+                            torch.from_numpy(ref[v]["keypoints"]))
+                     for v in ref)
+            g = np.concatenate([got[v]["det_boxes"][got[v]["det_valid"]
+                                                    & ref[v]["det_valid"]]
+                                for v in ref])
+            r = np.concatenate([ref[v]["det_boxes"][got[v]["det_valid"]
+                                                    & ref[v]["det_valid"]]
+                                for v in ref])
+            box = rel_l2(torch.from_numpy(g), torch.from_numpy(r)) \
+                if len(r) else float("nan")
+            good = (masks >= 0.995 and emb <= EMB_RTOL and kp <= EMB_RTOL
+                    and len(r) > 0 and valid >= 0.99)
+            ok &= good
+            same = {k: files[f"stream{b}"][n] == files["stream2"][n]
+                    for k in RESULT_KINDS for n in [f"{jobs[0][0]}_{k}.json"]}
+            log(f"  stream B={b} against B=2: mask agreement (worst clip) "
+                f"{masks:.5f} (>= 0.995); DINO embeddings relative L2 "
+                f"{emb:.3e}, keypoints {kp:.3e} (each <= {EMB_RTOL:g}); "
+                f"detection flags agreement {valid:.4f} (>= 0.99); "
+                f"detection boxes {box:.3e} over {len(r)} (reported: which "
+                f"equal-area box NMS keeps turns on bf16 rounding, as in "
+                f"6a); first clip's files byte "
+                f"for byte {json.dumps(same)}  {'ok' if good else 'FAIL'}")
+
+        writer_costs(driver("writer"), outs["stream2"])
+
+        four = np.stack([clips[n][eng.spec.packed_idx] for n in names[:4]])
+        log("stream sync sites " + json.dumps(sync_sites(eng, four)))
+        with per_call_constants():
+            log("stream sync sites, constants made at each call "
+                + json.dumps(sync_sites(eng, four)))
+
+        # profiled streams at the serving batcher's B = 4, three batches:
+        # as the port runs, and with the constants made at each call
+        for tag, ctx in (("cached constants", contextlib.nullcontext),
+                         ("constants made at each call", per_call_constants)):
+            drv = driver(f"profiled {tag}")
+            with ctx():
+                drv.process_stream(jobs[:4], batch_size=4, pad_to=4)  # warm
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    drv.process_stream(jobs[:12], batch_size=4, pad_to=4)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+            rec = stream_gaps(prof, wall, 3)
+            log("stream profile " + json.dumps({
+                "engine": tag, "batch": 4, "clips": 12, "wall_s": wall,
+                "clips_s": 12 / wall, **(rec or {"device": "not measured"})}))
+    return ok
+
+
+def small_stream_files(dev, root, clips):
+    """The tiny engine of ``check_small_engine`` (128² SAM, dropout 0) on
+    ``dev`` streaming ``clips`` at batch_size=2 into ``root``: {file name:
+    parsed JSON} and {video id: engine outputs}."""
+    from pathlib import Path
+    import torch
+    from lameness_tpu_torch.core.config import Config, DataDirs
+    from lameness_tpu_torch.models.gait_transformer import GaitTransformer
+    from lameness_tpu_torch.models.tcn import TCN
+    from lameness_tpu_torch.pipeline.engine import make_test_engine
+    from lameness_tpu_torch.serve.driver import PipelineDriver
+    from lameness_tpu_torch.weights import seeded_state_dict
+    gen = torch.Generator().manual_seed(SEED)
+    eng = make_test_engine(device=dev, with_sam=True, generator=gen)
+    eng.tcn = TCN(input_dim=44, dropout=0.0, device=dev)
+    eng.gait = GaitTransformer(input_dim=44, dropout=0.0, device=dev)
+    eng.load_state_dicts({"tcn": seeded_state_dict(eng.tcn, gen),
+                          "gait": seeded_state_dict(eng.gait, gen)})
+    drv = PipelineDriver(config=Config(dirs=DataDirs(root=str(root))),
+                         engine=eng, reader=MemoryReader(clips, fps=5))
+    outs = {}
+    write = drv._write_stage_results
+
+    def capture(video_id, out, bi, scale, info):
+        outs[video_id] = {k: v[bi] for k, v in leaves(out)}
+        return write(video_id, out, bi, scale, info)
+    drv._write_stage_results = capture
+    drv.process_stream([(n[:-4], Path(n)) for n in clips], batch_size=2)
+    files = {p.name: json.loads(p.read_text())
+             for p in sorted(Path(root).glob("results/*/*.json"))}
+    return files, outs
+
+
+def json_leaves(obj, prefix=""):
+    if isinstance(obj, dict):
+        for k, v in obj.items():
+            yield from json_leaves(v, f"{prefix}.{k}")
+    elif isinstance(obj, list):
+        yield prefix + "#len", len(obj)
+        for i, v in enumerate(obj):
+            yield from json_leaves(v, f"{prefix}[{i}]")
+    else:
+        yield prefix, obj
+
+
+def check_small_stream() -> bool:
+    """The tiny engine's stream (three 15-frame 160x90 clips, B = 2 and a
+    trailing batch of one) on the card against the same on the CPU: the
+    outputs behind the files under check_small_engine's gates; the files'
+    keys and list lengths equal and their numbers within 1e-4, those of a
+    sam3 file only where the clip's masks are equal bit for bit."""
+    import tempfile
+    rng = np.random.default_rng(SEED)
+    clips = {f"t{i}.mp4": rng.integers(0, 256, (15, 90, 160, 3),
+                                       dtype=np.uint8) for i in range(3)}
+    with tempfile.TemporaryDirectory() as tmp:
+        cpu = small_stream_files("cpu", f"{tmp}/cpu", clips)
+        gpu = small_stream_files("cuda", f"{tmp}/cuda", clips)
+    ok = set(cpu[0]) == set(gpu[0]) and len(cpu[0]) == 6 * len(clips)
+    worst, masks = 0.0, 1.0
+    for vid, a in cpu[1].items():
+        b = gpu[1][vid]
+        for key, x in a.items():
+            y = b[key]
+            if key == "masks":
+                masks = min(masks, float((x == y).mean()))
+            elif x.dtype == bool or np.issubdtype(x.dtype, np.integer):
+                ok &= bool(np.array_equal(x, y))
+            else:
+                tol = 1e-3 if key == "mask_iou_pred" else 1e-4
+                err = float(np.abs(x.astype(np.float64) - y).max())
+                ok &= err <= tol
+                worst = max(worst, err)
+    ok &= masks >= 0.995
+    file_err, compared = 0.0, 0
+    for name, want in cpu[0].items():
+        w, g = dict(json_leaves(want)), dict(json_leaves(gpu[0][name]))
+        ok &= list(w) == list(g)
+        vid = name.rsplit("_", 1)[0]
+        if name.endswith("_sam3.json") and not np.array_equal(
+                cpu[1][vid]["masks"], gpu[1][vid]["masks"]):
+            continue
+        compared += 1
+        for key, x in w.items():
+            if isinstance(x, float) and key in g:
+                file_err = max(file_err, abs(x - g[key]))
+    ok &= file_err <= 1e-4
+    log(f"small stream card vs CPU: {len(cpu[0])} files; outputs max_abs_err"
+        f" {worst:.3e}, mask agreement {masks:.5f}; {compared} files "
+        f"compared number by number, max_abs_err {file_err:.3e}  "
+        f"{'ok' if ok else 'FAIL'}")
+    return ok
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -1404,6 +2127,26 @@ def main() -> int:
         ok_c &= vit_h(frames)
         log("small engine, SAM at head dim 80:")
         ok_c &= check_small_engine(sam=HD80_SAM)
+    log("== phase 6: serving")
+    with switches({}):
+        torch.cuda.empty_cache()
+        eng = default_engine()
+        s = eng.spec
+        rng = np.random.default_rng(SEED + 6)
+        (clip, cow), *stream = (walking_clip(rng, s)
+                                for _ in range(1 + STREAM_CLIPS))
+        level, rel, top = calibrate_yolo(eng, clip, cow)
+        log(f"  YOLO's cow class set on level {level} (the two sides "
+            f"{rel:.3g} projection spreads apart; largest cow logit "
+            f"{top:.3g})")
+        stream = [c for c, _ in stream]
+        ok_s = curation_detector(eng, clip)
+        ok_s &= serve_stream(eng, {f"clip{i}.mp4": c
+                                   for i, c in enumerate(stream)})
+        del eng
+        torch.cuda.empty_cache()
+        log("small engine, serving stream:")
+        ok_s &= check_small_stream()
     for kid, rec in records.items():
         # each kernel's count on its own path (K1 runs on every one)
         rec["launches"] = max(counts[rec["name"]]
@@ -1414,7 +2157,8 @@ def main() -> int:
             "bound_share")
     kern = {"kernels": [{k: rec[k] for k in keys}
                         for rec in records.values()]}
-    if not (ok_build and ok_k and ok_small and ok_e and ok_m and ok_c):
+    if not (ok_build and ok_k and ok_small and ok_e and ok_m and ok_c
+            and ok_s):
         log("chip_smoke: FAILED")
         return 1
     log(smi)

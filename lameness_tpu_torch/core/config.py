@@ -1,11 +1,82 @@
-"""The slice of ``lameness_tpu/core/config.py`` the clip engine reads.
+"""The slice of ``lameness_tpu/core/config.py`` the clip engine and the
+serving driver read.
 
-Only the fields the engine uses, with the JAX package's defaults; nothing
-outside the standard library is imported (the JAX config loads YAML).
+Only the fields they use, with the JAX package's defaults; nothing outside
+the standard library is imported (the JAX config loads YAML).
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
+from pathlib import Path
+from typing import Dict, Optional
+
+
+@dataclass(frozen=True)
+class Subjects:
+    """The bus subjects, the system's true API (shared/config/config.yaml:5-30)."""
+    video_uploaded: str = "video.uploaded"
+    video_preprocessed: str = "video.preprocessed"
+    video_curated: str = "video.curated"
+    pipeline_yolo: str = "pipeline.yolo"
+    pipeline_sam3: str = "pipeline.sam3"
+    pipeline_dinov3: str = "pipeline.dinov3"
+    pipeline_tleap: str = "pipeline.tleap"
+    pipeline_tcn: str = "pipeline.tcn"
+    pipeline_transformer: str = "pipeline.transformer"
+    pipeline_ml: str = "pipeline.ml"
+    pipeline_gnn: str = "pipeline.gnn"
+    pipeline_graph_transformer: str = "pipeline.graph_transformer"
+    pipeline_fusion: str = "pipeline.fusion"
+    tracking_complete: str = "tracking.complete"
+    tracking_reid_match: str = "tracking.reid.match"
+    tracking_lameness_update: str = "tracking.lameness.update"
+    analysis_complete: str = "analysis.complete"
+    explanation_requested: str = "explanation.requested"
+    training_data_added: str = "training.data.added"
+    training_yolo_requested: str = "training.yolo.requested"
+    training_ml_requested: str = "training.ml.requested"
+    training_completed: str = "training.completed"
+    hitl_comparison_requested: str = "hitl.comparison.requested"
+    hitl_comparison_submitted: str = "hitl.comparison.submitted"
+    rater_reliability_updated: str = "rater.reliability.updated"
+    cow_prediction_updated: str = "cow.prediction.updated"
+
+    def as_dict(self) -> Dict[str, str]:
+        return dataclasses.asdict(self)
+
+
+@dataclass(frozen=True)
+class DataDirs:
+    """The data directories (shared/config/config.yaml:41-47)."""
+    root: str = "data"
+
+    @property
+    def videos(self) -> Path: return Path(self.root) / "videos"
+    @property
+    def processed(self) -> Path: return Path(self.root) / "processed"
+    @property
+    def canonical(self) -> Path: return Path(self.root) / "canonical"
+    @property
+    def training(self) -> Path: return Path(self.root) / "training"
+    @property
+    def results(self) -> Path: return Path(self.root) / "results"
+    @property
+    def quality_reports(self) -> Path: return Path(self.root) / "quality_reports"
+    @property
+    def rater_reliability(self) -> Path: return Path(self.root) / "rater_reliability"
+    @property
+    def models(self) -> Path: return Path(self.root) / "models"
+
+    def results_for(self, pipeline: str) -> Path:
+        return self.results / pipeline
+
+    def ensure(self) -> "DataDirs":
+        for p in (self.videos, self.processed, self.canonical, self.training,
+                  self.results, self.quality_reports, self.rater_reliability,
+                  self.models):
+            p.mkdir(parents=True, exist_ok=True)
+        return self
 
 
 @dataclass(frozen=True)
@@ -26,6 +97,13 @@ class SamConfig:
 
 
 @dataclass(frozen=True)
+class DinoConfig:
+    """DINOv2-base embeddings (dinov3-pipeline/app/main.py:30-36,95-127):
+    the similar cases a result lists."""
+    top_k_similar: int = 5
+
+
+@dataclass(frozen=True)
 class TcnConfig:
     mc_samples: int = 10
 
@@ -36,8 +114,27 @@ class ComputeConfig:
 
 
 @dataclass(frozen=True)
+class ReidConfig:
+    """Re-ID thresholds and the vector collections (matcher.py:52-54)."""
+    strong_match_threshold: float = 0.85
+    match_threshold: float = 0.75
+    weak_match_threshold: float = 0.65
+    momentum: float = 0.9
+    embedding_dim: int = 768
+    collection_embeddings: str = "cow_embeddings"
+    collection_identities: str = "cow_identities"
+    # a Qdrant REST server; None = the in-process store (the port has only
+    # that one: io/vecstore.make_store)
+    vector_url: Optional[str] = None
+
+
+@dataclass(frozen=True)
 class Config:
+    subjects: Subjects = field(default_factory=Subjects)
+    dirs: DataDirs = field(default_factory=DataDirs)
     yolo: YoloConfig = field(default_factory=YoloConfig)
     sam: SamConfig = field(default_factory=SamConfig)
+    dino: DinoConfig = field(default_factory=DinoConfig)
     tcn: TcnConfig = field(default_factory=TcnConfig)
+    reid: ReidConfig = field(default_factory=ReidConfig)
     compute: ComputeConfig = field(default_factory=ComputeConfig)

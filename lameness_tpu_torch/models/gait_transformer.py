@@ -83,6 +83,8 @@ class GaitTransformer(nn.Module):
                  dropout: float = 0.1, max_seq_len: int = 150, device=None):
         super().__init__()
         self.rate = dropout
+        self.d_model = d_model
+        self.heads = heads
         self.num_layers = num_layers
         self.input_projection = nn.Linear(input_dim, d_model)
         self.register_buffer("pe", torch.from_numpy(

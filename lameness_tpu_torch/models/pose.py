@@ -1,19 +1,22 @@
-"""Cow pose + locomotion features, device path (port of the device
-functions of ``lameness_tpu/models/pose.py``).
+"""Cow pose + locomotion features (port of ``lameness_tpu/models/pose.py``).
 
 ``heuristic_keypoints_device`` is the reference's anatomical-proportion
 fallback (tleap:199-265) over boxes; ``map_roboflow_to_old_device`` turns a
 trained model's 20 Roboflow keypoints into the heuristic's (old animal-pose)
 order; ``locomotion_features_device`` the masked, static-shape locomotion
-features (tleap:338-436).  The tables are copies of the JAX module's (this
-package imports nothing of it).
+features (tleap:338-436).  The host half the result writer reads (numpy):
+``compute_locomotion_features`` (the result JSON's authoritative
+features), ``heuristic_keypoints`` and the published skeleton tables.  The
+tables are copies of the JAX module's (this package imports nothing of it).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
+
+from ..core.device import constant
 
 # the trained model's 20 Roboflow keypoints, the published skeleton
 # contract (tleap:43-64)
@@ -26,6 +29,27 @@ KEYPOINT_NAMES = [
     "left_front_hoof", "right_hind_hoof", "left_hind_hoof",
 ]
 NUM_KEYPOINTS = len(KEYPOINT_NAMES)
+
+# Old animal-pose names emitted by the heuristic (tleap:221-263), in emission
+# order — locomotion features index these names.
+OLD_NAMES = [
+    "left_eye", "right_eye", "nose", "left_ear", "right_ear",
+    "left_front_elbow", "right_front_elbow", "left_back_elbow",
+    "right_back_elbow", "left_front_knee", "right_front_knee",
+    "left_back_knee", "right_back_knee", "left_front_paw", "right_front_paw",
+    "left_back_paw", "right_back_paw", "throat", "withers", "tailbase",
+]
+
+# Skeleton connections + colors (tleap:67-104) — published contract
+COW_SKELETON = [
+    (0, 1), (0, 2), (1, 2), (0, 3), (1, 4), (2, 17), (17, 18), (18, 19),
+    (5, 9), (6, 10), (7, 11), (8, 12), (9, 13), (10, 14), (11, 15), (12, 16),
+]
+SKELETON_COLORS = {
+    "face": (0, 255, 255), "spine": (0, 255, 0), "front_left": (255, 0, 0),
+    "front_right": (0, 165, 255), "back_left": (255, 0, 255),
+    "back_right": (0, 255, 255),
+}
 
 # Roboflow -> old names, so locomotion features resolve in trained mode too
 ROBOFLOW_TO_OLD = {
@@ -81,10 +105,19 @@ _R2O_SRC = np.array([_ROBO_IDX.get(_OLD_FROM_ROBO.get(n, ""), 0)
 _R2O_OK = np.array([n in _OLD_FROM_ROBO for n in H_NAMES], bool)
 
 
+def heuristic_keypoints(bbox: List[float]) -> List[Dict[str, Any]]:
+    """Host path: bbox xyxy (int-truncated like the reference, tleap:210) ->
+    list of 20 old-name keypoint dicts."""
+    x1, y1, x2, y2 = [int(c) for c in bbox]
+    w, h = x2 - x1, y2 - y1
+    return [{"name": n, "x": float(x1 + ax * w), "y": float(y1 + ay * h),
+             "confidence": float(c)} for (n, ax, ay, c) in _H]
+
+
 def heuristic_keypoints_device(boxes: torch.Tensor) -> torch.Tensor:
     """(..., 4) xyxy -> (..., 20, 3) xy + conf in H_NAMES order."""
     def t(a):
-        return torch.as_tensor(a, device=boxes.device)
+        return constant(a, torch.float32, boxes.device)
     x1, y1 = boxes[..., 0:1], boxes[..., 1:2]
     w = boxes[..., 2:3] - x1
     h = boxes[..., 3:4] - y1
@@ -97,13 +130,80 @@ def heuristic_keypoints_device(boxes: torch.Tensor) -> torch.Tensor:
 def map_roboflow_to_old_device(kpts: torch.Tensor) -> torch.Tensor:
     """(..., 20, 3) keypoints in KEYPOINT_NAMES order -> (..., 20, 3) in
     H_NAMES order, the slots with no source confidence-masked."""
-    src = torch.as_tensor(_R2O_SRC, dtype=torch.long, device=kpts.device)
-    ok = torch.as_tensor(_R2O_OK, device=kpts.device)
+    src = constant(_R2O_SRC, torch.long, kpts.device)
+    ok = constant(_R2O_OK, torch.bool, kpts.device)
     mapped = kpts[..., src, :]
     conf = torch.where(ok, mapped[..., 2], torch.zeros_like(mapped[..., 2]))
     return torch.cat([mapped[..., :2], conf[..., None]], dim=-1)
 
 
+# ---------------------------------------------------------------------------
+# locomotion features — host (numpy, result-JSON authoritative)
+# ---------------------------------------------------------------------------
+def compute_locomotion_features(pose_sequences: List[Dict]) -> Dict[str, float]:
+    """Exact replication of tleap:338-436 (conditional feature inclusion,
+    thresholds, normalisations, composite score)."""
+    if not pose_sequences or len(pose_sequences) < 2:
+        return {}
+    features: Dict[str, float] = {}
+    head_positions: List[float] = []
+    hoof_positions = {"fl": [], "fr": [], "rl": [], "rr": []}
+    spine_angles: List[float] = []
+    for frame_data in pose_sequences:
+        keypoints = frame_data.get("keypoints", [])
+        if len(keypoints) < 20:
+            continue
+        kp = {k["name"]: k for k in keypoints}
+        nose = kp.get("nose", {})
+        if nose.get("confidence", 0) > 0.3:
+            head_positions.append(nose.get("y", 0))
+        throat, withers, tailbase = (kp.get("throat", {}), kp.get("withers", {}),
+                                     kp.get("tailbase", {}))
+        if all(k.get("confidence", 0) > 0.3 for k in (throat, withers, tailbase)):
+            v1 = np.array([throat["x"] - withers["x"], throat["y"] - withers["y"]])
+            v2 = np.array([tailbase["x"] - withers["x"], tailbase["y"] - withers["y"]])
+            cosang = np.dot(v1, v2) / (np.linalg.norm(v1) * np.linalg.norm(v2) + 1e-6)
+            spine_angles.append(np.degrees(np.arccos(np.clip(cosang, -1, 1))))
+        for leg, name in (("fl", "left_front_paw"), ("fr", "right_front_paw"),
+                          ("rl", "left_back_paw"), ("rr", "right_back_paw")):
+            k = kp.get(name, {})
+            if k.get("confidence", 0) > 0.3:
+                hoof_positions[leg].append(k.get("x", 0))
+    if spine_angles:
+        features["back_arch_mean"] = float(np.mean(spine_angles))
+        features["back_arch_std"] = float(np.std(spine_angles))
+        features["back_arch_score"] = float(1.0 - np.mean(spine_angles) / 180.0)
+    if len(head_positions) > 1:
+        features["head_bob_magnitude"] = float(np.std(head_positions))
+        head_diff = np.diff(head_positions)
+        features["head_bob_frequency"] = float(
+            np.sum(np.abs(np.diff(np.sign(head_diff)))) / 2)
+        features["head_bob_score"] = float(
+            min(1.0, features["head_bob_magnitude"] / 50.0))
+    for leg, positions in hoof_positions.items():
+        if len(positions) > 1:
+            strides = np.diff(positions)
+            features[f"stride_{leg}_mean"] = float(np.mean(np.abs(strides)))
+            features[f"stride_{leg}_std"] = float(np.std(strides))
+    if "stride_fl_mean" in features and "stride_fr_mean" in features:
+        features["front_leg_asymmetry"] = float(
+            abs(features["stride_fl_mean"] - features["stride_fr_mean"]) /
+            (features["stride_fl_mean"] + features["stride_fr_mean"] + 1e-6))
+    if "stride_rl_mean" in features and "stride_rr_mean" in features:
+        features["rear_leg_asymmetry"] = float(
+            abs(features["stride_rl_mean"] - features["stride_rr_mean"]) /
+            (features["stride_rl_mean"] + features["stride_rr_mean"] + 1e-6))
+    comps = [features[k] for k in ("back_arch_score", "head_bob_score",
+                                   "front_leg_asymmetry", "rear_leg_asymmetry")
+             if k in features]
+    if comps:
+        features["lameness_score"] = float(np.mean(comps))
+    return features
+
+
+# ---------------------------------------------------------------------------
+# locomotion features — device (masked, static shapes)
+# ---------------------------------------------------------------------------
 def _masked_mean(x, m):
     """Mean of x over mask m along the last axis, 0 where m is empty."""
     m = m.to(x.dtype)

@@ -74,6 +74,7 @@ class TCN(nn.Module):
         super().__init__()
         self.rate = dropout
         self.num_blocks = len(channels)
+        self.kernel_size = kernel_size
         cin = input_dim
         for i, ch in enumerate(channels):
             self.add_module(f"block{i}", TemporalBlock(
@@ -82,6 +83,13 @@ class TCN(nn.Module):
         self.fc1 = nn.Linear(cin, 32)
         self.fc2 = nn.Linear(32, 1)
         self.to(resolve_device(device))
+
+    @property
+    def receptive_field(self) -> int:
+        rf = 1
+        for i in range(self.num_blocks):
+            rf += 2 * (self.kernel_size - 1) * (2 ** i)
+        return rf
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:

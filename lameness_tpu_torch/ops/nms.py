@@ -13,6 +13,7 @@ from typing import Tuple
 
 import torch
 
+from ..core.device import constant
 from .boxes import pairwise_iou
 
 _CLASS_OFFSET = 1e4
@@ -27,8 +28,7 @@ def nms_batched(boxes: torch.Tensor, scores: torch.Tensor,
     """boxes (B, N, 4), scores (B, N), classes (B, N) int32 -> boxes
     (B, K, 4), scores (B, K), classes (B, K), valid (B, K); slots past the
     survivors are zero (class -1) with valid False."""
-    neg_inf = torch.tensor(float("-inf"), dtype=scores.dtype,
-                           device=scores.device)
+    neg_inf = constant(float("-inf"), scores.dtype, scores.device)
     live = torch.where(scores > score_threshold, scores, neg_inf)
     if class_agnostic:
         offset_boxes = boxes

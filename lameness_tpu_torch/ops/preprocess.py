@@ -13,6 +13,8 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..core.device import constant
+
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
@@ -34,8 +36,8 @@ def resize_nhwc(x: torch.Tensor, size: Tuple[int, int],
 
 def normalize(frames: torch.Tensor, mean: Sequence[float] = IMAGENET_MEAN,
               std: Sequence[float] = IMAGENET_STD) -> torch.Tensor:
-    m = torch.tensor(mean, dtype=frames.dtype, device=frames.device)
-    s = torch.tensor(std, dtype=frames.dtype, device=frames.device)
+    m = constant(mean, frames.dtype, frames.device)
+    s = constant(std, frames.dtype, frames.device)
     return (frames - m) / s
 
 
@@ -55,8 +57,7 @@ def letterbox(frames: torch.Tensor, out_size: int = 640,
                         dtype=frames.dtype, device=frames.device)
     canvas[:, pad_y:pad_y + new_h, pad_x:pad_x + new_w] = resized
     ratio = torch.full((n,), r, dtype=torch.float32, device=frames.device)
-    pad = torch.tensor([pad_x, pad_y], dtype=torch.float32,
-                       device=frames.device).expand(n, 2)
+    pad = constant([pad_x, pad_y], torch.float32, frames.device).expand(n, 2)
     return canvas, ratio, pad
 
 

@@ -39,6 +39,7 @@ launches its kernel (``csrc/<entry>.cu``) or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 from typing import List, Optional
 
@@ -77,9 +78,12 @@ WINDOW_V5_KERNEL = CudaKernel(                                   # K9
     "lameness_sam_window_attention_v5", _HEADS_ARGS)
 
 
-def _rel_index(g: int) -> torch.Tensor:
+@functools.lru_cache(maxsize=None)
+def _rel_index(g: int, device: torch.device) -> torch.Tensor:
+    """The (g, g) table index q - k + g - 1, made once per device (copied
+    to the card at each call it would synchronise the stream)."""
     i = np.arange(g)
-    return torch.from_numpy((i[:, None] - i[None, :]) + (g - 1))
+    return torch.from_numpy((i[:, None] - i[None, :]) + (g - 1)).to(device)
 
 
 def project_rel_tables(q: torch.Tensor, rel_pos_h: torch.Tensor,
@@ -90,8 +94,8 @@ def project_rel_tables(q: torch.Tensor, rel_pos_h: torch.Tensor,
     rel_h[b, qh, qw, kh] = Σ_d q[b, qh·GW+qw, d] · Rh[qh-kh+GH-1, d]."""
     gh = g
     gw = gh if gw is None else gw
-    rh = rel_pos_h[_rel_index(gh).to(rel_pos_h.device)]   # (GH, GH, D)
-    rw = rel_pos_w[_rel_index(gw).to(rel_pos_w.device)]   # (GW, GW, D)
+    rh = rel_pos_h[_rel_index(gh, rel_pos_h.device)]   # (GH, GH, D)
+    rw = rel_pos_w[_rel_index(gw, rel_pos_w.device)]   # (GW, GW, D)
     qg = q.reshape(q.shape[0], gh, gw, -1)
     rel_h = torch.einsum("bhwd,hkd->bhwk", qg, rh.to(q.dtype))
     rel_w = torch.einsum("bhwd,wkd->bhwk", qg, rw.to(q.dtype))
@@ -104,8 +108,8 @@ def project_rel_tables_hl(q4: torch.Tensor, rel_pos_h: torch.Tensor,
     """Head-last projection: q4 (BW, N, nH, hd) -> rh4 (BW, N, nH, GH),
     rw4 (BW, N, nH, GW), token t = qh·GW + qw."""
     gw = gh if gw is None else gw
-    rh = rel_pos_h[_rel_index(gh).to(rel_pos_h.device)]
-    rw = rel_pos_w[_rel_index(gw).to(rel_pos_w.device)]
+    rh = rel_pos_h[_rel_index(gh, rel_pos_h.device)]
+    rw = rel_pos_w[_rel_index(gw, rel_pos_w.device)]
     rh_tok = rh.repeat_interleave(gw, dim=0).to(q4.dtype)  # (N, GH, D)
     rw_tok = rw.repeat(gh, 1, 1).to(q4.dtype)              # (N, GW, D)
     rh4 = torch.einsum("bthd,tkd->bthk", q4, rh_tok)

@@ -39,7 +39,7 @@ import numpy as np
 import torch
 
 from ..core.config import Config
-from ..core.device import resolve_device
+from ..core.device import constant, resolve_device
 from ..models import dino as dino_mod
 from ..models import pose as pose_mod
 from ..models import sam as sam_mod
@@ -405,31 +405,40 @@ class LamenessEngine:
         rows = torch.arange(boxes.shape[0], device=boxes.device)
         pb, ps = boxes[rows, best], scores[rows, best]
         has = has_cow | has_any
-        fallback = torch.tensor([0.1 * w, 0.1 * h, 0.9 * w, 0.9 * h],
-                                dtype=pb.dtype, device=pb.device)
+        fallback = constant([0.1 * w, 0.1 * h, 0.9 * w, 0.9 * h], pb.dtype,
+                            pb.device)
         pb = torch.where(has[:, None], pb, fallback)
         ps = torch.where(has, ps, torch.full_like(ps, 0.5))
         return pb, ps, has
 
     # -- stage frame accessors (one packed tensor, or the split dict) -------
+    # (the row indices are device constants: a numpy index is copied to the
+    # card with a stream synchronisation at each call)
     def _det_frames(self, frames):
         """The det/SAM rows and their geometry (always frame_*)."""
         s = self.spec
         if isinstance(frames, dict):
             return frames["hi"], s.frame_height, s.frame_width
-        return frames[:, s.det_pos], s.frame_height, s.frame_width
+        return (frames[:, constant(s.det_pos, torch.long, frames.device)],
+                s.frame_height, s.frame_width)
 
     def _dino_frames(self, frames):
         s = self.spec
         if isinstance(frames, dict):
-            return frames["lo"][:, s.dino_pos_lo], s.lo_height, s.lo_width
-        return frames[:, s.dino_pos], s.frame_height, s.frame_width
+            lo = frames["lo"]
+            return (lo[:, constant(s.dino_pos_lo, torch.long, lo.device)],
+                    s.lo_height, s.lo_width)
+        return (frames[:, constant(s.dino_pos, torch.long, frames.device)],
+                s.frame_height, s.frame_width)
 
     def _pose_frames(self, frames):
         s = self.spec
         if isinstance(frames, dict):
-            return frames["lo"][:, s.pose_pos_lo], s.lo_height, s.lo_width
-        return frames[:, s.pose_pos], s.frame_height, s.frame_width
+            lo = frames["lo"]
+            return (lo[:, constant(s.pose_pos_lo, torch.long, lo.device)],
+                    s.lo_height, s.lo_width)
+        return (frames[:, constant(s.pose_pos, torch.long, frames.device)],
+                s.frame_height, s.frame_width)
 
     def _detect_stage(self, frames):
         """frames (B, P, H, W, 3) packed uint8 (or the split dict) -> boxes
@@ -583,7 +592,7 @@ class LamenessEngine:
         pose_idx = s.pose_idx
         tp = len(pose_idx)
         nearest = np.abs(pose_idx[:, None] - s.det_idx[None, :]).argmin(1)
-        nearest = torch.as_tensor(nearest, device=primary_bt.device)
+        nearest = constant(nearest, torch.long, primary_bt.device)
         pose_boxes = primary_bt[:, nearest]                    # (B, Tp, 4)
         pose_scores = score_bt[:, nearest]
         pose_valid = torch.ones((b, tp), dtype=torch.bool,

@@ -1,0 +1,578 @@
+"""The serving driver's stream path on the card (port of
+``lameness_tpu/serve/driver.py``).
+
+``process_stream`` takes (video_id, path) jobs, decodes them on a thread
+pool, runs the engine over batches of clips and writes each clip's six
+result files (yolo, sam3, dinov3, tleap, tcn, transformer) and bus
+messages, as the JAX driver does:
+- the producer thread decodes (``_load_engine_frames``) and stacks a
+  batch, padded to ``pad_to`` by repeating the last clip;
+- the consumer (the calling thread) does all device work: batch N+1's
+  transfer, its stages and its packed output are queued while batch N
+  runs, then N is read back.  The transfer runs on a copy-in stream and the
+  readback on a copy-out stream (``core/streams.py``): on CUDA a copy on
+  the compute stream would wait for the kernels queued around it;
+- the writer thread turns each read-back batch into result files.
+
+Decoding is the caller's: ``reader`` is a callable ``path -> reader``
+with ``info`` ({"width", "height", "fps", "total_frames"}) and
+``read_selected(indices) -> {index: (H, W, 3) uint8 RGB frame}`` (the JAX
+package's ``VideoReader`` interface; a context manager is entered).  The
+port has no OpenCV: frames are resized to the engine's geometry by its
+bilinear resize (cv2's INTER_LINEAR within 1; a frame already at that size
+is used as it is, as cv2 leaves it), and ``_mask_features`` measures masks
+with ``serve/contours.py``.
+
+Not ported yet (ROADMAP.md §1): ingest and preprocess (file copy, crop),
+``ClipCurator``, tracking and Re-ID, the graph heads, the GBDT ensemble and
+fusion, and the mesh branch of ``process_stream``.  Until ``ClipCurator``
+is, the batched curation detector is exposed as ``detector``.
+"""
+from __future__ import annotations
+
+import contextlib
+import os
+import queue
+import threading
+import time
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+from typing import Any, Callable, Dict, List, Optional
+
+import numpy as np
+
+from ..core.config import Config
+from ..core.streams import Overlap
+from ..io import schemas
+from ..io.bus import MessageBus
+from ..io.vecstore import VectorStore, make_store
+from ..models import pose as pose_mod
+from ..pipeline.engine import _rows_at
+from ..utils.logging import get_logger
+from ..utils.timing import TIMERS
+from .contours import first_moments, largest_external_contour, \
+    resize_nearest
+
+LOG = get_logger("driver")
+# threads a clip's mask features are measured on
+MASK_WORKERS = min(4, os.cpu_count() or 1)
+
+
+class PipelineDriver:
+    def __init__(self, config: Optional[Config] = None, engine=None,
+                 bus: Optional[MessageBus] = None,
+                 store: Optional[VectorStore] = None,
+                 reader: Optional[Callable] = None,
+                 detector=None):
+        self.config = config or Config()
+        self.dirs = self.config.dirs.ensure()
+        self.bus = bus or MessageBus(
+            journal_path=self.dirs.root and
+            Path(self.dirs.root) / "bus_journal.jsonl")
+        self.engine = engine
+        if store is None:
+            store = make_store(
+                url=self.config.reid.vector_url,
+                persist_path=Path(self.dirs.root) / "vector_store.json",
+                device=engine.device if engine is not None else None)
+        self.store = store
+        self.store.create_collection(
+            self.config.reid.collection_embeddings,
+            self.config.reid.embedding_dim)
+        self.reader = reader
+        # built lazily (the ``detector`` property): YOLO weights loaded
+        # after the driver was made must still reach curation
+        self._detector_injected = detector is not None
+        self._detector = detector
+
+    def _engine_has_yolo(self) -> bool:
+        return self.engine is not None and bool(
+            getattr(self.engine, "loaded_weights", {}).get("yolo"))
+
+    def _build_detector(self):
+        """The engine's YOLO as the chunked curation detector, when its
+        weights are loaded (the JAX driver's ``_build_curator``)."""
+        from ..video.curation import BatchedYoloDetector
+        return BatchedYoloDetector(
+            self.engine.yolo, cow_class_id=self.config.yolo.cow_class_id,
+            size=self.engine.spec.yolo_size)
+
+    @property
+    def detector(self):
+        """The curation detector: the one given, or the engine's YOLO once
+        its weights are loaded, else None (the motion fallback needs
+        OpenCV and is not ported)."""
+        if (not self._detector_injected and self._detector is None
+                and self._engine_has_yolo()):
+            LOG.info("curator.upgrade", detail="yolo weights arrived; "
+                     "curation moves to the batched device detector")
+            self._detector = self._build_detector()
+        return self._detector
+
+    # ------------------------------------------------ fused device stages ---
+    def _load_engine_frames(self, video_path: Path):
+        """Decode + resize to the engine's static geometry; returns
+        (frames (1, P, H, W, 3) PACKED, scale (sx, sy), native info).
+
+        Only the frames the stage subsets consume (det ∪ dino ∪ pose, 33
+        of 125 for a canonical clip) are read and resized."""
+        if self.reader is None:
+            raise RuntimeError(
+                "PipelineDriver needs reader=: lameness_tpu_torch has no "
+                "video decoder yet (path -> object with info and "
+                "read_selected)")
+        s = self.engine.spec
+        union = [int(i) for i in np.asarray(s.packed_idx)]
+        with contextlib.ExitStack() as stack:
+            vr = self.reader(Path(video_path))
+            if hasattr(vr, "__enter__"):
+                vr = stack.enter_context(vr)
+            info = vr.info
+            frames_map = vr.read_selected(union)
+        if not frames_map:
+            return None, None, info
+        sx = info["width"] / s.frame_width
+        sy = info["height"] / s.frame_height
+
+        def resize(f, size):
+            w, h = size
+            return _rows_at(f[None, None], [0], h, w)[0, 0]
+        if s.split:
+            # split-resolution ingest: det/SAM rows at hi geometry,
+            # dino/pose rows at lo — each decoded frame is resized once
+            # per set it belongs to; coords stay in hi space
+            out = {"hi": np.zeros((len(s.hi_idx), s.frame_height,
+                                   s.frame_width, 3), np.uint8),
+                   "lo": np.zeros((len(s.lo_idx), s.lo_height,
+                                   s.lo_width, 3), np.uint8)}
+            rows = {"hi": {int(i): pi for pi, i in enumerate(s.hi_idx)},
+                    "lo": {int(i): pi for pi, i in enumerate(s.lo_idx)}}
+            geom = {"hi": (s.frame_width, s.frame_height),
+                    "lo": (s.lo_width, s.lo_height)}
+            last = {"hi": None, "lo": None}
+            for idx in union:
+                f = frames_map.get(idx)
+                for key in ("hi", "lo"):
+                    pi = rows[key].get(idx)
+                    if pi is None:
+                        continue
+                    if f is not None:
+                        last[key] = resize(f, geom[key])
+                    if last[key] is not None:
+                        out[key][pi] = last[key]
+            return {k: v[None] for k, v in out.items()}, (sx, sy), info
+        out = np.zeros((s.n_packed, s.frame_height, s.frame_width, 3),
+                       np.uint8)
+        last = None
+        for pi, idx in enumerate(union):
+            f = frames_map.get(idx)
+            if f is not None:
+                last = resize(f, (s.frame_width, s.frame_height))
+            if last is not None:
+                # missing tail frames repeat the last decoded one
+                out[pi] = last
+        return out[None], (sx, sy), info
+
+    def run_feature_stages(self, video_id: str,
+                           processed_path: Path) -> Optional[Dict[str, Any]]:
+        """Run the engine once, then write the yolo/sam3/dinov3/tleap/
+        tcn/transformer result files and publish their subjects."""
+        assert self.engine is not None, "driver needs an engine"
+        with TIMERS.time("decode"):
+            frames, scale, info = self._load_engine_frames(processed_path)
+        if frames is None:
+            return None
+        t0 = time.perf_counter()
+        with TIMERS.time("engine"):
+            out = self.engine.process_clip_batch(frames)
+        LOG.info("engine.complete", video_id=video_id,
+                 seconds=round(time.perf_counter() - t0, 3))
+        return self._write_stage_results(video_id, out, 0, scale, info)
+
+    def run_feature_stages_batch(self, jobs, pad_to: Optional[int] = None):
+        """Throughput path: N clips -> ONE engine call -> N result sets.
+        jobs: list of (video_id, processed_path).  Thin wrapper over
+        process_stream (one batch, no lookahead decode)."""
+        jobs = list(jobs)
+        return self.process_stream(jobs, batch_size=max(1, len(jobs)),
+                                   pad_to=pad_to)
+
+    def process_stream(self, jobs, batch_size: int = 1,
+                       pad_to: Optional[int] = None,
+                       decode_workers: Optional[int] = None,
+                       on_decode_failure=None):
+        """Throughput path with decode/compute overlap.
+
+        jobs: iterable of (video_id, processed_path).  Returns per-video
+        result dicts in completion order.  ``pad_to`` pads every engine
+        call (including a trailing partial batch) to one batch size by
+        repeating the last clip.  ``decode_workers`` (default
+        ``LAMENESS_DECODE_WORKERS`` or min(4, cpu_count)) decode in a
+        thread pool, in job order, with at most workers + 2 clips in
+        flight.  ``on_decode_failure(video_id, error)`` is called for a
+        clip that gives no frames; it gets no result file.  The first error
+        of the writer thread is raised after the stream has drained."""
+        jobs = list(jobs)
+        q: "queue.Queue" = queue.Queue(maxsize=2)
+        wq: "queue.Queue" = queue.Queue(maxsize=2)
+        if decode_workers is None:
+            decode_workers = int(os.environ.get(
+                "LAMENESS_DECODE_WORKERS", min(4, os.cpu_count() or 1)))
+        decode_workers = max(1, decode_workers)
+
+        def load(job):
+            video_id, path = job
+            try:
+                with TIMERS.time("decode"):
+                    frames, scale, info = self._load_engine_frames(
+                        Path(path))
+            except Exception as e:
+                LOG.error("stream.decode_failed", exc=e, video_id=video_id)
+                frames, err = None, e   # `e` is unbound past this clause
+            else:
+                err = ValueError("no decodable frames")
+            if frames is None:
+                # a skipped clip must surface: it writes no result file
+                if on_decode_failure is not None:
+                    try:
+                        on_decode_failure(video_id, err)
+                    except Exception:
+                        pass
+                return video_id, None, None, None
+            return video_id, frames, scale, info
+
+        def producer():
+            # the None sentinel must reach the consumer even if a decode
+            # raises: a dead producer would leave it waiting forever
+            try:
+                batch = []
+
+                def flush(batch):
+                    frames_list = [b[1] for b in batch]
+                    if pad_to is not None:
+                        while len(frames_list) < pad_to:
+                            frames_list.append(frames_list[-1])
+                    if isinstance(frames_list[0], dict):
+                        stacked = {k: np.stack([f[k] for f in frames_list])
+                                   for k in frames_list[0]}
+                    else:
+                        stacked = np.stack(frames_list)
+                    # host work only: the transfer is the consumer's
+                    q.put((stacked, [(vid, scale, info)
+                                     for vid, _, scale, info in batch]))
+
+                with ThreadPoolExecutor(max_workers=decode_workers) as pool:
+                    it = iter(jobs)
+                    futs = deque()
+                    for job in jobs[:decode_workers + 2]:
+                        futs.append(pool.submit(load, job))
+                        next(it)
+                    while futs:
+                        video_id, frames, scale, info = \
+                            futs.popleft().result()
+                        nxt = next(it, None)
+                        if nxt is not None:
+                            futs.append(pool.submit(load, nxt))
+                        if frames is None:
+                            continue
+                        f0 = {k: v[0] for k, v in frames.items()} \
+                            if isinstance(frames, dict) else frames[0]
+                        batch.append((video_id, f0, scale, info))
+                        if len(batch) >= batch_size:
+                            flush(batch)
+                            batch = []
+                if batch:
+                    flush(batch)
+            finally:
+                q.put(None)
+
+        results = []
+        werr = []
+
+        def writer():
+            # host only: takes read-back numpy trees
+            while True:
+                item = wq.get()
+                if item is None:
+                    break
+                out, metas = item
+                try:
+                    for bi, (video_id, scale, info) in enumerate(metas):
+                        results.append(self._write_stage_results(
+                            video_id, out, bi, scale, info))
+                except Exception as e:        # keep draining; re-raised below
+                    if not werr:
+                        werr.append(e)
+                    LOG.error("stream.write_failed", exc=e,
+                              video_ids=[m[0] for m in metas])
+
+        t = threading.Thread(target=producer, daemon=True)
+        wt = threading.Thread(target=writer, daemon=True)
+        t.start()
+        wt.start()
+        lanes = Overlap(self.engine.device)
+
+        def _readback(fetched):
+            wait, meta = fetched
+            with TIMERS.time("readback"):
+                (flat,) = wait()
+                return self.engine.unpack_output(flat, meta)
+
+        pending = None                    # ((wait, meta), metas)
+        try:
+            while True:
+                item = q.get()
+                if item is None:
+                    break
+                stacked, metas = item
+                # batch N+1's copy runs while batch N computes
+                with TIMERS.time("transfer"):
+                    fd = lanes.put(lambda: self.engine.to_device(stacked))
+                with TIMERS.time("engine_stream"):
+                    out_dev = self.engine.process_clip_batch(
+                        fd, readback=False)
+                    # the packed output's copy back is queued before any
+                    # later batch's stages, and waited for alone
+                    flat, meta = self.engine.pack_output(out_dev)
+                    fetched = (lanes.fetch([flat]), meta)
+                if pending is not None:
+                    wq.put((_readback(pending[0]), pending[1]))
+                pending = (fetched, metas)
+            if pending is not None:
+                wq.put((_readback(pending[0]), pending[1]))
+        finally:
+            wq.put(None)
+            wt.join()
+        t.join()
+        if werr:
+            raise werr[0]
+        return results
+
+    def _write_stage_results(self, video_id, out, bi, scale, info):
+        with TIMERS.time("write_results"):
+            return self._write_stage_results_inner(video_id, out, bi,
+                                                   scale, info)
+
+    def _write_stage_results_inner(self, video_id, out, bi, scale, info):
+        sx, sy = scale
+        s = self.engine.spec
+        fps = info["fps"] or s.fps
+        total_frames = int(info["total_frames"])
+        subj = self.config.subjects
+        # messages wait until every result file is written: on the
+        # in-process bus a publish runs downstream handlers at once
+        deferred = []
+
+        # ---- yolo result (yolo-pipeline/app/main.py:112-199) -------------
+        det_entries = []
+        all_boxes, all_confs = [], []
+        n_real = min(total_frames, s.clip_frames)
+        for ti, fr in enumerate(np.asarray(s.det_idx)):
+            if fr >= n_real:
+                break
+            dets = []
+            for k in range(s.max_det):
+                if not out["det_valid"][bi, ti, k]:
+                    continue
+                b = out["det_boxes"][bi, ti, k] * [sx, sy, sx, sy]
+                dets.append(schemas.yolo_detection_entry(
+                    int(fr), b, float(out["det_scores"][bi, ti, k]),
+                    f"class_{int(out['det_classes'][bi, ti, k])}"
+                    if int(out["det_classes"][bi, ti, k]) != 19 else "cow",
+                    int(out["det_classes"][bi, ti, k])))
+                all_boxes.append(b)
+                all_confs.append(float(out["det_scores"][bi, ti, k]))
+            if dets:
+                det_entries.append(schemas.yolo_frame_entry(int(fr), fps, dets))
+        feats = schemas.yolo_features(
+            np.asarray(all_boxes) if all_boxes else np.zeros((0, 4)),
+            np.asarray(all_confs), len(det_entries), total_frames)
+        yolo_result = schemas.yolo_result(det_entries, feats, total_frames, fps)
+        ypath = schemas.write_result(
+            self.dirs.results_for("yolo") / f"{video_id}_yolo.json",
+            yolo_result)
+        deferred.append((subj.pipeline_yolo, schemas.yolo_message(
+            video_id, str(ypath), yolo_result)))
+
+        # ---- sam3 result (sam3-pipeline/app/main.py:186-272) --------------
+        # the masks' features on a few threads (numpy and scipy release the
+        # GIL), then in frame order as the JAX driver builds them
+        frames = [(ti, fr) for ti, fr in enumerate(np.asarray(s.det_idx))
+                  if fr < n_real]
+        measured = [ti for ti, _ in frames if out["primary_valid"][bi, ti]]
+        with ThreadPoolExecutor(max_workers=MASK_WORKERS) as pool:
+            shapes = dict(zip(measured, pool.map(
+                lambda ti: self._mask_features(
+                    np.asarray(out["masks"][bi, ti], np.uint8), info),
+                measured)))
+        segs, frame_feats = [], []
+        for ti, fr in frames:
+            has_det = ti in shapes
+            if has_det:
+                ff = shapes[ti]
+                ff["frame"] = int(fr)
+                ff["time"] = fr / fps if fps > 0 else 0
+                frame_feats.append(ff)
+                segs.append(schemas.sam3_segmentation_entry(
+                    int(fr), fps, True, ff))
+            else:
+                segs.append(schemas.sam3_segmentation_entry(
+                    int(fr), fps, False))
+        agg = schemas.sam3_aggregated(frame_feats)
+        sam_result = schemas.sam3_result(segs, agg, total_frames, fps)
+        spath = schemas.write_result(
+            self.dirs.results_for("sam3") / f"{video_id}_sam3.json",
+            sam_result)
+        deferred.append((subj.pipeline_sam3, schemas.sam3_message(
+            video_id, str(spath), sam_result)))
+
+        # ---- dinov3 result (dinov3-pipeline/app/main.py:188-275) ----------
+        emb_entries = []
+        for ti, fr in enumerate(np.asarray(s.dino_idx)):
+            if fr >= n_real:
+                break
+            emb_entries.append(schemas.dinov3_embedding_entry(
+                int(fr), fps, out["embeddings"][bi, ti]))
+        if emb_entries:
+            avg_emb = np.mean([e["embedding"] for e in emb_entries], axis=0)
+            similar = self._search_similar(avg_emb, video_id)
+            labels = [c["label"] for c in similar if c["label"] is not None]
+            if labels:
+                neighbor_evidence = sum(1 for l in labels if l == 1) / len(labels)
+            else:
+                neighbor_evidence = 0.5
+            self.store.upsert(self.config.reid.collection_embeddings,
+                              video_id, avg_emb,
+                              payload={"video_id": video_id, "label": None,
+                                       "metadata": {}})
+            canonical = [emb_entries[0], emb_entries[len(emb_entries) // 2],
+                         emb_entries[-1]]
+            dino_result = schemas.dinov3_result(
+                video_id, avg_emb, len(emb_entries), similar,
+                neighbor_evidence, canonical)
+            dpath = schemas.write_result(
+                self.dirs.results_for("dinov3") / f"{video_id}_dinov3.json",
+                dino_result)
+            deferred.append((subj.pipeline_dinov3, schemas.dinov3_message(
+                video_id, str(dpath), dino_result)))
+
+        # ---- tleap result (tleap-pipeline/app/main.py:438-530) ------------
+        # trained mode writes the model's Roboflow names in the JSON (like
+        # the reference); locomotion always computes from the old-name
+        # mapping so its features resolve in both modes
+        trained = bool(self.engine.loaded_weights.get("pose"))
+        json_kp = out.get("keypoints_model") if trained else out["keypoints"]
+        json_names = pose_mod.KEYPOINT_NAMES if trained else pose_mod.H_NAMES
+
+        def _seqs(kp_arr, names):
+            seqs = []
+            for ti, fr in enumerate(np.asarray(s.pose_idx)):
+                if fr >= n_real:
+                    break
+                kps = []
+                for k in range(20):
+                    kp = kp_arr[bi, ti, k]
+                    kps.append({"name": names[k],
+                                "x": float(kp[0] * sx), "y": float(kp[1] * sy),
+                                "confidence": float(kp[2])})
+                pb = out["pose_boxes"][bi, ti] * [sx, sy, sx, sy]
+                seqs.append({
+                    "frame": int(fr), "time": fr / fps if fps > 0 else 0,
+                    "bbox": [float(v) for v in pb], "keypoints": kps,
+                    "detection_confidence": float(
+                        out["primary_scores"][bi,
+                                              min(ti, len(s.det_idx) - 1)]),
+                })
+            return seqs
+
+        pose_seqs = _seqs(json_kp, json_names)
+        loco = pose_mod.compute_locomotion_features(
+            _seqs(out["keypoints"], pose_mod.H_NAMES) if trained
+            else pose_seqs)
+        tleap_result = schemas.tleap_result(
+            video_id, total_frames, fps, pose_seqs, loco,
+            "trained" if trained else "heuristic",
+            pose_mod.KEYPOINT_NAMES,
+            [list(c) for c in pose_mod.COW_SKELETON],
+            {k: list(v) for k, v in pose_mod.SKELETON_COLORS.items()})
+        tpath = schemas.write_result(
+            self.dirs.results_for("tleap") / f"{video_id}_tleap.json",
+            tleap_result)
+        deferred.append((subj.pipeline_tleap, schemas.tleap_message(
+            video_id, str(tpath), tleap_result)))
+
+        # ---- tcn + transformer results (tcn:330-393, transformer:394-464) -
+        tcn_result = schemas.tcn_result(
+            video_id, float(out["tcn_probability"][bi]),
+            float(out["tcn_uncertainty"][bi]),
+            int(out["seq_features"].shape[1]), 44,
+            self.engine.tcn.receptive_field)
+        schemas.write_result(
+            self.dirs.results_for("tcn") / f"{video_id}_tcn.json", tcn_result)
+        deferred.append((subj.pipeline_tcn, {
+            "video_id": video_id, "pipeline": "tcn",
+            "severity_score": tcn_result["severity_score"],
+            "uncertainty": tcn_result["uncertainty"]}))
+
+        masked = int(np.asarray(out["seq_mask"][bi]).sum())
+        tr_result = schemas.transformer_result(
+            video_id, float(out["gait_probability"][bi]),
+            float(out["gait_uncertainty"][bi]),
+            int(out["seq_features"].shape[1]), 44, masked,
+            np.asarray(out["gait_saliency"][bi]),
+            self.engine.gait.d_model, self.engine.gait.num_layers,
+            self.engine.gait.heads)
+        schemas.write_result(
+            self.dirs.results_for("transformer")
+            / f"{video_id}_transformer.json", tr_result)
+        deferred.append((subj.pipeline_transformer, {
+            "video_id": video_id, "pipeline": "transformer",
+            "severity_score": tr_result["severity_score"],
+            "uncertainty": tr_result["uncertainty"]}))
+        for subject, msg in deferred:
+            self.bus.publish_sync(subject, msg)
+        return out
+
+    def _mask_features(self, mask: np.ndarray, info: Dict) -> Dict[str, Any]:
+        """Shape features of a mask at the clip's native size (sam3:102-145):
+        area and centroid from the pixels (cv2.moments), circularity,
+        perimeter and aspect from the largest outer contour
+        (``serve/contours.py``, cv2's conventions)."""
+        h_n, w_n = int(info["height"]), int(info["width"])
+        mask_full = resize_nearest(np.asarray(mask, np.uint8) * 255 > 127,
+                                   w_n, h_n)
+        mask_area = float(mask_full.sum())
+        total = mask_full.size
+        contour = largest_external_contour(mask_full)
+        if contour is not None:
+            area, perimeter, (_, _, bw, bh) = contour
+            circ = (4 * np.pi * area) / (perimeter ** 2) \
+                if perimeter > 0 else 0
+            aspect = bw / bh if bh > 0 else 0
+        else:
+            perimeter, circ, aspect = 0.0, 0, 0
+        m00, m10, m01 = first_moments(mask_full)
+        if m00 != 0:
+            cx, cy = m10 / m00, m01 / m00
+        else:
+            cx, cy = w_n / 2, h_n / 2
+        return {"mask_area": mask_area,
+                "area_ratio": mask_area / total if total else 0,
+                "circularity": float(circ), "aspect_ratio": float(aspect),
+                "centroid_x": float(cx), "centroid_y": float(cy),
+                "perimeter": float(perimeter)}
+
+    def _search_similar(self, emb: np.ndarray, exclude: str
+                        ) -> List[Dict[str, Any]]:
+        hits = self.store.search(self.config.reid.collection_embeddings, emb,
+                                 top_k=self.config.dino.top_k_similar + 1)
+        out = []
+        for h in hits:
+            if h.id == exclude:
+                continue
+            out.append({"video_id": h.payload.get("video_id", h.id),
+                        "score": h.score,
+                        "label": h.payload.get("label"),
+                        "metadata": h.payload.get("metadata", {})})
+        return out[:self.config.dino.top_k_similar]
