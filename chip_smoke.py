@@ -67,6 +67,22 @@ Phases, each failing loudly (no exception is swallowed):
      profiled stream at B = 4 (busy share of a batch, copies in and out
      overlapped by kernels), beside the same with the engine's constants
      made at each call; (c) the tiny engine's stream, card against CPU.
+  7. analysis (the back half of process_video_file, no kernel of its
+     own): (a) the graph heads at full width (GraphGPS 128-d, 8 heads, 4
+     layers; Graphormer 128-d, 6 layers, 8 heads, FFN 512; max_nodes 128;
+     10 MC-dropout samples a head) over 16 cows x 8 written videos, the
+     global graph and a per-cow graph: card against CPU (deterministic
+     outputs, dropout-0 result files, two MC runs equal, std > 0) and a
+     ``graph record`` each (process_video ms, host parts, each forward's ms
+     and launches, device busy share, peak MB); (b) run_tracking (host),
+     the graph heads, run_ml and fusion over phase 6's videos and over
+     4 cows x 8 written walking videos: every file valid, every fusion
+     file with the five automated predictors, the stage timers a clip and
+     clips/s; on the walks, which ByteTrack confirms, every video tracked,
+     Re-ID naming its cow and a per-cow graph; (c) the device tracker, card against
+     CPU over phase 6's clips (ids and states equal, boxes within 1e-4), ms
+     and launches a clip, and the same confirmed tracks as the host
+     ByteTracker on phase 6's walking block.
 The line before the last is the kernel record (JSON); the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 without a CUDA device or outside the repository.
@@ -76,11 +92,13 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1794,10 +1812,11 @@ def per_call_constants():
         dev_mod._constant, sa._rel_index = cached, index
 
 
-def serve_stream(eng, clips) -> bool:
+def serve_stream(eng, clips, keep_root=None) -> bool:
     """6b: ``PipelineDriver.process_stream`` on the default engine over
     STREAM_JOBS jobs of the 125-frame 720p ``clips`` held in memory, at each
-    of STREAM_BATCHES (batch_size = pad_to), each into a fresh data root;
+    of STREAM_BATCHES (batch_size = pad_to), each into a fresh data root
+    (the one of B = 4 copied to ``keep_root``, mtimes kept, for phase 7);
     the serial path (process_clip_batch, then the writer) at B = 2 and 4;
     profiled streams at B = 4, with the engine's constants cached and made
     at each call."""
@@ -1956,6 +1975,8 @@ def serve_stream(eng, clips) -> bool:
                 f"6a); first clip's files byte "
                 f"for byte {json.dumps(same)}  {'ok' if good else 'FAIL'}")
 
+        if keep_root is not None:
+            shutil.copytree(f"{tmp}/stream4", keep_root)
         writer_costs(driver("writer"), outs["stream2"])
 
         four = np.stack([clips[n][eng.spec.packed_idx] for n in names[:4]])
@@ -2079,6 +2100,479 @@ def check_small_stream() -> bool:
     return ok
 
 
+# ---------------------------------------------------------------------------
+# phase 7
+# ---------------------------------------------------------------------------
+# the graph heads' full-width graph: 16 cows x 8 videos = max_nodes (128)
+COWS, VIDEOS_PER_COW = 16, 8
+WALK_COWS = 4             # 7b's tracked videos: 4 cows x 8
+LOCO_KEYS = ("back_arch_mean", "back_arch_std", "back_arch_score",
+             "head_bob_magnitude", "head_bob_frequency", "head_bob_score",
+             "stride_fl_mean", "stride_fr_mean", "stride_rl_mean",
+             "stride_rr_mean", "front_leg_asymmetry", "rear_leg_asymmetry")
+
+
+def write_cow_videos(root, cows: int = COWS, per_cow: int = VIDEOS_PER_COW,
+                     seed: int = SEED, dim: int = 768,
+                     tracking: bool = True, fps: int = 25,
+                     frames: int = 125) -> list:
+    """The result files of ``cows`` x ``per_cow`` videos as the stream
+    writes them (yolo, sam3, dinov3, tleap, tcn, transformer), built with
+    the port's schema builders from a seeded generator, into the data root
+    ``root``; with ``tracking``, a tracking file naming each video's cow
+    too.  Each cow has its own mean of the shape and gait features and its
+    own DINO embedding, which its videos scatter around (relative noise
+    0.3: cosine about 0.92 within a cow, about 0 across).  The yolo file
+    holds one box a detection frame (every fps // 2), walking 2 px a frame,
+    which ByteTrack confirms as one track.  Returns the video ids."""
+    from lameness_tpu_torch.core.config import DataDirs
+    from lameness_tpu_torch.io import schemas
+    rng = np.random.default_rng(seed)
+    dirs = DataDirs(root=str(root))
+    centers = rng.standard_normal((cows, dim))
+    gait = rng.uniform(0.1, 1.0, (cows, len(LOCO_KEYS)))
+    shape = rng.uniform(0.2, 1.0, (cows, 4))
+    vids = []
+    for c in range(cows):
+        for v in range(per_cow):
+            vid = f"cow{c:02d}_v{v}"
+            vids.append(vid)
+
+            def write(kind, obj):
+                schemas.write_result(
+                    dirs.results_for(kind) / f"{vid}_{kind}.json", obj)
+            det_frames = list(range(0, frames, max(1, fps // 2)))
+            x0, y0 = rng.uniform(0, 400), rng.uniform(100, 300)
+            boxes = np.array([[x0 + 2 * f, y0, x0 + 2 * f + 480, y0 + 300]
+                              for f in det_frames])
+            confs = rng.uniform(0.7, 0.95, len(det_frames))
+            write("yolo", schemas.yolo_result(
+                [schemas.yolo_frame_entry(f, fps, [
+                    schemas.yolo_detection_entry(f, b, s, "cow", 19)])
+                 for f, b, s in zip(det_frames, boxes, confs)],
+                schemas.yolo_features(boxes, confs, len(det_frames), frames),
+                frames, fps))
+            feats = [schemas.sam3_frame_features(
+                1.44e5 * a, a, ci, asp, 640.0, 360.0, 1500.0, f, fps)
+                for f, (a, ci, asp) in zip(det_frames, shape[c, :3]
+                                           * rng.uniform(0.9, 1.1, (len(
+                                               det_frames), 3)))]
+            write("sam3", schemas.sam3_result(
+                [schemas.sam3_segmentation_entry(f["frame"], fps, True, f)
+                 for f in feats], schemas.sam3_aggregated(feats), frames,
+                fps))
+            embs = centers[c] + 0.3 * rng.standard_normal((frames // fps,
+                                                           dim))
+            write("dinov3", schemas.dinov3_result(
+                vid, embs.mean(axis=0), len(embs), [], 0.5,
+                [schemas.dinov3_embedding_entry(i * fps, fps, e)
+                 for i, e in enumerate(embs)]))
+            loco = dict(zip(LOCO_KEYS, (gait[c] * rng.uniform(
+                0.9, 1.1, len(LOCO_KEYS))).tolist()))
+            write("tleap", schemas.tleap_result(
+                vid, frames, fps, [], loco, "heuristic", [], [], {}))
+            sev = float(np.clip(gait[c].mean() + rng.normal(0, 0.05), 0, 1))
+            write("tcn", schemas.tcn_result(vid, sev, 0.05, frames, 44, 29))
+            write("transformer", schemas.transformer_result(
+                vid, sev, 0.05, frames, 44, 0, rng.uniform(0, 1, 20), 64, 4,
+                4))
+            if tracking:
+                write("tracking", {
+                    **schemas.tracking_result(vid, [], [], {}),
+                    "reid_results": [schemas.reid_entry(
+                        0, f"COW-{c + 1:04d}", f"identity-{c}", 0.9, 1.0,
+                        v == 0)]})
+    return vids
+
+
+GRAPH_TOL = 1e-4          # card against CPU, f32 with TF32 off
+BOX_TOL = 1e-4            # the device tracker's boxes, card against CPU
+GRAPH_REPS = 3            # timed process_video calls a target
+ANALYSIS_TS = "2026-01-01T00:00:00+00:00"
+
+
+def graph_runner(root, device, **kw):
+    from lameness_tpu_torch.core.config import Config, DataDirs
+    from lameness_tpu_torch.serve.graph_runner import GraphHeadRunner
+    return GraphHeadRunner(Config(dirs=DataDirs(root=str(root))),
+                           device=device, **kw)
+
+
+def zero_dropout(runner):
+    """``runner`` with dropout-0 heads holding its heads' weights (dropout
+    has no parameters), so its MC samples are equal; returns it."""
+    from lameness_tpu_torch.models.graphgps import EnhancedGraphGPS
+    from lameness_tpu_torch.models.graphormer import CowLamenessGraphormer
+    for name, cls in (("gnn", EnhancedGraphGPS), ("gt", CowLamenessGraphormer)):
+        head = cls(dropout=0.0, device=runner.device).eval()
+        head.load_state_dict(getattr(runner, name).state_dict())
+        setattr(runner, name, head)
+    return runner
+
+
+def head_outputs(runner, target) -> dict:
+    """Both heads' deterministic outputs on ``target``'s graph (numpy)."""
+    import torch
+    g = runner.build_graph(target)[0]
+    with torch.no_grad():
+        outs = {"gnn": runner.gnn(*runner._gnn_args(g)),
+                "gt": runner.gt(*runner._gt_args(g))}
+    return {f"{h}.{k}": v[0].cpu().numpy() for h, o in outs.items()
+            for k, v in o.items() if k != "multi_scale_repr"}
+
+
+def json_diff(got, want):
+    """(max |difference| over the float leaves, whether every other leaf
+    and the key structure are equal)."""
+    g, w = dict(json_leaves(got)), dict(json_leaves(want))
+    same = list(g) == list(w)
+    err = 0.0
+    for key, x in w.items():
+        if isinstance(x, float) and isinstance(g.get(key), float):
+            err = max(err, abs(g[key] - x))
+        else:
+            same &= g.get(key) == x
+    return err, same
+
+
+def graph_card_vs_cpu(root, targets) -> bool:
+    """The graph heads on the card against the same runner on the CPU, with
+    the same seeded weights, for each of ``targets`` ({name: video id}):
+    the deterministic outputs (cow severity, node predictions, attention
+    weights) within GRAPH_TOL; with dropout-0 heads, the two result files'
+    numbers within GRAPH_TOL and everything else (ids, neighbour lists and
+    orders) equal; with dropout, two card runs give the same files and the
+    MC std is above 0."""
+    card, cpu = graph_runner(root, "cuda"), graph_runner(root, "cpu")
+    card0 = zero_dropout(graph_runner(root, "cuda"))
+    cpu0 = zero_dropout(graph_runner(root, "cpu"))
+    ok = True
+    for name, target in targets.items():
+        a, b = head_outputs(card, target), head_outputs(cpu, target)
+        det = max(float(np.abs(a[k] - b[k]).max()) for k in a)
+        files = [json_diff(card0.process_video(target)[k],
+                           cpu0.process_video(target)[k])
+                 for k in ("gnn", "graph_transformer")]
+        file_err = max(e for e, _ in files)
+        same = all(s for _, s in files)
+        runs = [card.process_video(target) for _ in range(2)]
+        std = min(runs[0]["gnn"]["uncertainty"],
+                  runs[0]["graph_transformer"]["uncertainty"])
+        good = (det <= GRAPH_TOL and file_err <= GRAPH_TOL and same
+                and runs[0] == runs[1] and std > 0)
+        ok &= good
+        log(f"  graph heads {name} ({runs[0]['gnn']['graph_info']['num_nodes']}"
+            f" nodes), card vs CPU: deterministic outputs max_abs_err "
+            f"{det:.3e}; dropout-0 files max_abs_err {file_err:.3e}, ids and "
+            f"neighbours equal {same}; MC runs equal {runs[0] == runs[1]}, "
+            f"std (gnn, graph_transformer) {runs[0]['gnn']['uncertainty']:.4g}"
+            f", {runs[0]['graph_transformer']['uncertainty']:.4g}  "
+            f"{'ok' if good else 'FAIL'}")
+    return ok
+
+
+def kernel_events(fn):
+    """(device kernels, copies) one call of ``fn`` puts on the card, and
+    their summed device ms (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    copies = sum("Memcpy" in e.name or "Memset" in e.name for e in dev)
+    return len(dev) - copies, copies, sum(
+        e.time_range.end - e.time_range.start for e in dev) / 1e3
+
+
+def busy_share(fn):
+    """Wall ms of one call of ``fn`` under torch.profiler and the share of
+    it the card was busy (the union of its kernels' and copies' spans)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        return wall * 1e3, None
+    busy, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy, lo, hi = busy + hi - lo, a, b
+        else:
+            hi = max(hi, b)
+    busy += hi - lo
+    return wall * 1e3, busy / (wall * 1e6)
+
+
+def graph_record(runner, name, target) -> dict:
+    """One target's process_video on the card: wall ms (median of
+    GRAPH_REPS), the host parts (collect, graph build, PEs, SPD: host
+    clock), each head's MC and deterministic forward (CUDA events), the
+    kernel launches of each forward, the device busy share and the peak MB
+    it adds to what was allocated before it."""
+    import torch
+    torch.cuda.synchronize()
+
+    def host_ms(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        return out, (time.perf_counter() - t0) * 1e3
+    from lameness_tpu_torch.graph import build as gb
+    (vids, feats, embs, cows, ts), collect = host_ms(
+        lambda: runner.collect_graph(target))
+
+    def build_graph():
+        g = gb.build_dense_graph(np.stack(feats), np.stack(embs), vids, cows,
+                                 ts, runner.config.graphgps.k_nn,
+                                 runner.max_nodes)
+        g["x"] = gb.standardize_features(g["x"], g["node_mask"])
+        return g
+    g, build = host_ms(build_graph)
+    gnn_args, pes = host_ms(lambda: runner._gnn_args(g))
+    gt_args, spd = host_ms(lambda: runner._gt_args(g))
+    gen = runner._mc_generator(target)
+    forwards = {
+        "gnn_mc": lambda: runner.gnn(*gnn_args, generator=gen, samples=10),
+        "gnn_det": lambda: runner.gnn(*gnn_args),
+        "gt_mc": lambda: runner.gt(*gt_args, generator=gen, samples=10),
+        "gt_det": lambda: runner.gt(*gt_args)}
+    device, launches, kernel_ms = {}, {}, {}
+    with torch.no_grad():
+        for key, fn in forwards.items():
+            device[key] = cuda_ms(fn, GRAPH_REPS)
+            launches[key], _, kernel_ms[key] = kernel_events(fn)
+    walls = []
+    for _ in range(GRAPH_REPS):
+        torch.cuda.synchronize()
+        walls.append(host_ms(lambda: runner.process_video(target))[1])
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    wall, share = busy_share(lambda: runner.process_video(target))
+    return {"graph": name, "nodes": int(g["node_mask"].sum()),
+            "process_video_ms": float(np.median(walls)),
+            "process_video_ms_all": walls,
+            "host_ms": {"collect": collect, "build": build, "pes": pes,
+                        "spd": spd},
+            "device_ms_cuda_events": device,
+            "device_kernel_ms": kernel_ms, "launches": launches,
+            "profiled_wall_ms": wall, "device_busy_share": share,
+            "peak_mb": (torch.cuda.max_memory_allocated() - before) / 2 ** 20,
+            "allocated_before_mb": before / 2 ** 20}
+
+
+def graph_heads(tmp) -> bool:
+    """7a: the graph heads at full width (128 nodes, 10 MC samples) over
+    COWS x VIDEOS_PER_COW written videos: the global graph (a target with
+    no tracking file) and a per-cow graph, card against CPU, and each
+    one's record."""
+    root = f"{tmp}/graph"
+    vids = write_cow_videos(root)
+    os.unlink(f"{root}/results/tracking/{vids[-1]}_tracking.json")
+    targets = {"global": vids[-1], "per_cow": vids[0]}
+    ok = graph_card_vs_cpu(root, targets)
+    card = graph_runner(root, "cuda")
+    for name, target in targets.items():
+        log("graph record " + json.dumps(graph_record(card, name, target)))
+    return ok
+
+
+def back_half(root, data: str, cows: bool = False) -> bool:
+    """7b: the back half of ``process_video_file`` over every video of the
+    data root ``root`` (``data`` names it in the record): run_tracking
+    (host), the graph heads, run_ml, fusion, each under its stage timer as
+    process_video_file times them.  Every file must validate and every
+    fusion file name the five automated predictors.  With ``cows`` (videos
+    of ``write_cow_videos(tracking=False)``, whose walking boxes ByteTrack
+    confirms), every video must also be tracked, Re-ID must name the cow it
+    was written for (COW-0001 for cow00, in order of first sight), and its
+    gnn file must come from the per-cow graph."""
+    from pathlib import Path
+    import torch
+    from lameness_tpu_torch.core.config import Config, DataDirs
+    from lameness_tpu_torch.fuse.fusion import AUTO_KEYS
+    from lameness_tpu_torch.io import schemas
+    from lameness_tpu_torch.serve.driver import PipelineDriver
+    from lameness_tpu_torch.utils.timing import TIMERS
+    drv = PipelineDriver(config=Config(dirs=DataDirs(root=str(root))),
+                         device="cuda")
+    vids = sorted(p.name[:-len("_dinov3.json")] for p in
+                  drv.dirs.results_for("dinov3").glob("*_dinov3.json"))
+    drv._ensure_graph_runner().process_video(vids[0])      # warm up
+    TIMERS.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for vid in vids:
+        drv.run_tracking(vid)
+        with TIMERS.time("graph_heads"):
+            drv._ensure_graph_runner().process_video(vid)
+        with TIMERS.time("ml"):
+            drv.run_ml(vid)
+        with TIMERS.time("fusion"):
+            drv.fusion.process_video(vid, timestamp=ANALYSIS_TS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ok, bad = True, []
+    for vid in vids:
+        for kind in ("tracking", "gnn", "graph_transformer", "ml", "fusion"):
+            path = Path(drv.dirs.results_for(kind)) / f"{vid}_{kind}.json"
+            obj = json.loads(path.read_text()) if path.exists() else {}
+            missing = schemas.validate(kind, obj)
+            if kind == "fusion" and not missing:
+                got = obj["fusion_result"]["pipeline_contributions"]
+                missing = [k for k in AUTO_KEYS if k not in got]
+            if missing:
+                bad.append((path.name, missing))
+    ok = not bad
+    summ = TIMERS.summary()
+    drv.bus.shutdown()
+
+    def read(kind, vid):
+        return json.loads((Path(drv.dirs.results_for(kind))
+                           / f"{vid}_{kind}.json").read_text())
+    reid = {v: [r["cow_id"] for r in read("tracking", v)["reid_results"]]
+            for v in vids}
+    tracked = sum(bool(r) for r in reid.values())
+    per_cow = sum(read("gnn", v)["graph_info"]["per_cow_graph"] for v in vids)
+    named = sum(r[:1] == [f"COW-{int(v[3:5]) + 1:04d}"]
+                for v, r in reid.items()) if cows else None
+    if cows:
+        ok &= tracked == per_cow == named == len(vids)
+    log("back half record " + json.dumps({
+        "data": data, "clips": len(vids), "wall_s": wall,
+        "clips_s": len(vids) / wall,
+        "s_per_clip": {k: summ[k]["mean_s"] for k in
+                       ("tracking", "graph_heads", "ml", "fusion")},
+        "tracked": tracked, "per_cow_graphs": per_cow,
+        "reid_named_its_cow": named}))
+    log(f"  back half over {data} ({len(vids)} clips): "
+        f"{5 * len(vids) - len(bad)} of {5 * len(vids)} files valid, every "
+        f"fusion file with the five automated predictors {not bad}; tracked "
+        f"{tracked}, per-cow graphs {per_cow}, Re-ID named its cow {named}"
+        f"{' (all gated)' if cows else ''}  "
+        f"{'ok' if ok else 'FAIL ' + str(bad[:4])}")
+    return ok
+
+
+def tracker_outputs_close(a, b):
+    same = all(np.array_equal(a[k], b[k])
+               for k in ("track_id", "state", "confirmed"))
+    return same, float(np.abs(a["boxes"] - b["boxes"]).max())
+
+
+def device_tracker(root, block_boxes) -> bool:
+    """7c: the device tracker on the card against the same on the CPU over
+    the detections of every distinct clip of ``root`` (ids and states equal,
+    boxes within BOX_TOL), ms and launches a clip, the driver's
+    ``run_tracking(backend="device")``; and, on phase 6's block walking
+    (its box at every frame), the same confirmed tracks as the host
+    ByteTracker: the same number in every frame and the same frame spans."""
+    from pathlib import Path
+    import torch
+    from lameness_tpu_torch.core.config import Config, DataDirs
+    from lameness_tpu_torch.io import schemas
+    from lameness_tpu_torch.serve.driver import PipelineDriver
+    from lameness_tpu_torch.track import device_tracker as dt
+    from lameness_tpu_torch.track.bytetrack import ByteTracker, Detection
+    drv = PipelineDriver(config=Config(dirs=DataDirs(root=str(root))),
+                         device="cuda")
+    clips = {}                  # the distinct clips' detections (phase 6
+    for f in sorted(Path(drv.dirs.results_for("yolo")).glob("*_yolo.json")):
+        entries = json.loads(f.read_text())["detections"]  # repeats them)
+        clips.setdefault(json.dumps(entries), (f.name[:-len("_yolo.json")],
+                                               entries))
+    ok, worst, same_all, ms, launches = True, 0.0, True, [], []
+    for vid, entries in clips.values():
+        boxes, scores, valid, _ = dt.pack_detection_frames(entries)
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            _, o = dt.track_clip(boxes, scores, valid, device=dev)
+            outs[dev] = {k: v.cpu().numpy() for k, v in o.items()}
+        same, err = tracker_outputs_close(outs["cuda"], outs["cpu"])
+        same_all &= same
+        worst = max(worst, err)
+        ms.append(cuda_ms(lambda: dt.track_clip(boxes, scores, valid,
+                                                device="cuda"), 3))
+        launches.append(kernel_events(lambda: dt.track_clip(
+            boxes, scores, valid, device="cuda"))[:2])
+        res = drv.run_tracking(vid, backend="device")
+        ok &= not schemas.validate("tracking", res) \
+            and res["statistics"]["backend"] == "device"
+    ok &= same_all and worst <= BOX_TOL
+    drv.bus.shutdown()
+    log("device tracker record " + json.dumps({
+        "clips": len(clips), "frames_a_clip": len(boxes),
+        "ms_a_clip": ms, "launches_a_clip": [k for k, _ in launches],
+        "copies_a_clip": [c for _, c in launches]}))
+    log(f"  device tracker card vs CPU over {len(clips)} clips: ids and "
+        f"states equal {same_all}, boxes max_abs_err {worst:.3e} (<= "
+        f"{BOX_TOL:g})  {'ok' if ok else 'FAIL'}")
+    # the separated block: phase 6's cow box at every frame it is in view
+    entries = [{"frame": i, "detections": [] if b is None else [
+        {"bbox": [float(v) for v in b], "confidence": 0.9}]}
+        for i, b in enumerate(block_boxes)]
+    frame_tracks, summaries, _ = dt.track_detection_frames(entries,
+                                                           device="cuda")
+    host = ByteTracker(high_thresh=0.6, low_thresh=0.1, match_thresh=0.8)
+    host_counts, host_spans = [], {}
+    for e in entries:
+        tracks = host.update([Detection(np.asarray(d["bbox"], float),
+                                        d["confidence"])
+                              for d in e["detections"]], frame_idx=e["frame"])
+        host_counts.append(len(tracks))
+        for t in tracks:
+            host_spans.setdefault(t.track_id, []).append(e["frame"])
+    dev_counts = [sum(t["frame"] == i for t in frame_tracks)
+                  for i in range(len(entries))]
+    dev_spans = sorted((s["start_frame"], s["end_frame"], s["total_frames"])
+                       for s in summaries)
+    host_spans = sorted((f[0], f[-1], len(f)) for f in host_spans.values())
+    good = dev_counts == host_counts and dev_spans == host_spans \
+        and len(dev_spans) == 1
+    ok &= good
+    log(f"  device vs host tracker on the walking block: confirmed tracks "
+        f"{dev_spans} vs {host_spans} (start, end, frames), the same count "
+        f"in every frame {dev_counts == host_counts}  "
+        f"{'ok' if good else 'FAIL'}")
+    return ok
+
+
+def analysis(tmp, stream_root, block_boxes, clips) -> bool:
+    """Phase 7: the graph heads at full width (7a), the back half over phase
+    6's videos and over written walks (7b), the device tracker (7c).
+    Phase 6's files are made again (one stream of ``clips`` at B = 4 on the
+    default engine) when ``stream_root`` does not hold them."""
+    from pathlib import Path
+    if not os.path.isdir(stream_root):
+        from lameness_tpu_torch.core.config import Config, DataDirs
+        from lameness_tpu_torch.serve.driver import PipelineDriver
+        log(f"  {stream_root} is gone: phase 6's stream made again")
+        eng = default_engine()
+        drv = PipelineDriver(config=Config(dirs=DataDirs(root=stream_root)),
+                             engine=eng,
+                             reader=MemoryReader(clips, fps=eng.spec.fps))
+        drv.process_stream([(f"{n[:-4]}_0", Path(n)) for n in sorted(clips)],
+                           batch_size=4, pad_to=4)
+        drv.bus.shutdown()
+        del eng, drv
+    ok = graph_heads(tmp)
+    ok &= back_half(stream_root, "phase 6's stream")
+    write_cow_videos(f"{tmp}/walk", cows=WALK_COWS, per_cow=VIDEOS_PER_COW,
+                     tracking=False)
+    ok &= back_half(f"{tmp}/walk", f"written walks, {WALK_COWS} cows x "
+                    f"{VIDEOS_PER_COW}", cows=True)
+    ok &= device_tracker(stream_root, block_boxes)
+    return ok
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -2128,6 +2622,7 @@ def main() -> int:
         log("small engine, SAM at head dim 80:")
         ok_c &= check_small_engine(sam=HD80_SAM)
     log("== phase 6: serving")
+    work = tempfile.TemporaryDirectory()
     with switches({}):
         torch.cuda.empty_cache()
         eng = default_engine()
@@ -2141,12 +2636,18 @@ def main() -> int:
             f"{top:.3g})")
         stream = [c for c, _ in stream]
         ok_s = curation_detector(eng, clip)
-        ok_s &= serve_stream(eng, {f"clip{i}.mp4": c
-                                   for i, c in enumerate(stream)})
+        stream = {f"clip{i}.mp4": c for i, c in enumerate(stream)}
+        ok_s &= serve_stream(eng, stream,
+                             keep_root=f"{work.name}/stream")
         del eng
         torch.cuda.empty_cache()
         log("small engine, serving stream:")
         ok_s &= check_small_stream()
+    log("== phase 7: analysis")
+    with work:
+        gc.collect()            # phase 6's engine, held by reference cycles
+        torch.cuda.empty_cache()
+        ok_a = analysis(work.name, f"{work.name}/stream", cow, stream)
     for kid, rec in records.items():
         # each kernel's count on its own path (K1 runs on every one)
         rec["launches"] = max(counts[rec["name"]]
@@ -2158,7 +2659,7 @@ def main() -> int:
     kern = {"kernels": [{k: rec[k] for k in keys}
                         for rec in records.values()]}
     if not (ok_build and ok_k and ok_small and ok_e and ok_m and ok_c
-            and ok_s):
+            and ok_s and ok_a):
         log("chip_smoke: FAILED")
         return 1
     log(smi)

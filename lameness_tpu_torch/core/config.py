@@ -1,5 +1,5 @@
-"""The slice of ``lameness_tpu/core/config.py`` the clip engine and the
-serving driver read.
+"""The slice of ``lameness_tpu/core/config.py`` the clip engine, the
+serving driver and the graph runner read.
 
 Only the fields they use, with the JAX package's defaults; nothing outside
 the standard library is imported (the JAX config loads YAML).
@@ -129,6 +129,13 @@ class ReidConfig:
 
 
 @dataclass(frozen=True)
+class GraphGPSConfig:
+    """The graph runner's kNN degree and dense padding bound."""
+    k_nn: int = 5
+    max_nodes: int = 128                # dense padding bound (graphs are tiny)
+
+
+@dataclass(frozen=True)
 class Config:
     subjects: Subjects = field(default_factory=Subjects)
     dirs: DataDirs = field(default_factory=DataDirs)
@@ -136,5 +143,6 @@ class Config:
     sam: SamConfig = field(default_factory=SamConfig)
     dino: DinoConfig = field(default_factory=DinoConfig)
     tcn: TcnConfig = field(default_factory=TcnConfig)
+    graphgps: GraphGPSConfig = field(default_factory=GraphGPSConfig)
     reid: ReidConfig = field(default_factory=ReidConfig)
     compute: ComputeConfig = field(default_factory=ComputeConfig)

@@ -3,7 +3,9 @@
 The result files are the system's public contract: every downstream
 consumer of the reference reads files, not messages.  These are the JAX
 module's builders for the files the stream writes (yolo, sam3, dinov3,
-tleap, tcn, transformer), copied line for line (numpy only), with its
+tleap, tcn, transformer) and the analysis after it (gnn,
+graph_transformer, ml, tracking, fusion, cow predictions), copied line for
+line (numpy only), with its
 required-key registry and ``validate``; keys, nesting and number formats
 equal the JAX package's.  The deliberate fixes of the reference's quirks
 stay: the SAM shape features under both ``aggregated_features`` and
@@ -298,6 +300,132 @@ def transformer_result(video_id: str, severity: float, uncertainty: float,
     }
 
 
+# ---------------------------------------------------------------------------
+# Graph heads
+# ---------------------------------------------------------------------------
+def gnn_result(video_id: str, cow_id: Optional[str], model: str,
+               node_score: float, cow_score: float, uncertainty: float,
+               graph_info: Dict[str, Any],
+               neighbor_influence: List[Dict[str, Any]],
+               videos_in_graph: List[str]) -> Dict[str, Any]:
+    return {
+        "video_id": video_id,
+        "cow_id": cow_id,
+        "pipeline": "gnn",
+        "model": model,
+        "severity_score": _f(node_score),
+        "cow_severity_score": _f(cow_score),
+        "uncertainty": _f(uncertainty),
+        "prediction": int(node_score > 0.5),
+        "cow_prediction": int(cow_score > 0.5),
+        "confidence": 1.0 - _f(uncertainty),
+        "graph_info": graph_info,
+        "neighbor_influence": neighbor_influence[:5],
+        "videos_in_graph": videos_in_graph,
+    }
+
+
+def graph_transformer_result(video_id: str, cow_id: Optional[str],
+                             node_score: float, cow_score: float,
+                             uncertainty: float, graph_info: Dict[str, Any],
+                             attention_info: Dict[str, Any],
+                             videos_in_graph: List[str]) -> Dict[str, Any]:
+    return {
+        "video_id": video_id,
+        "cow_id": cow_id,
+        "pipeline": "graph_transformer",
+        "model": "CowLamenessGraphormer",
+        "graph_prediction": _f(cow_score),
+        "node_prediction": _f(node_score),
+        "cow_severity_score": _f(cow_score),
+        "uncertainty": _f(uncertainty),
+        "prediction": int(node_score > 0.5),
+        "cow_prediction": int(cow_score > 0.5),
+        "confidence": 1.0 - _f(uncertainty),
+        "graph_info": graph_info,
+        "attention_info": attention_info,
+        "videos_in_graph": videos_in_graph,
+    }
+
+
+# ---------------------------------------------------------------------------
+# ML tabular ensemble
+# ---------------------------------------------------------------------------
+def ml_result(video_id: str, features: np.ndarray, feature_names: List[str],
+              predictions: Dict[str, Any],
+              availability: Dict[str, bool]) -> Dict[str, Any]:
+    return {
+        "video_id": video_id,
+        "features": [float(v) for v in np.asarray(features).ravel()],
+        "feature_names": feature_names,
+        "predictions": predictions,
+        "pipeline_results_available": availability,
+    }
+
+
+def ml_message(video_id: str, results_path: str, result: Dict[str, Any]) -> Dict[str, Any]:
+    return {
+        "video_id": video_id,
+        "pipeline": "ml",
+        "results_path": results_path,
+        "predictions": result["predictions"],
+    }
+
+
+# ---------------------------------------------------------------------------
+# Tracking
+# ---------------------------------------------------------------------------
+def tracking_result(video_id: str, track_summaries: List[Dict[str, Any]],
+                    frame_tracks: List[Dict[str, Any]],
+                    statistics: Dict[str, Any]) -> Dict[str, Any]:
+    return {
+        "video_id": video_id,
+        "pipeline": "tracking",
+        "total_tracks": len(track_summaries),
+        "track_summaries": track_summaries,
+        "frame_tracks": frame_tracks,
+        "statistics": statistics,
+    }
+
+
+def reid_entry(track_id: int, cow_id: str, identity_id: str, similarity: float,
+               confidence: float, is_new: bool) -> Dict[str, Any]:
+    return {
+        "track_id": int(track_id),
+        "cow_id": cow_id,
+        "identity_id": identity_id,
+        "similarity": _f(similarity),
+        "confidence": _f(confidence),
+        "is_new": bool(is_new),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Fusion
+# ---------------------------------------------------------------------------
+def fusion_result_file(video_id: str, cow_id: Optional[str],
+                       fusion_result: Dict[str, Any],
+                       cow_prediction: Optional[Dict[str, Any]],
+                       pipeline_predictions: Dict[str, Any],
+                       timestamp: str = "") -> Dict[str, Any]:
+    return {
+        "video_id": video_id,
+        "cow_id": cow_id,
+        "fusion_result": fusion_result,
+        "cow_prediction": cow_prediction,
+        "pipeline_predictions": pipeline_predictions,
+        "timestamp": timestamp,
+    }
+
+
+def cow_prediction_file(cow_id: str, prediction: Dict[str, Any],
+                        latest_video: str, last_updated: str) -> Dict[str, Any]:
+    return {
+        "cow_id": cow_id,
+        "prediction": prediction,
+        "last_updated": last_updated,
+        "latest_video": latest_video,
+    }
 
 
 # ---------------------------------------------------------------------------

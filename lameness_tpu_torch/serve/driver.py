@@ -23,14 +23,21 @@ bilinear resize (cv2's INTER_LINEAR within 1; a frame already at that size
 is used as it is, as cv2 leaves it), and ``_mask_features`` measures masks
 with ``serve/contours.py``.
 
+After the engine, ``process_video_file``'s back half runs as four calls
+in its order: ``run_tracking`` (host ByteTrack, or the device tracker, and
+Re-ID of each track's window of frame embeddings), the graph heads
+(``_ensure_graph_runner().process_video``, on ``device``), ``run_ml`` and
+``fusion.process_video``.
+
 Not ported yet (ROADMAP.md §1): ingest and preprocess (file copy, crop),
-``ClipCurator``, tracking and Re-ID, the graph heads, the GBDT ensemble and
-fusion, and the mesh branch of ``process_stream``.  Until ``ClipCurator``
-is, the batched curation detector is exposed as ``detector``.
+``ClipCurator`` and ``process_video_file`` itself, and the mesh branch of
+``process_stream``.  Until ``ClipCurator`` is, the batched curation
+detector is exposed as ``detector``.
 """
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import queue
 import threading
@@ -43,16 +50,24 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 
 from ..core.config import Config
+from ..core.device import resolve_device
 from ..core.streams import Overlap
+from ..fuse.fusion import FusionService
 from ..io import schemas
 from ..io.bus import MessageBus
 from ..io.vecstore import VectorStore, make_store
+from ..ml.ensemble import GBDTEnsemble
+from ..ml.features import extract_features
 from ..models import pose as pose_mod
 from ..pipeline.engine import _rows_at
+from ..track.bytetrack import ByteTracker, Detection
+from ..track.device_tracker import track_detection_frames
+from ..track.reid import CowReIDMatcher
 from ..utils.logging import get_logger
 from ..utils.timing import TIMERS
 from .contours import first_moments, largest_external_contour, \
     resize_nearest
+from .graph_runner import GraphHeadRunner
 
 LOG = get_logger("driver")
 # threads a clip's mask features are measured on
@@ -64,7 +79,9 @@ class PipelineDriver:
                  bus: Optional[MessageBus] = None,
                  store: Optional[VectorStore] = None,
                  reader: Optional[Callable] = None,
-                 detector=None):
+                 detector=None, device=None):
+        """``device``: where the graph heads and the device tracker run
+        when there is no engine (with one, the engine's device)."""
         self.config = config or Config()
         self.dirs = self.config.dirs.ensure()
         self.bus = bus or MessageBus(
@@ -75,16 +92,36 @@ class PipelineDriver:
             store = make_store(
                 url=self.config.reid.vector_url,
                 persist_path=Path(self.dirs.root) / "vector_store.json",
-                device=engine.device if engine is not None else None)
+                device=engine.device if engine is not None else device)
         self.store = store
         self.store.create_collection(
             self.config.reid.collection_embeddings,
             self.config.reid.embedding_dim)
+        self.reid = CowReIDMatcher(self.store,
+                                   self.config.reid.embedding_dim)
+        self.ensemble = GBDTEnsemble(self.dirs.models / "ml")
+        self.fusion = FusionService(self.dirs, bus=self.bus,
+                                    subjects=self.config.subjects)
+        self.trackers: Dict[str, ByteTracker] = {}
+        self.graph_runner = None        # built lazily (the two graph heads)
+        self._device = device
         self.reader = reader
         # built lazily (the ``detector`` property): YOLO weights loaded
         # after the driver was made must still reach curation
         self._detector_injected = detector is not None
         self._detector = detector
+
+    @property
+    def device(self):
+        if self.engine is not None:
+            return self.engine.device
+        return resolve_device(self._device)
+
+    def _ensure_graph_runner(self):
+        if self.graph_runner is None:
+            self.graph_runner = GraphHeadRunner(self.config, bus=self.bus,
+                                                device=self.device)
+        return self.graph_runner
 
     def _engine_has_yolo(self) -> bool:
         return self.engine is not None and bool(
@@ -576,3 +613,132 @@ class PipelineDriver:
                         "label": h.payload.get("label"),
                         "metadata": h.payload.get("metadata", {})})
         return out[:self.config.dino.top_k_similar]
+
+    # ---------------------------------------------------------- tracking ---
+    def run_tracking(self, video_id: str,
+                     backend: str = "host") -> Optional[Dict[str, Any]]:
+        """ByteTrack over the yolo result + Re-ID via the video embedding
+        (tracking-service/app/main.py:114-430).
+
+        ``backend="device"`` runs the association on ``device`` through the
+        fixed-slot tracker (track/device_tracker.py); the host path stays
+        the reference-exact default.
+        """
+        yolo_file = self.dirs.results_for("yolo") / f"{video_id}_yolo.json"
+        if not yolo_file.exists():
+            return None
+        with TIMERS.time("tracking"):
+            with open(yolo_file) as f:
+                yolo_data = json.load(f)
+            if backend == "device":
+                all_tracks, summaries, stats = track_detection_frames(
+                    yolo_data.get("detections", []), device=self.device)
+                result = schemas.tracking_result(video_id, summaries,
+                                                 all_tracks, stats)
+            else:
+                tracker = self.trackers.setdefault(video_id, ByteTracker(
+                    high_thresh=0.6, low_thresh=0.1, match_thresh=0.8))
+                all_tracks = []
+                for frame_entry in yolo_data.get("detections", []):
+                    dets = [Detection(np.asarray(d["bbox"], float),
+                                      d["confidence"], d.get("class_id", 0))
+                            for d in frame_entry.get("detections", [])]
+                    tracks = tracker.update(dets,
+                                            frame_idx=frame_entry["frame"])
+                    for t in tracks:
+                        all_tracks.append({
+                            "frame": frame_entry["frame"],
+                            "track_id": t.track_id,
+                            "bbox": np.asarray(t.bbox).tolist(),
+                            "confidence": t.confidence,
+                            "state": t.state.name})
+                summaries = []
+                for t in tracker.tracks:
+                    if t.hits >= 3:
+                        summaries.append({
+                            "track_id": t.track_id,
+                            "start_frame":
+                                t.frame_history[0] if t.frame_history else 0,
+                            "end_frame":
+                                t.frame_history[-1] if t.frame_history else 0,
+                            "total_frames": len(t.frame_history),
+                            "avg_confidence": float(np.mean(
+                                [t.confidence]
+                                * max(1, len(t.bbox_history)))),
+                        })
+                result = schemas.tracking_result(
+                    video_id, summaries, all_tracks,
+                    tracker.get_statistics())
+            result["reid_results"] = self._reid_tracks(video_id, summaries)
+        path = schemas.write_result(
+            self.dirs.results_for("tracking") / f"{video_id}_tracking.json",
+            result)
+        self.bus.publish_sync(self.config.subjects.tracking_complete, {
+            "video_id": video_id, "results_path": str(path),
+            "total_tracks": result["total_tracks"]})
+        return result
+
+    def _reid_tracks(self, video_id: str, summaries) -> List[Dict[str, Any]]:
+        """Re-ID of each track by the mean of the frame embeddings inside
+        its frame window (the video's average when the window holds none),
+        an upgrade over the reference's one whole-video embedding for every
+        track (quirk §2.9.7, tracking:333-335)."""
+        dino_file = self.dirs.results_for("dinov3") / f"{video_id}_dinov3.json"
+        reid_results: List[Dict[str, Any]] = []
+        if not (dino_file.exists() and summaries):
+            return reid_results
+        with open(dino_file) as f:
+            dino_data = json.load(f)
+        frame_embs = [(e["frame"], np.asarray(e["embedding"], float))
+                      for e in dino_data.get("canonical_frames", [])
+                      if "embedding" in e]
+        emb = dino_data.get("embedding")
+        if emb is None and frame_embs:
+            emb = np.mean([e for _, e in frame_embs], axis=0)
+        if emb is None:
+            return reid_results
+        for t in summaries:
+            window = [e for fr, e in frame_embs
+                      if t["start_frame"] <= fr <= t["end_frame"]]
+            track_emb = np.mean(window, axis=0) if window \
+                else np.asarray(emb, float)
+            m = self.reid.match_or_create(
+                track_emb, video_id, t["track_id"],
+                metadata={"start_frame": t["start_frame"],
+                          "end_frame": t["end_frame"]})
+            reid_results.append(schemas.reid_entry(
+                t["track_id"], m.cow_id, m.identity_id, m.similarity,
+                1.0 if m.confidence == "high" else 0.5, m.is_new_identity))
+            self.bus.publish_sync(
+                self.config.subjects.tracking_reid_match, {
+                    "video_id": video_id,
+                    "track_id": t["track_id"], "cow_id": m.cow_id,
+                    "is_new": m.is_new_identity,
+                    "similarity": m.similarity,
+                    "confidence": t["avg_confidence"],
+                    "start_frame": t["start_frame"],
+                    "end_frame": t["end_frame"]})
+        return reid_results
+
+    # ------------------------------------------------------------- ml -----
+    def run_ml(self, video_id: str) -> Dict[str, Any]:
+        """Tabular ensemble over pipeline results (ml-pipeline:116-350)."""
+        results = {}
+        for p in ("yolo", "sam3", "dinov3", "tleap"):
+            f = self.dirs.results_for(p) / f"{video_id}_{p}.json"
+            if f.exists():
+                with open(f) as fh:
+                    results[p] = json.load(fh)
+            else:
+                results[p] = None
+        feats, names = extract_features(results)
+        predictions = self.ensemble.predict(feats)
+        ml_result = schemas.ml_result(
+            video_id, feats, names, predictions,
+            {k: v is not None for k, v in results.items()})
+        path = schemas.write_result(
+            self.dirs.results_for("ml") / f"{video_id}_ml.json", ml_result)
+        self.bus.publish_sync(self.config.subjects.pipeline_ml,
+                              schemas.ml_message(video_id, str(path),
+                                                 ml_result))
+        return ml_result

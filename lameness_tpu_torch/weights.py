@@ -4,10 +4,12 @@
 numpy leaves) into a state dict per sub-model.  The port's modules carry
 the flax module names, so the conversion is by structure: Dense kernels
 (in, out) -> Linear (out, in); Conv HWIO -> OIHW; LayerNorm scale -> weight;
-the gait MHA's DenseGeneral kernels flatten to Linear; the TCN's WIO ``v``
--> (out, in, k).  Other leaves (BN stats, rel_pos_h/w, ls1/ls2, positional
-and prompt embeddings, the decoder's ConvTranspose weights) carry over as
-they are.
+DenseGeneral kernels flatten to Linear (in -> (3, h, hd) and in -> (h, hd)
+told apart from (h, hd) -> out by the bias's rank); the TCN's WIO ``v`` ->
+(out, in, k).  Other leaves (BN stats, GraphGPS's InferenceBN
+``scale``/``bias``/``mean``/``var``, rel_pos_h/w, ls1/ls2, positional,
+degree and prompt embeddings, the decoder's ConvTranspose weights) carry
+over as they are.
 
 ``init_params`` is the seeded initialisation at the same shapes, from a
 ``torch.Generator``, for the card (where there is no JAX).
@@ -31,8 +33,10 @@ def _convert_tree(node: Mapping[str, Any], prefix: str,
         b = None if "bias" not in node else np.asarray(node["bias"])
         if k.ndim == 2:                                 # Dense
             w = k.T
-        elif k.ndim == 4 and b is not None and b.ndim == 3:
-            w = k.reshape(k.shape[0], -1).T             # DenseGeneral in->3,h,hd
+        elif b is not None and 1 < b.ndim == k.ndim - 1:
+            # DenseGeneral in->(3, h, hd) or in->(h, hd): the bias has the
+            # output's rank
+            w = k.reshape(k.shape[0], -1).T
             b = b.reshape(-1)
         elif k.ndim == 3:                               # DenseGeneral h,hd->out
             w = k.reshape(-1, k.shape[-1]).T
@@ -104,7 +108,8 @@ def _fill(name: str, t: torch.Tensor, gen: torch.Generator,
         t.fill_(1.0)
     elif leaf in ("ls1", "ls2"):
         pass                          # the module's layer-scale init value
-    elif leaf in ("rel_pos_h", "rel_pos_w", "pos_embed", "cls_token"):
+    elif leaf in ("rel_pos_h", "rel_pos_w", "pos_embed", "cls_token",
+                  "degree_embed", "out_degree_embed", "virtual_node"):
         t.copy_(normal(0.02))
     elif leaf == "v":                 # TCN conv: he-normal over (in, k)
         t.copy_(normal(math.sqrt(2.0 / (t.shape[1] * t.shape[2]))))
@@ -121,8 +126,8 @@ def seeded_state_dict(model: torch.nn.Module, generator: torch.Generator,
     """A CPU state dict of ``model`` with every tensor drawn (or set) from
     ``generator`` in key order: zeros for biases and BN means, ones for
     norm scales and BN variances, lecun-normal kernels (times ``gain``),
-    he-normal TCN kernels, N(0, 0.02²) positional tables, N(0, 1) prompt
-    embeddings."""
+    he-normal TCN kernels, N(0, 0.02²) positional, degree and virtual-node
+    tables, N(0, 1) prompt embeddings."""
     with torch.no_grad():
         sd = {k: v.detach().to("cpu", copy=True)
               for k, v in model.state_dict().items()}

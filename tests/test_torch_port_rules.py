@@ -20,11 +20,24 @@ PORT_FILES = sorted((ROOT / "lameness_tpu_torch").rglob("*.py")) + [
 
 
 def test_import_leaves_jax_out():
+    """Importing the port loads no JAX, nothing of the JAX package, no
+    OpenCV, and none of the libraries the card's machine lacks (joblib,
+    sklearn, the boosting libraries, lap)."""
     code = ("import sys, lameness_tpu_torch.pipeline.engine, "
             "lameness_tpu_torch.pipeline.checkpoint, "
-            "lameness_tpu_torch.video.yuv, lameness_tpu_torch.weights; "
+            "lameness_tpu_torch.video.yuv, lameness_tpu_torch.weights, "
+            "lameness_tpu_torch.serve.driver, "
+            "lameness_tpu_torch.serve.graph_runner, "
+            "lameness_tpu_torch.track.assignment, "
+            "lameness_tpu_torch.track.bytetrack, "
+            "lameness_tpu_torch.track.device_tracker, "
+            "lameness_tpu_torch.track.kalman, "
+            "lameness_tpu_torch.track.reid, "
+            "lameness_tpu_torch.fuse.fusion, "
+            "lameness_tpu_torch.ml.ensemble; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'lameness_tpu', 'cv2')]; "
+            "('jax', 'jaxlib', 'flax', 'lameness_tpu', 'cv2', 'joblib', "
+            "'sklearn', 'catboost', 'xgboost', 'lightgbm', 'lap')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
