@@ -48,10 +48,12 @@ Phases, each failing loudly (no exception is swallowed):
      SAM and DINO bit for bit the default run's, its record; the tiny
      engine with trained pose, card against CPU, full and split ingest;
      (c) the engine at SAM ViT-H (16 heads of 80) with seeded weights, by
-     default (K2, K3) and under v1/v1 (K7, K4), each against the other,
-     its record, K2, K3, K4 and K7 at ViT-H's shapes against their plain
-     versions beside their bounds and SDPA, and the tiny engine with a SAM
-     at head dim 80, card against CPU.
+     default (K2, K3) and under v1/v1 (K7, K4), v2/v2 (K8, K5) and v5/v3
+     (K9, K5: hd + 64 > 128), each against the default, its record; K2,
+     K3, K4, K5, K7, K8 and K9 at ViT-H's shapes, each launching its
+     routine alone (K2, K7, K8 and K9 the window routine's hd-80 kernel),
+     against their plain versions beside their bounds and SDPA; and the
+     tiny engine with a SAM at head dim 80, card against CPU.
   6. serving: the default engine (phase 3's weights) with YOLO's cow class
      set to find a synthetic cow (``calibrate_yolo``: seeded weights find
      nothing); (a) the batched curation detector over a 125-frame 720p
@@ -306,9 +308,9 @@ def device_ms(fn, reps: int, only: str = "", tries: int = 3) -> float:
     return cuda_ms(fn, reps)
 
 
-def foreign_kernels(fn) -> list:
-    """Names of the device kernels and copies one call of ``fn`` runs
-    besides the port's own (``lameness::``), by torch.profiler."""
+def kernel_names(fn) -> list:
+    """Names of the device kernels and copies one call of ``fn`` runs, by
+    torch.profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -317,8 +319,13 @@ def foreign_kernels(fn) -> list:
         fn()
         torch.cuda.synchronize()
     return sorted({e.key for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and "lameness::" not in e.key})
+                   if e.device_type == torch.autograd.DeviceType.CUDA})
+
+
+def foreign_kernels(fn) -> list:
+    """Names of the device kernels and copies one call of ``fn`` runs
+    besides the port's own (``lameness::``), by torch.profiler."""
+    return [k for k in kernel_names(fn) if "lameness::" not in k]
 
 
 def agree(name, dtype, out, ref):
@@ -1186,7 +1193,24 @@ VIT_H_SELECTIONS = (
     ("WIN=v1 GLB=v1", {"LAMENESS_WIN_KERNEL": "v1",
                        "LAMENESS_GLB_KERNEL": "v1"},
      {"K1": 12, "K7": 35, "K4": 4}),
+    ("WIN=v2 GLB=v2", {"LAMENESS_WIN_KERNEL": "v2",
+                       "LAMENESS_GLB_KERNEL": "v2"},
+     {"K1": 12, "K8": 35, "K5": 4}),
+    # hd + 64 = 144 > 128: GLB=v3 takes K5, not K6 (models/sam.py)
+    ("WIN=v5 GLB=v3", {"LAMENESS_WIN_KERNEL": "v5",
+                       "LAMENESS_GLB_KERNEL": "v3"},
+     {"K1": 12, "K9": 35, "K5": 4}),
 )
+# the kernels that run at hd 80, and the routine each must launch there
+# (the window routine's bf16 instantiation at hd 80 and SAM's 13 key tiles;
+# the global ones keep attention.cuh's)
+HD80_ROUTINES = {"K2": "window_attention_kernel<80, 13>",
+                 "K3": "attention_mma_kernel<80,",
+                 "K4": "attention_mma_kernel<80,",
+                 "K5": "attention_mma_kernel<80,",
+                 "K7": "window_attention_kernel<80, 13>",
+                 "K8": "window_attention_kernel<80, 13>",
+                 "K9": "window_attention_kernel<80, 13>"}
 # the tiny SAM at ViT-H's head dim (tests/test_sam_variants.py:202)
 HD80_SAM = dict(encoder_dim=160, encoder_depth=3, encoder_heads=2,
                 global_attn_indexes=(1,))
@@ -1300,18 +1324,21 @@ def trained_pose(ref_out, frames, batch: int = BATCH) -> bool:
 
 
 def hd80_kernels(launches, batch: int = BATCH) -> bool:
-    """K2, K3, K4 and K7 at ViT-H's shapes (16 heads of 80) in bf16: each
-    against its plain version on one image's slice (the batch's plain K3
-    would hold about 24 GB of f32 scores), its device time (the profiler's,
-    and by CUDA events around back-to-back calls) beside its bound and one
-    SDPA call; one ``kernel shape record`` line each."""
+    """The kernels of HD80_ROUTINES at ViT-H's shapes (16 heads of 80) in
+    bf16: each launches its routine alone (torch.profiler's kernel names),
+    agrees with its plain version on one image's slice (the batch's plain
+    K3 would hold about 24 GB of f32 scores), and its device time (the
+    profiler's, and by CUDA events around back-to-back calls) stands
+    beside its bound, its plain version's time over the batch (the global
+    ones in chunks of 24 heads) and one SDPA call; one ``kernel shape
+    record`` line each."""
     import torch
     from lameness_tpu_torch.ops import sam_attention as sa
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     entries = {kid: (name, entry, layout) for kid, name, entry, layout, *_
                in KERNEL_TABLE}
     ok = True
-    for kid in ("K2", "K3", "K4", "K7"):
+    for kid, routine in HD80_ROUTINES.items():
         name, entry, layout = entries[kid]
         fn = getattr(sa, entry)
         args = kernel_inputs(layout, torch.bfloat16, batch, gen, heads=16,
@@ -1321,10 +1348,15 @@ def hd80_kernels(launches, batch: int = BATCH) -> bool:
         ref = plain_version(kid, tuple(a[:one] for a in args))()
         torch.cuda.synchronize()
         err, good = agree(f"{kid} hd 80", "bfloat16", out[:one], ref)
-        ok &= good
+        names = kernel_names(lambda: fn(*args))
+        alone = len(names) == 1 and routine in names[0]
+        log(f"  {kid} hd 80 launches {names} (expected {routine} alone)  "
+            f"{'ok' if alone else 'FAIL'}")
+        ok &= good and alone
         reps = 5 if layout.startswith("global") else 20
         ms = device_ms(lambda: fn(*args), reps, only="lameness::")
         call = cuda_ms(lambda: fn(*args), reps)
+        plain_ms = device_ms(plain_version(kid, args), 3)
         library = library_call(layout, args)
         lib = device_ms(library, 3)
         lib_call = cuda_ms(library, 3)
@@ -1335,7 +1367,8 @@ def hd80_kernels(launches, batch: int = BATCH) -> bool:
         bound = max(t_bytes, t_ops)
         log("kernel shape record " + json.dumps({
             "id": kid, "name": name, "shapes": [tuple(a.shape) for a in args],
-            "ms": ms, "call_ms": call, "launches": launches.get(name, 0),
+            "routine": names, "ms": ms, "call_ms": call,
+            "launches": launches.get(name, 0), "plain_ms": plain_ms,
             "bound_ms": bound,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bound_share": bound / ms, "library_ms": lib,
@@ -1348,7 +1381,8 @@ def hd80_kernels(launches, batch: int = BATCH) -> bool:
 
 def vit_h(frames, batch: int = BATCH) -> bool:
     """5c: the engine at SAM ViT-H (32 layers, 16 heads of 80) with seeded
-    weights, by default and under WIN=v1 GLB=v1, and its kernels at hd 80."""
+    weights, by default and under the other VIT_H_SELECTIONS, and its
+    kernels at hd 80."""
     import torch
     from lameness_tpu_torch.core.config import Config, SamConfig
     from lameness_tpu_torch.pipeline.engine import EngineSpec, LamenessEngine
@@ -1387,7 +1421,18 @@ def vit_h(frames, batch: int = BATCH) -> bool:
                 f"bit {same_leaves(out, ref[0])}  {'ok' if good else 'FAIL'}")
     del eng, ref, out, emb
     torch.cuda.empty_cache()
-    return ok & hd80_kernels(counts, batch)
+    return ok & hd80_in_fresh_process(counts)
+
+
+def hd80_in_fresh_process(launches) -> bool:
+    """hd80_kernels in a process of its own (``chip_smoke.py --hd80``; the
+    kernels are built already).  Late in a run, after the engines'
+    profiled batches, torch.profiler has recorded no device event for one
+    kernel call, and a fifth of the CUDA-event time over 5 calls (K3 at hd
+    80 2.55 ms against 12.75); in a fresh process the two agree."""
+    res = subprocess.run([sys.executable, os.path.abspath(__file__), "--hd80",
+                          json.dumps(launches)], timeout=900)
+    return res.returncode == 0
 
 
 # ---------------------------------------------------------------------------
@@ -2587,6 +2632,10 @@ def main() -> int:
         print(f"chip_smoke: lameness_tpu_torch not importable ({exc}); run "
               f"from the repository root", file=sys.stderr)
         return 3
+    if sys.argv[1:2] == ["--hd80"]:          # hd80_in_fresh_process
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        return 0 if hd80_kernels(json.loads(sys.argv[2])) else 1
     smi, hgmma = setup()
     ok_build = all(hgmma[name] > 0 for name in HOPPER_SOURCES)
     if not ok_build:

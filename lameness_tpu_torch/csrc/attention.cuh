@@ -1,7 +1,8 @@
 // One online-softmax attention routine, shared by the port's nine kernels
-// (each of which has a routine of its own for its main shapes, bf16 at head
-// dim 64: K1 dino_attention.cuh, K3-K6 hopper_attention.cuh, K2, K7, K8 and
-// K9 window_attention.cuh; their other shapes come here):
+// (each of which has a routine of its own for its main shapes in bf16: K1
+// dino_attention.cuh and K3-K6 hopper_attention.cuh at head dim 64, K2, K7,
+// K8 and K9 window_attention.cuh at head dims 64 and 80; their other shapes
+// come here, K3-K6 at ViT-H's head dim 80 among them):
 //   K1 attention.cu               softmax(q k^T scale) v               (DINO)
 //   K2 sam_window_attention.cu    + decomposed rel-pos bias, 14x14 windows,
 //                                 head-last views of the qkv output

@@ -44,6 +44,7 @@ inline void __syncthreads() { emu_block_barrier->arrive_and_wait(); }
 inline void emu_warp_sync() {
   emu_warp_barriers[threadIdx.x / 32]->arrive_and_wait();
 }
+inline void __syncwarp(unsigned = 0xffffffffu) { emu_warp_sync(); }
 
 template <class F>
 cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {

@@ -9,18 +9,20 @@
 //
 // Bound on the card: per (window, head) N = 196, hd = 64: 4*N*N*hd = 9.8
 // MFLOP against ~4*N*hd*2 + 2*N*win*2 bytes (~111 KB bf16), ~90 FLOP/byte --
-// bound by bytes: 0.22 ms for the engine's 550 x 12 window-heads.
+// bound by bytes: 0.22 ms for the engine's 550 x 12 window-heads (ViT-B),
+// 0.36 ms for ViT-H's 550 x 16 at hd 80.
 //
 // Routes, chosen by shape in window_entry (window_attention.cuh), the one
 // choice of K2, K7, K8 and K9 (a failed launch raises in the Python wrapper;
 // nothing falls back):
-//   * bfloat16, head dim 64, windows of <= 256 tokens (every SAM window):
-//     the window routine of window_attention.cuh -- one block per (window,
-//     head) with the whole window in shared memory, loaded once by cp.async;
+//   * bfloat16, head dim 64 or 80, windows of <= 256 tokens (every SAM
+//     window): the window routine of window_attention.cuh -- one block per
+//     (window, head) with the window's K and V in shared memory, loaded
+//     once by cp.async;
 //     the bias contracted on the tensor cores as the TPU kernel does on the
 //     MXU, [q | rh | rw] against [k | spread^T | mod^T] (the one-hot columns
 //     built in shared memory, never read from HBM); a one-pass softmax;
-//   * anything else (float32, head dims 16, 32, 80, 128): the online-softmax
+//   * anything else (float32, head dims 16, 32, 128): the online-softmax
 //     routine of attention.cuh, adding rh[t, j / win] + rw[t, j % win] per
 //     score.
 #include "attention.cuh"

@@ -9,9 +9,10 @@
 // (BW, nH, N, D).  The TPU kernel runs all heads of a window in one program
 // and builds the bias by a one-hot spread matmul and a lane repeat.  Here
 // K2's routes serve it at head-major strides, chosen by window_entry:
-// bfloat16 at head dim 64 takes the window routine (window_attention.cuh: one block per (window, head),
-// the bias contracted on the tensor cores from one-hot columns built in
-// shared memory), anything else attention.cuh's routine.  q, k and v may be
+// bfloat16 at head dims 64 and 80 takes the window routine
+// (window_attention.cuh: one block per (window, head), the bias contracted
+// on the tensor cores from one-hot columns built in shared memory),
+// anything else attention.cuh's routine.  q, k and v may be
 // strided views of the qkv output: the head-major transpose is a view, not a
 // copy.
 //

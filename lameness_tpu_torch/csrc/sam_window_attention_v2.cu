@@ -9,10 +9,10 @@
 // contraction runs in shared memory: K7's signature (q, k, v (BW, nH, N, D);
 // rh, rw (BW, nH, N, win) q-projected tables; output (BW, nH, N, D)), read
 // where the engine's head-major path leaves them, and window_entry
-// (window_attention.cuh) chooses the route.  In bfloat16 at head dim 64 the
-// window routine forms [q | rh | rw] and [k | spread^T/scale | mod^T/scale]
-// in a block's shared memory; nothing is built in HBM, and the output is
-// K7's bit for bit.  Float32, other head dims and windows past 16 x 16 take
+// (window_attention.cuh) chooses the route.  In bfloat16 at head dim 64 or
+// 80 the window routine forms [q | rh | rw] and [k | c·spread^T | c·mod^T]
+// (c = 1/scale at hd 64, 1 at hd 80) in a block's shared memory; nothing is
+// built in HBM, and the output is K7's bit for bit.  Float32, other head dims and windows past 16 x 16 take
 // attention.cuh's per-score bias routine.
 //
 // The TPU kernel's scheduling has no counterpart: it runs several windows'

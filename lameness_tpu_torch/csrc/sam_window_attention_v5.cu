@@ -11,9 +11,9 @@
 // hd) slices of the fused qkv output; rh4, rw4 (BW, N, nH, win) as
 // project_rel_tables_hl leaves them; output (BW, N, nH*hd)), read in place,
 // and window_entry (window_attention.cuh) chooses the route.  In bfloat16 at
-// head dim 64 the window routine forms the augmented columns in a block's
-// shared memory; nothing is built in HBM, and the output is K2's bit for
-// bit (the routine, too, divides after PV).  Float32, other head dims and
+// head dim 64 or 80 the window routine forms the augmented columns in a
+// block's shared memory; nothing is built in HBM, and the output is K2's bit
+// for bit (the routine, too, divides after PV).  Float32, other head dims and
 // windows past 16 x 16 take attention.cuh's per-score bias routine.
 //
 // The TPU kernel's scheduling has no counterpart: several windows per

@@ -2,12 +2,13 @@
 """Hold the full-width engine's outputs of two checkouts against each other
 on one card.
 
-    python scripts/ab_engine.py ROOT_A ROOT_B
+    python scripts/ab_engine.py ROOT_A ROOT_B [SAM_VARIANT]
 
 ROOT_A and ROOT_B are repository roots (e.g. an unpacked ``git archive`` of
 the parent commit, and ``.``).  Each root runs, in a process of its own,
 the default engine of ``chip_smoke.py`` (``EngineSpec()``, ``Config()``,
-weights seeded with 0) on the same B = 2 seeded 720p clips of 125 frames,
+weights seeded with 0; SAM_VARIANT, e.g. ``vit_h``, builds SAM at that
+variant instead of ViT-B) on the same B = 2 seeded 720p clips of 125 frames,
 and saves its outputs under ``lameness_tpu_torch/_build/ab_engine/`` of
 this script's checkout.  The script then prints, for B against A: the share
 of mask pixels that agree, the relative L2 distance of the DINO embeddings
@@ -41,14 +42,14 @@ def leaves(tree, prefix=""):
             yield prefix + key, np.asarray(val)
 
 
-def worker(root: str, saved: str) -> None:
+def worker(root: str, saved: str, variant: str) -> None:
     sys.path.insert(0, root)
     import torch
-    from lameness_tpu_torch.core.config import Config
+    from lameness_tpu_torch.core.config import Config, SamConfig
     from lameness_tpu_torch.pipeline.engine import EngineSpec, LamenessEngine
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    eng = LamenessEngine(Config(), EngineSpec(),
+    eng = LamenessEngine(Config(sam=SamConfig(variant=variant)), EngineSpec(),
                          generator=torch.Generator().manual_seed(SEED))
     s = eng.spec
     frames = np.random.default_rng(SEED).integers(
@@ -77,19 +78,21 @@ def worker(root: str, saved: str) -> None:
 
 def main() -> int:
     if sys.argv[1:2] == ["--worker"]:
-        worker(sys.argv[2], sys.argv[3])
+        worker(*sys.argv[2:5])
         return 0
     roots = {"A": sys.argv[1], "B": sys.argv[2]}
+    variant = sys.argv[3] if len(sys.argv) > 3 else "vit_b"
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
+    print(f"SAM {variant}", flush=True)
     SAVED.mkdir(parents=True, exist_ok=True)
     outs = {}
     for turn in "ABBA":
         path = SAVED / f"{turn}.npz"
         res = subprocess.run([sys.executable, __file__, "--worker",
-                              roots[turn], str(path)], capture_output=True,
-                             text=True)
+                              roots[turn], str(path), variant],
+                             capture_output=True, text=True)
         if res.returncode:
             print(res.stdout + res.stderr, file=sys.stderr)
             return res.returncode

@@ -35,16 +35,17 @@ OUT = _cuda.BUILD_DIR / "emulate"
 TOL = {torch.float32: (2e-5, 0.0), torch.bfloat16: (1e-2, 1.6e-2)}
 
 
-def build() -> ctypes.CDLL:
-    """g++ each source (one process per file, all together) and link."""
-    src = OUT / "src"
-    shutil.rmtree(OUT, ignore_errors=True)
+def build(names=_cuda.SOURCES, out: Path = OUT) -> ctypes.CDLL:
+    """g++ the named sources (one process per file, all together) into
+    ``out`` and link them into one library."""
+    src = out / "src"
+    shutil.rmtree(out, ignore_errors=True)
     src.mkdir(parents=True)
     for f in _cuda.CSRC.glob("*.cuh"):
         shutil.copy(f, src / f.name)
     shutil.copy(EMU / "mma.cuh", src / "mma.cuh")     # the emulated twin
     units = [EMU / "shared.cpp"]
-    for name in _cuda.SOURCES:
+    for name in names:
         units.append(src / f"{name}.cpp")
         shutil.copy(_cuda.CSRC / f"{name}.cu", units[-1])
     # LAMENESS_EMULATION: the sources leave out their wgmma/TMA routes
@@ -53,13 +54,13 @@ def build() -> ctypes.CDLL:
     flags = ["-std=c++20", "-O2", "-fPIC", "-DLAMENESS_EMULATION", f"-I{EMU}",
              f"-I{src}"]
     procs = [subprocess.Popen(["g++", *flags, "-c", str(u), "-o",
-                               str(OUT / f"{u.stem}.o")])
+                               str(out / f"{u.stem}.o")])
              for u in units]
     if any(p.wait() for p in procs):
         raise SystemExit("emulation build failed")
-    lib = OUT / "libemulated.so"
+    lib = out / "libemulated.so"
     subprocess.run(["g++", "-shared", "-o", str(lib),
-                    *(str(OUT / f"{u.stem}.o") for u in units), "-lpthread"],
+                    *(str(out / f"{u.stem}.o") for u in units), "-lpthread"],
                    check=True)
     return ctypes.CDLL(str(lib))
 
@@ -102,10 +103,11 @@ def main() -> int:
             report("K1", dtype, (b, h, s, d), out,
                    at.reference_attention(q, k, v))
         # K2: windows with pad tokens (unmasked), fused-qkv slices.  bf16 at
-        # hd 64 takes the window routine (window_attention.cuh): 16-key
-        # tiles KT = 4 (win 7, 8), 13 (win 14) and 16 (win 16); tables read
-        # by words (even win) or element by element (win 7).  The rest:
-        # attention.cuh's routine
+        # hd 64 and 80 takes the window routine (window_attention.cuh):
+        # 16-key tiles KT = 4 (win 7, 8), 13 (win 14) and 16 (win 16);
+        # tables read by words (even win) or element by element (win 7).
+        # The rest: attention.cuh's routine.  K2 and K7 at hd 80:
+        # tests/test_torch_window_emulated.py
         for bw, win, nh, hd in ((2, 7, 2, 32), (2, 14, 2, 64), (2, 7, 2, 64),
                                 (1, 8, 2, 64), (2, 16, 2, 64)):
             qkv = rnd(bw, win * win, 3, nh, hd, dtype=dtype)
@@ -135,7 +137,8 @@ def main() -> int:
                 report(name, dtype, (bh, gh, gw, d), out,
                        sa.sam_attention_reference(q, k, v, rh, rw))
         # K7: head-major windows, q/k/v strided views of a fused qkv output
-        # (the window routine at bf16 hd 64: KT = 4, 13 with N = 144 < 208)
+        # (the window routine at bf16 hd 64 and 80: KT = 4, 13 with N = 144
+        # < 208)
         for bw, win, nh, hd in ((2, 7, 2, 32), (1, 14, 2, 64), (1, 5, 1, 80),
                                 (2, 7, 2, 64), (1, 12, 2, 64)):
             n = win * win
@@ -180,10 +183,10 @@ def main() -> int:
             report("K5", dtype, (b, nh, gh, gw, d), out,
                    sa.sam_global_attention_v2(q, k, v, rh, rw))
         # K9 (head-last, K2's arguments) and K8 (head-major, K7's), through
-        # window_entry: the window routine at bf16 hd 64 (KT = 4, 8, 13;
-        # tables by words, or element by element where win is odd),
-        # attention.cuh's per-score bias routine otherwise (float32, hd 32,
-        # 80 and 16, the 17 x 17 window).  Held against the plain versions
+        # window_entry: the window routine at bf16 hd 64 and 80 (KT = 4, 8,
+        # 13; tables by words, or element by element where win is odd),
+        # attention.cuh's per-score bias routine otherwise (float32, hd 32
+        # and 16, the 17 x 17 window).  Held against the plain versions
         # on the augmented operands of the JAX entries, and bit for bit
         # against K2 and K7 on the same operands
         for bw, win, nh, hd in ((2, 7, 2, 32), (1, 14, 2, 64), (1, 8, 1, 80),

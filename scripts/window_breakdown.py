@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Where the window routine's time goes on the card: the bf16 device time of
 K2 and K7 at the shapes the full-width engine gives them for B = 2 clips
-(550 windows x 12 heads of 196 tokens, head dim 64, 14 x 14 windows), built
-whole and with parts of the routine left out.  K9 and K8 run the same
-routine on the same operands through the same route choice (window_entry),
-so K2's rows are K9's and K7's are K8's.
+(550 windows of 196 tokens, 14 x 14: 12 heads of 64 with SAM ViT-B, 16 of
+80 with ViT-H), built whole and with parts of the routine left out.  K9 and
+K8 run the same routine on the same operands through the same route choice
+(window_entry), so K2's rows are K9's and K7's are K8's.
 
-    python scripts/window_breakdown.py
+    python scripts/window_breakdown.py        # ViT-B, head dim 64
+    python scripts/window_breakdown.py 80     # ViT-H, head dim 80
 
 The method of ``scripts/k5_breakdown.py``, whose build it uses: its own
 copies of ``sam_window_attention`` (K2) and ``sam_window_attention_v1`` (K7)
@@ -61,7 +62,10 @@ ROWS = (("whole", (), ()),
 
 
 def main() -> int:
+    hd = int(sys.argv[1]) if len(sys.argv) > 1 else 64
+    heads = {64: 12, 80: 16}[hd]
     card()
+    print(f"head dim {hd}, {heads} heads", flush=True)
     libs = build(tuple(k.source for k in KERNELS.values()),
                  "window_attention.cuh", ROWS, OUT)
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -69,22 +73,22 @@ def main() -> int:
     def rnd(*shape, std=1.0):
         return (torch.randn(*shape, generator=gen, device="cuda") * std
                 ).to(torch.bfloat16)
-    q4, k4, v4 = rnd(550, 196, 3, 12, 64).unbind(2)
-    rh4, rw4 = sa.project_rel_tables_hl(q4, rnd(27, 64, std=0.1),
-                                        rnd(27, 64, std=0.1), 14)
+    q4, k4, v4 = rnd(550, 196, 3, heads, hd).unbind(2)
+    rh4, rw4 = sa.project_rel_tables_hl(q4, rnd(27, hd, std=0.1),
+                                        rnd(27, hd, std=0.1), 14)
     q, k, v = (t.transpose(1, 2) for t in (q4, k4, v4))
-    rh, rw = (t.reshape(550, 12, 196, 14) for t in sa.project_rel_tables(
-        q.reshape(-1, 196, 64), rnd(27, 64, std=0.1), rnd(27, 64, std=0.1),
+    rh, rw = (t.reshape(550, heads, 196, 14) for t in sa.project_rel_tables(
+        q.reshape(-1, 196, hd), rnd(27, hd, std=0.1), rnd(27, hd, std=0.1),
         14))
     stream = torch.cuda.current_stream().cuda_stream
     # per kernel: the package entry, and the C arguments with their output
     entries = {
         "K2": (lambda: sa.sam_window_attention_v3(q4, k4, v4, rh4, rw4),
-               torch.empty(550, 196, 768, dtype=torch.bfloat16,
+               torch.empty(550, 196, heads * hd, dtype=torch.bfloat16,
                            device="cuda"),
                lambda out: sa.window_args(q4, k4, v4, rh4, rw4, out)),
         "K7": (lambda: sa.sam_window_attention_v1(q, k, v, rh, rw),
-               torch.empty(550, 12, 196, 64, dtype=torch.bfloat16,
+               torch.empty(550, heads, 196, hd, dtype=torch.bfloat16,
                            device="cuda"),
                lambda out: sa.bias_args(q, k, v, rh, rw, out))}
 

@@ -409,17 +409,51 @@ def _window_call(dev, dtype, win, hd, entry):
     return got, _window_plain(entry, *args)
 
 
+@pytest.mark.parametrize("hd", [64, 80])
 @pytest.mark.parametrize("win", [14, 7, 8, 16])
 @pytest.mark.parametrize("entry", list(WINDOW_ENTRIES))
-def test_window_routine(dev, win, entry):
-    """bf16 at hd 64: the window routine (csrc/window_attention.cuh), one
-    block per (window, head), for K2, K7, K8 and K9.  win 14: SAM's 196
-    tokens in 13 key tiles; win 7: 49 tokens, 15 of 64 padded keys masked,
-    tables read element by element (odd rows); win 16: 256 tokens, the
-    largest window it takes."""
-    got, ref = _window_call(dev, torch.bfloat16, win, 64, entry)
+def test_window_routine(dev, win, hd, entry):
+    """bf16 at hd 64 (ViT-B) and 80 (ViT-H): the window routine
+    (csrc/window_attention.cuh), one block per (window, head), for K2, K7,
+    K8 and K9.  win 14: SAM's 196 tokens in 13 key tiles (at hd 80 each
+    warp fetches its next m-tile's Q rows); win 7: 49 tokens, 15 of 64
+    padded keys masked, tables read element by element (odd rows); win 16:
+    256 tokens, the largest window it takes."""
+    got, ref = _window_call(dev, torch.bfloat16, win, hd, entry)
     torch.testing.assert_close(got.float(), ref.float(), atol=2e-2,
                                rtol=2e-2)
+
+
+def _kernel_names(fn) -> set:
+    """The device kernels one call of fn runs, by torch.profiler."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+@pytest.mark.parametrize("dtype,routine", [
+    (torch.bfloat16, "window_attention_kernel<80, 13>"),
+    (torch.float32, "attention_f32_kernel<80, true>")])
+@pytest.mark.parametrize("entry", list(WINDOW_ENTRIES))
+def test_window_route_at_hd80(dev, dtype, routine, entry):
+    """At ViT-H's head dim 80 and SAM's 14 x 14 window, window_entry sends
+    bf16 to the window routine and float32 to attention.cuh's, for K2, K7,
+    K8 and K9: the one kernel the entry launches is that routine's, and no
+    attention_mma_kernel runs."""
+    qkv = _rnd(dev, dtype, 2, 196, 3, 2, 80)
+    q4, k4, v4 = qkv.unbind(2)
+    rh4, rw4 = sa.project_rel_tables_hl(
+        q4, _rnd(dev, dtype, 27, 80, seed=1, s=0.1),
+        _rnd(dev, dtype, 27, 80, seed=2, s=0.1), 14)
+    args = (q4, k4, v4, rh4, rw4)
+    if entry in ("sam_window_attention_v1", "sam_window_attention_v2"):
+        args = tuple(t.transpose(1, 2) for t in args)
+    names = _kernel_names(lambda: getattr(sa, entry)(*args))
+    assert len(names) == 1 and routine in next(iter(names)), names
 
 
 @pytest.mark.parametrize("dtype,tol,win,hd", [
