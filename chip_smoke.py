@@ -8,7 +8,9 @@ Phases, each failing loudly (no exception is swallowed):
      kernels from csrc/ with nvcc (one process per source, in parallel);
      per library the registers and spills ptxas reports and the HGMMA
      (wgmma) instructions in its SASS -- those of K1 (its Hopper routine)
-     and of K3, K4, K5 and K6 (one Hopper routine) must have them;
+     and of K3, K4, K5 and K6 (one Hopper routine) must have them -- and
+     each instantiation of the Hopper global routine (hd 64 and 80) with
+     its registers, spills and whether ptxas serialised its wgmma;
   2. kernels: K1-K9 against their plain PyTorch versions at the engine's
      shapes, in float32 and bfloat16, with device times (torch.profiler)
      beside the bound, the plain version's and a PyTorch library call's as
@@ -51,7 +53,8 @@ Phases, each failing loudly (no exception is swallowed):
      default (K2, K3) and under v1/v1 (K7, K4), v2/v2 (K8, K5) and v5/v3
      (K9, K5: hd + 64 > 128), each against the default, its record; K2,
      K3, K4, K5, K7, K8 and K9 at ViT-H's shapes, each launching its
-     routine alone (K2, K7, K8 and K9 the window routine's hd-80 kernel),
+     routine alone (K2, K7, K8 and K9 the window routine's hd-80 kernel,
+     K3, K4 and K5 the Hopper global routine's, and equal bit for bit),
      against their plain versions beside their bounds and SDPA; and the
      tiny engine with a SAM at head dim 80, card against CPU.
   6. serving: the default engine (phase 3's weights) with YOLO's cow class
@@ -97,6 +100,7 @@ import dataclasses
 import gc
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -241,15 +245,28 @@ def setup():
         hgmma[name] = sass_count(_cuda.library_path(name), "HGMMA")
         path = _cuda.BUILD_DIR / f"{name}.log"
         if path.exists():
-            lines = path.read_text().splitlines()
-            regs = [int(ln.split("Used ")[1].split()[0]) for ln in lines
-                    if "registers" in ln]
-            spills = [ln.strip() for ln in lines
-                      if "spill" in ln and "0 bytes spill stores" not in ln]
+            entries = _cuda.ptxas_entries(path.read_text())
+            regs = [int(e["registers"].split()[0]) for e in entries
+                    if e["registers"]]
+            spills = [e["spills"] for e in entries
+                      if re.search(r"[1-9]\d* bytes spill stores",
+                                   e["spills"])]
             log(f"  ptxas {name}: {len(regs)} kernels, registers "
                 f"{min(regs, default=0)}-{max(regs, default=0)}, "
                 f"{len(spills)} with spills {spills[:2]}; HGMMA in SASS "
                 f"{hgmma[name]}")
+            if name == "sam_global_attention":    # the Hopper global routine
+                # ptxas's C7512: wgmma serialised for want of registers
+                serial = set(re.findall(r"serialized .* function '([^']+)'",
+                                        path.read_text()))
+                for e in entries:
+                    m = re.search(r"hopper_global_kernelILi(\d+)ELb([01])E",
+                                  e["name"])
+                    if m:
+                        log(f"    hopper_global_kernel<{m[1]}, "
+                            f"{('false', 'true')[int(m[2])]}>: "
+                            f"{e['registers']}; {e['spills']}; wgmma "
+                            f"serialised {e['name'] in serial}")
     return smi, hgmma
 
 
@@ -1201,13 +1218,14 @@ VIT_H_SELECTIONS = (
                        "LAMENESS_GLB_KERNEL": "v3"},
      {"K1": 12, "K9": 35, "K5": 4}),
 )
-# the kernels that run at hd 80, and the routine each must launch there
-# (the window routine's bf16 instantiation at hd 80 and SAM's 13 key tiles;
-# the global ones keep attention.cuh's)
+# the kernels that run at hd 80, and the routine each must launch there in
+# bf16: the window routine's instantiation at hd 80 and SAM's 13 key tiles,
+# and the Hopper global routine's at hd 80 (the 64 x 64 grid: rw per
+# column, ROW_TILE)
 HD80_ROUTINES = {"K2": "window_attention_kernel<80, 13>",
-                 "K3": "attention_mma_kernel<80,",
-                 "K4": "attention_mma_kernel<80,",
-                 "K5": "attention_mma_kernel<80,",
+                 "K3": "hopper_global_kernel<80, true>",
+                 "K4": "hopper_global_kernel<80, true>",
+                 "K5": "hopper_global_kernel<80, true>",
                  "K7": "window_attention_kernel<80, 13>",
                  "K8": "window_attention_kernel<80, 13>",
                  "K9": "window_attention_kernel<80, 13>"}
@@ -1337,7 +1355,14 @@ def hd80_kernels(launches, batch: int = BATCH) -> bool:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     entries = {kid: (name, entry, layout) for kid, name, entry, layout, *_
                in KERNEL_TABLE}
-    ok = True
+    # K3, K4 and K5 run one routine on one set of operands
+    args = kernel_inputs(entries["K3"][2], torch.bfloat16, batch, gen,
+                         heads=16, hd=80)
+    outs = [getattr(sa, entries[kid][1])(*args) for kid in ("K3", "K4", "K5")]
+    ok = all(torch.equal(outs[0], o) for o in outs[1:])
+    log(f"  K3, K4 and K5 at hd 80 {tuple(args[0].shape)}: outputs equal bit "
+        f"for bit {ok}  {'ok' if ok else 'FAIL'}")
+    del args, outs
     for kid, routine in HD80_ROUTINES.items():
         name, entry, layout = entries[kid]
         fn = getattr(sa, entry)
@@ -1365,6 +1390,9 @@ def hd80_kernels(launches, batch: int = BATCH) -> bool:
         t_bytes = nbytes / PEAK_BYTES_S * 1e3
         t_ops = flops / PEAK_FLOPS_S["bfloat16"] * 1e3
         bound = max(t_bytes, t_ops)
+        log(f"  {kid} hd 80: {call:.4f} ms by CUDA events, one SDPA call "
+            f"{lib_call:.4f} ms: faster {call < lib_call}; bound share "
+            f"{bound / call:.3f}")
         log("kernel shape record " + json.dumps({
             "id": kid, "name": name, "shapes": [tuple(a.shape) for a in args],
             "routine": names, "ms": ms, "call_ms": call,

@@ -5,13 +5,15 @@
 // views of the qkv output -- and the one place that chooses their route by
 // shape (a failed build or launch raises in the Python wrapper; nothing
 // falls back):
-//   * bfloat16, head dim 64, bias rows that fit in shared memory (square
-//     grids up to 68x68, every SAM canvas up to 1088^2, and the rect
+//   * bfloat16, head dim 64 or 80 (SAM ViT-B and ViT-H), bias rows that
+//     fit in shared memory (at hd 64 square grids up to 68x68, at hd 80 up
+//     to 83x83: every SAM canvas up to 1088^2 and 1328^2, and the rect
 //     (36, 64) grid): the Hopper routine of hopper_attention.cuh -- wgmma
 //     for QK^T and PV, K/V tiles brought in by TMA from a producer
-//     warpgroup, 192 query rows per block in three consumer warpgroups;
-//   * anything else (float32, head dims 16, 32, 80, 128 -- 80 is SAM ViT-H
-//     -- and larger grids): the mma.sync / FMA routine of attention.cuh.
+//     warpgroup, 64 query rows per consumer warpgroup (three at hd 64, two
+//     at hd 80);
+//   * anything else (float32, head dims 16, 32, 128, and larger grids):
+//     the mma.sync / FMA routine of attention.cuh.
 // Both routes read q, k, v and the tables where the qkv Linear and the
 // rel-pos einsum leave them, so the wrappers copy nothing.  The CPU
 // emulation (scripts/emulate_cuda_kernels.py, LAMENESS_EMULATION) has no
@@ -47,7 +49,8 @@ inline int global_entry(const void* q, const void* k, const void* v,
   }
 #ifndef LAMENESS_EMULATION
   if (hopper_global_takes(a, outer * heads, head_dim, dtype))
-    return launch_hopper_global(a, outer, stream);
+    return head_dim == 80 ? launch_hopper_global<80>(a, outer, stream)
+                          : launch_hopper_global<64>(a, outer, stream);
 #endif
   return launch<true>(a, outer * heads, head_dim, dtype, stream);
 }

@@ -155,6 +155,16 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
+// The same for a tile stored as rows of 32 bytes (16 bf16) with the 32-byte
+// swizzle (CU_TENSOR_MAP_SWIZZLE_32B, layout type 3), the tile 256-byte
+// aligned: a row is one k-step of a K-major operand, or 16 columns of an
+// MN-major one, and 8 rows step 256 bytes in either reading (16 rows of an
+// MN-major tile: +32).
+__device__ __forceinline__ uint64_t desc_sw32(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(256 >> 4) << 16) |
+         ((uint64_t)(256 >> 4) << 32) | ((uint64_t)3 << 62);
+}
+
 // Descriptor of a tile without swizzle (core matrices of 8 rows x 16
 // bytes), leading and stride byte offsets as given
 __device__ __forceinline__ uint64_t desc_plain(uint32_t addr, uint32_t lbo,
@@ -278,6 +288,21 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// d += A·B, a 64x16 tile over k = 16: A from registers as in
+// wgmma_m64n64k16_rs, B (16 x 16) from shared memory, MN-major
+__device__ __forceinline__ void wgmma_m64n16k16_rs(float (&d)[8],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, "
+      "1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
 // d += A·B, a 64x8 tile over k = 16: A from registers as in
 // wgmma_m64n64k16_rs, B (16 x 8) from shared memory, K-major
 __device__ __forceinline__ void wgmma_m64n8k16_rs(float (&d)[4],
@@ -297,7 +322,7 @@ __device__ __forceinline__ void wgmma_m64n8k16_rs(float (&d)[4],
 // host side: TMA maps of the bf16 routines (hopper_attention.cuh,
 // dino_attention.cuh)
 // ---------------------------------------------------------------------------
-constexpr int kTileWidth = 64;   // bf16 columns of a tile row: 128 bytes
+constexpr int kTileWidth = 64;   // bf16 columns of a 128-byte swizzled row
 
 // cuTensorMapEncodeTiled, looked up through the runtime's entry-point
 // query (the libraries link no -lcuda)
@@ -326,31 +351,35 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// An (outer, heads, rows, 64) bf16 tensor at element strides s = {outer,
-// head, row} as a 4-D map {64, rows, heads, outer} with boxes of box_rows
-// rows x 64 columns of one (outer, head) under the 128-byte swizzle; rows
-// past `rows` read as zeros.  With one head the heads axis is never stepped
-// and takes the outer stride (its own slot may be 0).  False unless the
-// address and the strides are multiples of 16 bytes (what TMA takes).
+// Columns col0 .. col0 + width - 1 of an (outer, heads, rows, ·) bf16
+// tensor at element strides s = {outer, head, row} as a 4-D map {width,
+// rows, heads, outer} with boxes of box_rows rows x width columns of one
+// (outer, head) under `swizzle` (a row of the box is 128 bytes under the
+// 128-byte swizzle, 32 under the 32-byte one); rows past `rows` read as
+// zeros.  With one head the heads axis is never stepped and takes the outer
+// stride (its own slot may be 0).  False unless the first column's address
+// and the strides are multiples of 16 bytes (what TMA takes).
 inline bool tile_map(EncodeTiledFn enc, CUtensorMap* map, const void* ptr,
                      const long long* s, int outer, int heads, int rows,
-                     int box_rows) {
+                     int box_rows, int col0 = 0, int width = kTileWidth,
+                     CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const long long el = 2;   // bf16
   const long long head_s = heads == 1 ? s[0] : s[1];
-  if (reinterpret_cast<uintptr_t>(ptr) % 16 || (s[0] * el) % 16 ||
+  const char* first = static_cast<const char*>(ptr) + col0 * el;
+  if (reinterpret_cast<uintptr_t>(first) % 16 || (s[0] * el) % 16 ||
       (head_s * el) % 16 || (s[2] * el) % 16)
     return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)kTileWidth, (cuuint64_t)rows,
+  const cuuint64_t dims[4] = {(cuuint64_t)width, (cuuint64_t)rows,
                               (cuuint64_t)heads, (cuuint64_t)outer};
   const cuuint64_t strides[3] = {(cuuint64_t)(s[2] * el),
                                  (cuuint64_t)(head_s * el),
                                  (cuuint64_t)(s[0] * el)};
-  const cuuint32_t box[4] = {(cuuint32_t)kTileWidth, (cuuint32_t)box_rows, 1,
-                             1};
+  const cuuint32_t box[4] = {(cuuint32_t)width, (cuuint32_t)box_rows, 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+             const_cast<char*>(first), dims, strides, box, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

@@ -7,8 +7,9 @@
 // program per qh row of the grid.  It computes K3's function on K3's
 // operands, so it takes K3's routes (global_attention.cuh): q, k, v
 // (BH, N, D); rel_h (BH, GH, GW, GH), rel_w (BH, GH, GW, GW) where the
-// einsum leaves them; output (BH, N, D).  bf16 at head dim 64 runs the
-// Hopper routine (hopper_attention.cuh: wgmma, TMA), the rest attention.cuh.
+// einsum leaves them; output (BH, N, D).  bf16 at head dim 64 and 80 (SAM
+// ViT-B and ViT-H) runs the Hopper routine (hopper_attention.cuh: wgmma,
+// TMA), the rest attention.cuh.
 //
 // Bound on the card: K3's (per head N = 4096, D = 64: 4.3 GFLOP against
 // ~3.1 MB in bf16, ~1400 FLOP/byte) -- bound by operations.  Left on the

@@ -25,12 +25,12 @@
 // the H100, bound by the softmax (PERF.md).
 //
 // Routes (global_attention.cuh, shared with K3 and K4, which compute the
-// same function on the same operands, bit for bit): bf16 at head dim 64
-// with bias rows that fit in shared memory takes the Hopper kernel of
-// hopper_attention.cuh -- wgmma for QK^T and PV, K/V tiles brought in by TMA
-// from a producer warpgroup, 192 query rows per block in three consumer
-// warpgroups; float32 and the other head dims (80 is SAM ViT-H) the mma.sync
-// / FMA routine of attention.cuh.
+// same function on the same operands, bit for bit): bf16 at head dim 64 or
+// 80 (SAM ViT-H) with bias rows that fit in shared memory takes the Hopper
+// kernel of hopper_attention.cuh -- wgmma for QK^T and PV, K/V tiles brought
+// in by TMA from a producer warpgroup, 64 query rows per consumer warpgroup
+// (three at hd 64, two at hd 80); float32 and the other head dims the
+// mma.sync / FMA routine of attention.cuh.
 #include "global_attention.cuh"
 
 extern "C" int lameness_sam_global_attention_v2(

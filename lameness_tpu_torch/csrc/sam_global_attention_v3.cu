@@ -18,11 +18,12 @@
 // heads at 989 TFLOP/s), and the N*N exponentials need about as long again.
 //
 // Routes (global_attention.cuh, shared with K3, K4 and K5): bf16 at head
-// dim 64 takes the Hopper routine of hopper_attention.cuh (wgmma, TMA-fed
-// K/V through 4-D maps {hd, tokens, heads, images}, a producer warpgroup,
-// ping-pong consumers); its output equals K3's bit for bit on head-major
-// copies of the same values.  float32 and the other head dims take the
-// mma.sync / FMA routine of attention.cuh, which reads head strides too.
+// dim 64 or 80 takes the Hopper routine of hopper_attention.cuh (wgmma,
+// TMA-fed K/V through 4-D maps {columns, tokens, heads, images}, a producer
+// warpgroup, ping-pong consumers); its output equals K3's bit for bit on
+// head-major copies of the same values.  float32 and the other head dims
+// take the mma.sync / FMA routine of attention.cuh, which reads head
+// strides too.
 // Left on the table: what K3's routine leaves (PERF.md: the softmax's FP32
 // work, a persistent grid); head-last K/V tiles are 128-byte rows at the
 // token stride, where head-major ones are one contiguous run.

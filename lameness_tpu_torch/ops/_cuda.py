@@ -92,6 +92,21 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
     return seconds
 
 
+def ptxas_entries(log: str) -> List[Dict[str, str]]:
+    """Per kernel of an nvcc ``-Xptxas -v`` report: its mangled name, the
+    registers line and the stack/spill line ptxas printed for it."""
+    entries: List[Dict[str, str]] = []
+    for line in log.splitlines():
+        if "Compiling entry function '" in line:
+            entries.append({"name": line.split("'")[1], "registers": "",
+                            "spills": ""})
+        elif entries and "bytes stack frame" in line:
+            entries[-1]["spills"] = line.strip()
+        elif entries and "Used " in line and "registers" in line:
+            entries[-1]["registers"] = line.split("Used ")[1].split(",")[0]
+    return entries
+
+
 def library(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)

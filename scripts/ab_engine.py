@@ -12,7 +12,8 @@ variant instead of ViT-B) on the same B = 2 seeded 720p clips of 125 frames,
 and saves its outputs under ``lameness_tpu_torch/_build/ab_engine/`` of
 this script's checkout.  The script then prints, for B against A: the share
 of mask pixels that agree, the relative L2 distance of the DINO embeddings
-(``embeddings``), and which outputs are equal bit for bit.  The card's name
+(``embeddings``), which outputs are equal bit for bit, and the largest
+|B - A| of each of the others.  The card's name
 and power limit come first.  The roots run in the turns A B B A, each
 printing its end-to-end seconds of REPEATS batches after one warm batch
 and the device busy ms of one batch (torch.profiler), so that the two are
@@ -20,6 +21,7 @@ compared on one card in one call.
 """
 from __future__ import annotations
 
+import json
 import subprocess
 import sys
 from pathlib import Path
@@ -58,7 +60,6 @@ def worker(root: str, saved: str, variant: str) -> None:
     out = eng.process_clip_batch(
         frames, generator=torch.Generator(device="cuda").manual_seed(SEED))
     np.savez(saved, **dict(leaves(out)))
-    import json
     import time
     from torch.profiler import ProfilerActivity, profile
     e2e = []
@@ -107,9 +108,12 @@ def main() -> int:
     emb_a, emb_b = (x["embeddings"].astype(np.float64) for x in (a, b))
     rel = float(np.linalg.norm(emb_b - emb_a) / np.linalg.norm(emb_a))
     same = sorted(k for k in a if np.array_equal(a[k], b[k]))
+    diff = {k: float(np.abs(b[k].astype(np.float64)
+                            - a[k].astype(np.float64)).max())
+            for k in sorted(set(a) - set(same))}
     print(f"B against A: mask agreement {masks:.6f}; DINO embeddings "
-          f"relative L2 {rel:.3e}; equal bit for bit: {same}; differing: "
-          f"{sorted(set(a) - set(same))}", flush=True)
+          f"relative L2 {rel:.3e}; equal bit for bit: {same}; differing, "
+          f"max |B - A|: {json.dumps(diff)}", flush=True)
     return 0
 
 

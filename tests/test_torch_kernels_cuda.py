@@ -184,14 +184,21 @@ def test_window_kernel(dev, dtype, tol, win, hd):
     torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
 
 
+# the head dim 80 grids: the engine's 64 x 64 (4096 queries: a partial last
+# block of 64 of 192 rows), the rect canvas's (36, 64), and 20 x 30 (600
+# queries: a last block of 24 rows, a ragged key tile, rh and rw gathered)
+HD80_GRIDS = [(64, 64, 80), (36, 64, 80), (20, 30, 80)]
+
+
 @pytest.mark.parametrize("dtype,tol", DTYPES)
-@pytest.mark.parametrize("gh,gw", [(64, 64), (24, 40)])
-def test_global_kernel(dev, dtype, tol, gh, gw):
+@pytest.mark.parametrize("gh,gw,hd", [(64, 64, 64), (24, 40, 64)] + HD80_GRIDS)
+def test_global_kernel(dev, dtype, tol, gh, gw, hd, monkeypatch):
     """K3 through the switch's default."""
-    q, k, v = (_rnd(dev, dtype, 3, gh * gw, 64, seed=i) for i in range(3))
+    monkeypatch.delenv("LAMENESS_GLB_KERNEL", raising=False)
+    q, k, v = (_rnd(dev, dtype, 3, gh * gw, hd, seed=i) for i in range(3))
     rh, rw = sa.project_rel_tables(
-        q, _rnd(dev, dtype, 2 * gh - 1, 64, seed=3, s=0.1),
-        _rnd(dev, dtype, 2 * gw - 1, 64, seed=4, s=0.1), gh, gw)
+        q, _rnd(dev, dtype, 2 * gh - 1, hd, seed=3, s=0.1),
+        _rnd(dev, dtype, 2 * gw - 1, hd, seed=4, s=0.1), gh, gw)
     got = _alone(lambda: sa.sam_global_attention(q, k, v, rh, rw),
                  sa.GLOBAL_KERNEL)
     ref = sa.sam_attention_reference(q, k, v, rh, rw)
@@ -223,14 +230,17 @@ GLOBAL_ENTRIES = [("sam_global_attention_v4", "GLOBAL_KERNEL"),       # K3
 @pytest.mark.parametrize("gh,gw,hd,heads", [
     (64, 64, 64, 3),      # the engine's grid: rw in registers (bf16)
     (24, 40, 64, 3),      # N = 960: a ragged key tile, rh and rw gathered
-    (48, 48, 80, 3),      # SAM ViT-H's head dim: the mma.sync route
+    (48, 48, 80, 3),      # SAM ViT-H's head dim: 2304 queries, gathered
+    (64, 64, 80, 3),      # ViT-H's grid: rw per column, 2 K/V stages
+    (36, 64, 80, 3),      # the rect canvas's grid at hd 80
+    (20, 30, 80, 3),      # hd 80: a last query block of 24 rows
     (72, 72, 64, 2),      # bias rows past kHopMaxSmem: the mma.sync route
     (7, 9, 64, 5)])       # N = 63 < one key tile, several heads
 @pytest.mark.parametrize("entry,kernel", GLOBAL_ENTRIES)
 def test_global_variant_kernels(dev, dtype, tol, gh, gw, hd, heads, entry,
                                 kernel):
-    """K3, K4 and K5 on both routes (bf16 at hd 64 but the 72 x 72 grid:
-    the Hopper routine; float32, hd 80 and the 72 x 72 grid: attention.cuh),
+    """K3, K4 and K5 on both routes (bf16 at hd 64 and 80 but the 72 x 72
+    grid: the Hopper routine; float32 and the 72 x 72 grid: attention.cuh),
     the tables where the einsum leaves them."""
     q, k, v, rh, rw = _global_inputs(dev, dtype, gh, gw, hd, heads)
     got = _alone(lambda: getattr(sa, entry)(q, k, v, rh, rw),
@@ -259,12 +269,12 @@ def test_global_kernels_strided(dev, dtype, tol, gh, gw, entry, kernel):
     torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
 
 
-@pytest.mark.parametrize("g,hd", [(64, 64), (48, 80)])
-def test_global_kernels_bitwise(dev, g, hd):
+@pytest.mark.parametrize("gh,gw,hd", [(64, 64, 64), (48, 48, 80)] + HD80_GRIDS)
+def test_global_kernels_bitwise(dev, gh, gw, hd):
     """K3, K4 and K5 launch one device routine on one set of operands: bf16
-    outputs equal bit for bit, on the Hopper route (the engine's (3, 4096,
-    64)) and on the mma.sync route (hd 80)."""
-    args = _global_inputs(dev, torch.bfloat16, g, g, hd)
+    outputs equal bit for bit on the Hopper route, at the engine's (3, 4096,
+    64), at head dim 80 and on the rect and ragged grids."""
+    args = _global_inputs(dev, torch.bfloat16, gh, gw, hd)
     outs = [_alone(lambda: getattr(sa, entry)(*args), getattr(sa, kernel))
             for entry, kernel in GLOBAL_ENTRIES]
     assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
@@ -287,12 +297,15 @@ def _head_last_inputs(dev, dtype, b, nh, gh, gw, hd):
     (2, 12, 64, 64, 64),  # the engine's heads and grid: the Hopper route
     (2, 12, 36, 64, 64),  # the rect canvas's grid
     (2, 2, 24, 40, 64),   # N = 960: a ragged key tile, rh and rw gathered
-    (2, 2, 48, 48, 80),   # SAM ViT-H's head dim: the mma.sync route
+    (2, 2, 48, 48, 80),   # SAM ViT-H's head dim: 2304 queries, gathered
+    (2, 4, 64, 64, 80),   # ViT-H's grid (token stride 3·4·80)
+    (2, 4, 36, 64, 80),   # the rect canvas's grid at hd 80
+    (1, 2, 20, 30, 80),   # hd 80: a last query block of 24 rows
     (1, 2, 72, 72, 64),   # bias rows past kHopMaxSmem: the mma.sync route
     (3, 1, 7, 9, 64)])    # one head, N = 63 < one key tile
 def test_global_head_last_kernel(dev, dtype, tol, b, nh, gh, gw, hd):
     """K6 on strided slices of a fused qkv output, on both routes (bf16 at
-    hd 64 but the 72 x 72 grid: the Hopper routine; float32, hd 80 and the
+    hd 64 and 80 but the 72 x 72 grid: the Hopper routine; float32 and the
     72 x 72 grid: attention.cuh): its entry launches its kernel alone, the
     output agrees with its plain version, and it equals K3's on head-major
     copies of the same q, k, v and tables bit for bit (one routine, one
@@ -317,21 +330,45 @@ def test_global_head_last_kernel(dev, dtype, tol, b, nh, gh, gw, hd):
                        .reshape(got.shape))
 
 
-def test_global_head_last_misaligned(dev):
-    """A bf16 operand that TMA cannot read (an address 2 bytes off 16):
-    the entry raises before launching, and the C entry itself returns
-    cudaErrorInvalidValue (1); nothing takes another route."""
+@pytest.mark.parametrize("hd", [64, 80])
+def test_global_head_last_misaligned(dev, hd):
+    """A bf16 operand that TMA cannot read (an address 2 bytes off 16), at
+    head dim 64 and 80: the entry raises before launching, and the C entry
+    itself returns cudaErrorInvalidValue (1); nothing takes another
+    route."""
     q4, k4, v4, rh4, rw4 = _head_last_inputs(dev, torch.bfloat16, 1, 2, 8,
-                                             8, 64)
+                                             8, hd)
     bad = torch.empty(q4.numel() + 1, dtype=q4.dtype, device=dev)[1:]
     bad = bad.view(q4.shape).copy_(q4)
     before = sa.GLOBAL_V3_KERNEL.launches
     with pytest.raises(ValueError, match="16-byte"):
         sa.sam_global_attention_v3(bad, k4, v4, rh4, rw4)
-    out = torch.empty(1, 64, 128, dtype=q4.dtype, device=dev)
+    out = torch.empty(1, 64, 2 * hd, dtype=q4.dtype, device=dev)
     with pytest.raises(RuntimeError, match="cudaError_t 1$"):
         sa.GLOBAL_V3_KERNEL(*sa.global_hl_args(bad, k4, v4, rh4, rw4, out))
     assert sa.GLOBAL_V3_KERNEL.launches == before
+
+
+@pytest.mark.parametrize("dtype,routine", [
+    (torch.bfloat16, "hopper_global_kernel<80, true>"),
+    (torch.float32, "attention_f32_kernel<80, true>")])
+@pytest.mark.parametrize("entry", ["sam_global_attention",
+                                   "sam_global_attention_v1",
+                                   "sam_global_attention_v2",
+                                   "sam_global_attention_v3"])
+def test_global_route_at_hd80(dev, dtype, routine, entry, monkeypatch):
+    """At ViT-H's head dim 80 and the 64 x 64 grid, global_entry sends bf16
+    to the Hopper global routine and float32 to attention.cuh's, for K3
+    (the switch's default), K4, K5 and K6 (head-last operands): the one
+    kernel the entry launches is that routine's, and no
+    attention_mma_kernel runs."""
+    monkeypatch.delenv("LAMENESS_GLB_KERNEL", raising=False)
+    if entry == "sam_global_attention_v3":
+        args = _head_last_inputs(dev, dtype, 1, 2, 64, 64, 80)
+    else:
+        args = _global_inputs(dev, dtype, 64, 64, 80, heads=2)
+    names = _kernel_names(lambda: getattr(sa, entry)(*args))
+    assert len(names) == 1 and routine in next(iter(names)), names
 
 
 @pytest.mark.parametrize("dtype,tol", DTYPES)
