@@ -88,6 +88,20 @@ Phases, each failing loudly (no exception is swallowed):
      CPU over phase 6's clips (ids and states equal, boxes within 1e-4), ms
      and launches a clip, and the same confirmed tracks as the host
      ByteTracker on phase 6's walking block.
+  8. upload (the front of process_video_file, no kernel of its own): the
+     decoder probe (ffmpeg and ffprobe, av, torchvision.io, torchcodec,
+     NVDEC); (a) the default engine's ``process_video_file`` over a written
+     1280x720, 25 fps, 250-frame ``.y4m`` upload (phase 6's cow block
+     walking over a still noise background), with the motion fallback:
+     status success, the window inside the cow's frames and unflipped, the
+     crop holding the cow's box, every result file written and valid, K1-K3
+     at the default engine's counts; with phase 6's calibrated YOLO as
+     curation's detector: the cow found on its frames, the files and
+     launches (window and crop reported); each run's stage seconds,
+     curation frames/s and bytes on disk; MOG2's and the contours' costs; a
+     right-to-left upload's curation flipped; (b) the tiny engine's chain
+     card against CPU (outputs under check_small_engine's gates, files key
+     by key) and MOG2's masks card against CPU.
 The line before the last is the kernel record (JSON); the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 without a CUDA device or outside the repository.
@@ -2646,6 +2660,450 @@ def analysis(tmp, stream_root, block_boxes, clips) -> bool:
     return ok
 
 
+# ---------------------------------------------------------------------------
+# phase 8
+# ---------------------------------------------------------------------------
+# the upload: UPLOAD_FRAMES frames of 1280x720 at 25 fps over a still
+# background of uniform noise (a fixed frame, +-2 LSB of noise a frame:
+# MOG2 needs a still background), the phase-6 cow block (COW_SIZE, its
+# 6-pixel cells) walking left to right over frames UPLOAD_COW (first,
+# last); the right-to-left upload is shorter
+UPLOAD_FRAMES, UPLOAD_COW = 250, (20, 230)
+# right to left at the same speed (at 5.7 px a frame MOG2 leaves gaps in
+# the cow's mask, as cv2's does), over two thirds of the width
+RTL_FRAMES, RTL_COW = 170, (15, 155)
+RTL_TRAVEL = (RTL_COW[1] - RTL_COW[0]) / (UPLOAD_COW[1] - UPLOAD_COW[0])
+# the small chain (8b): 320x180 at 10 fps (a 5 s window is 50 frames), the
+# cow at 3.3 pixels a frame from frame 25 (MOG2's learning rate settles at
+# frame 25: a cow there earlier loses some frames); the tiny engine
+SMALL_UPLOAD = {"n": 95, "cow": (25, 85), "h": 180, "w": 320, "fps": 10}
+UPLOAD_FPS = 25
+UPLOAD_TIMERS = ("curation.track", "curation.detect", "curation.extract",
+                 "preprocess", "decode", "engine", "tracking", "graph_heads",
+                 "ml", "fusion")
+CHAIN_FILES = RESULT_KINDS + ("tracking", "gnn", "graph_transformer", "ml",
+                              "fusion")
+# the 720p upload's frames whose MOG2 masks are held card against CPU (MOG2
+# at 720p takes about 0.3 s a frame on the CPU)
+MOG2_FRAMES = (20, 28)
+# keys of the result files that hold the wall clock, or Re-ID's random
+# identity ids (uuid4)
+VOLATILE_KEYS = ("timestamp", "last_updated", "identity_id")
+
+PROBE = """
+import importlib, json
+out = {}
+for mod in ("av", "torchvision.io", "torchcodec"):
+    try:
+        m = importlib.import_module(mod)
+        out[mod] = "ok " + str(getattr(importlib.import_module(
+            mod.split(".")[0]), "__version__", ""))
+    except Exception as exc:
+        out[mod] = (type(exc).__name__ + ": " + str(exc))[:160]
+print(json.dumps(out))
+"""
+
+
+def decoder_probe() -> dict:
+    """What the machine can decode: the ffmpeg and ffprobe binaries (path,
+    first line of ``-version``), whether ``av``, ``torchvision.io`` and
+    ``torchcodec`` import (in a process of their own), and the hwaccels
+    ffmpeg lists (NVDEC is ``cuda``)."""
+    out = {}
+    for tool in ("ffmpeg", "ffprobe"):
+        path = shutil.which(tool)
+        version = None
+        if path:
+            res = subprocess.run([path, "-version"], capture_output=True,
+                                 text=True, timeout=60)
+            version = (res.stdout.splitlines() or [""])[0]
+        out[tool] = {"path": path, "version": version}
+    res = subprocess.run([sys.executable, "-c", PROBE], capture_output=True,
+                         text=True, timeout=300)
+    out["imports"] = json.loads(res.stdout.strip().splitlines()[-1]) \
+        if res.returncode == 0 else {"probe_failed": res.stderr[-300:]}
+    hwaccels = None
+    if out["ffmpeg"]["path"]:
+        res = subprocess.run([out["ffmpeg"]["path"], "-hide_banner",
+                              "-hwaccels"], capture_output=True, text=True,
+                             timeout=60)
+        hwaccels = res.stdout.split()[3:]      # after "Hardware acceleration
+    out["hwaccels"] = hwaccels                 # methods:"
+    out["nvdec"] = bool(hwaccels and "cuda" in hwaccels)
+    return out
+
+
+def upload_clip(path, n: int, cow_frames, reverse: bool = False,
+                h: int = 720, w: int = 1280, fps: int = UPLOAD_FPS,
+                travel: float = 1.0):
+    """Write an upload with the port's ``write_video`` (generated and
+    converted to I420 on the card): a fixed frame of uniform noise with
+    +-2 LSB of noise a frame, and the phase-6 cow block (its 6-pixel
+    cells; COW_SIZE at 1280x720, scaled with the frame) walking over the
+    frames ``cow_frames``, from one side across ``travel`` of the frame's
+    free width.  MOG2 keeps a cow in view while its pixels change colour
+    about every frame or two: cells of 6 pixels (the 5x5 opening erases
+    smaller ones) at about 3.8 pixels a frame.
+    Returns (the .y4m path, the cow's box in each frame or None)."""
+    import torch
+    from lameness_tpu_torch.video.decode import write_video
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    bg = torch.randint(0, 256, (h, w, 3), generator=gen, device="cuda",
+                       dtype=torch.int16)
+    cw, ch = COW_SIZE[0] * w // 1280, COW_SIZE[1] * h // 720
+    cells = np.random.default_rng(SEED).integers(
+        170, 256, (-(-ch // 6), -(-cw // 6), 3), dtype=np.uint8)
+    cow = torch.from_numpy(np.ascontiguousarray(
+        cells.repeat(6, 0).repeat(6, 1)[:ch, :cw])).cuda()
+    y = (h - ch) // 2
+    f0, f1 = cow_frames
+    frames = torch.empty((n, h, w, 3), dtype=torch.uint8, device="cuda")
+    boxes = [None] * n
+    for i in range(n):
+        noise = torch.randint(-2, 3, bg.shape, generator=gen, device="cuda",
+                              dtype=torch.int16)
+        frames[i] = (bg + noise).clamp_(0, 255)
+        if f0 <= i <= f1:
+            frac = (i - f0) / (f1 - f0)
+            x = round((1 - frac * travel if reverse else frac * travel)
+                      * (w - cw))
+            frames[i, y:y + ch, x:x + cw] = cow
+            boxes[i] = (x, y, x + cw, y + ch)
+    out = write_video(path, frames, fps)
+    del frames
+    return out, boxes
+
+
+def chain_files(root, vid) -> dict:
+    """{kind: the parsed result file or None} of one video's chain."""
+    from pathlib import Path
+    out = {}
+    for kind in CHAIN_FILES:
+        p = Path(root) / "results" / kind / f"{vid}_{kind}.json"
+        out[kind] = json.loads(p.read_text()) if p.exists() else None
+    return out
+
+
+def upload_chain(eng, root, src, boxes, name: str, curator=None):
+    """One ``process_video_file`` of ``src`` on the card (the driver's own
+    curator, or ``curator``), with every launch count from 0; logs its
+    record.  Returns the launch counts, the checks' results and whether
+    curation detected something on each of the cow's frames and on each
+    other frame."""
+    from pathlib import Path
+    import torch
+    from lameness_tpu_torch.core.config import Config, DataDirs
+    from lameness_tpu_torch.io import schemas
+    from lameness_tpu_torch.ops._cuda import KERNELS
+    from lameness_tpu_torch.serve.driver import PipelineDriver
+    from lameness_tpu_torch.utils.timing import TIMERS
+    drv = PipelineDriver(config=Config(dirs=DataDirs(root=str(root))),
+                         engine=eng, curator=curator)
+    TIMERS.reset()
+    for k in KERNELS.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    drv.process_video_file(src, "up")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name_: k.launches for name_, k in KERNELS.items()}
+    drv.bus.shutdown()
+    report = json.loads((Path(root) / "quality_reports"
+                         / "up_quality.json").read_text())
+    files = chain_files(root, "up")
+    invalid = [k for k, v in files.items()
+               if v is None or schemas.validate(k, v)]
+    pre = drv.bus.messages_on("video.preprocessed")[0]
+    stages = {**drv.curator.timers.summary(), **TIMERS.summary()}
+    sizes = {p.name: p.stat().st_size for p in sorted(
+        Path(root).glob("*/up*.y4m"))}
+    dets = drv.curator.last_detections["detections"]
+    hit = [d["detection"] is not None for d in dets]
+    on_cow = [h for h, b in zip(hit, boxes) if b is not None]
+    off_cow = [h for h, b in zip(hit, boxes) if b is None]
+    record = {
+        "detector": name, "frames": len(dets), "wall_s": wall,
+        "status": report["status"],
+        "selected_window": report["selected_window"] and {
+            k: report["selected_window"][k]
+            for k in ("start_frame", "end_frame", "needs_flip")},
+        "passes": [(p_["start_frame"], p_["end_frame"], p_["direction"])
+                   for p_ in report["passes"]],
+        "crop_box": pre["crop_box"],
+        "detections_on_cow_frames": f"{sum(on_cow)}/{len(on_cow)}",
+        "detections_off_cow_frames": f"{sum(off_cow)}/{len(off_cow)}",
+        "stage_s": {k: stages[k]["last_s"] if stages[k]["count"] == 1
+                    else stages[k]["mean_s"] * stages[k]["count"]
+                    for k in UPLOAD_TIMERS if k in stages},
+        "curation_frames_s": len(dets) / stages["curation.track"]["last_s"],
+        "disk_bytes": sizes, "launches": {k: v for k, v in launches.items()
+                                          if v}}
+    log("upload record " + json.dumps(record))
+    first = next(b for b in boxes if b is not None)
+    x1, y1, x2, y2 = pre["crop_box"]
+    sel = report["selected_window"]
+    checks = {
+        "status success": report["status"] == "success",
+        "window inside the cow's frames, unflipped": bool(
+            sel and UPLOAD_COW[0] <= sel["start_frame"]
+            and sel["end_frame"] <= UPLOAD_COW[1] + 1
+            and not sel["needs_flip"]),
+        "crop holds the cow's first box": (
+            x1 <= first[0] and y1 <= first[1] and x2 >= first[2]
+            and y2 >= first[3]),
+        "every result file written and valid": not invalid,
+        "K1-K3 at the default engine's counts": expect_launches(
+            launches, BASE_LAUNCHES)}
+    return launches, checks, on_cow, off_cow
+
+
+def motion_costs(src, first: int = UPLOAD_COW[0], n: int = 64) -> dict:
+    """The motion fallback's parts over ``n`` frames of the upload from
+    ``first`` (the cow in view): MOG2 and the opening on the card (CUDA
+    events, a frame), the copy of the masks to the host, and the host's
+    contour step on one thread (a frame)."""
+    import torch
+    from lameness_tpu_torch.video.curation import (MotionDetector,
+                                                   mask_detection)
+    from lameness_tpu_torch.video.decode import VideoReader
+    with VideoReader(src, device="cuda") as vr:
+        frames = vr.read_selected(range(first, first + n))
+    bgr = torch.from_numpy(np.stack([frames[i] for i in sorted(frames)])
+                           [..., ::-1].copy()).cuda()
+    det = MotionDetector(device="cuda")
+    ms = cuda_ms(lambda: det.masks(bgr), 1) / n       # after one warm pass
+    masks = det.masks(bgr)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host = masks.cpu().numpy()
+    copy_ms = (time.perf_counter() - t0) * 1e3 / n
+    t0 = time.perf_counter()
+    for m in host:
+        mask_detection(m)
+    contour_ms = (time.perf_counter() - t0) * 1e3 / n
+    return {"frames": n, "mog2_open_ms_a_frame": ms,
+            "masks_to_host_ms_a_frame": copy_ms,
+            "contour_ms_a_frame_one_thread": contour_ms}
+
+
+def check_upload(eng, tmp) -> tuple:
+    """8a: the full-width chain over the 720p upload, with the motion
+    fallback (gated) and with phase 6's calibrated YOLO as curation's
+    detector; the right-to-left upload's curation."""
+    import torch
+    from lameness_tpu_torch.video.curation import (BatchedYoloDetector,
+                                                   ClipCurator)
+    t0 = time.perf_counter()
+    src, boxes = upload_clip(f"{tmp}/upload", UPLOAD_FRAMES, UPLOAD_COW)
+    torch.cuda.synchronize()
+    log(f"  upload: {UPLOAD_FRAMES} frames of 1280x720 at {UPLOAD_FPS} "
+        f"fps written in {time.perf_counter() - t0:.2f} s, "
+        f"{src.stat().st_size} bytes ({src.stat().st_size / UPLOAD_FRAMES:.0f}"
+        f" a frame with its FRAME line)")
+    log("motion fallback record " + json.dumps(motion_costs(src)))
+    ok = True
+    launches = {}
+    launches["upload, motion fallback"], checks, *_ = upload_chain(
+        eng, f"{tmp}/motion", src, boxes, "motion")
+    for what, good in checks.items():
+        log(f"  motion fallback: {what}  {'ok' if good else 'FAIL'}")
+        ok &= good
+    shutil.rmtree(f"{tmp}/motion")
+    # phase 6's calibrated YOLO as curation's detector.  Its seeded box
+    # head puts a 240-pixel box on whichever anchor inside the cow scores
+    # highest, which jumps by hundreds of pixels from frame to frame (phase
+    # 6: "the picked boxes differ by up to 272 px"), so the walking-pass
+    # segmentation splits the walk: its window, flip and crop are reported,
+    # and the detections, the files and the launches gated
+    yolo = BatchedYoloDetector(eng.yolo, cow_class_id=eng.config.yolo.
+                               cow_class_id, size=eng.spec.yolo_size)
+    from lameness_tpu_torch.core.config import DataDirs
+    cur = ClipCurator(DataDirs(root=f"{tmp}/yolo").ensure(), detector=yolo,
+                      device=eng.device)
+    launches["upload, YOLO curation"], checks, on_cow, off_cow = \
+        upload_chain(eng, f"{tmp}/yolo", src, boxes, "yolo", curator=cur)
+    gated = ("every result file written and valid",
+             "K1-K3 at the default engine's counts")
+    checks["the cow found on 90% of its frames, 10% of the others at most"] = (
+        sum(on_cow) >= 0.9 * len(on_cow)
+        and sum(off_cow) <= 0.1 * len(off_cow))
+    for what, good in checks.items():
+        gate = what in gated or what.startswith("the cow found")
+        log(f"  YOLO curation: {what}  "
+            f"{('ok' if good else 'FAIL') if gate else good} "
+            f"{'' if gate else '(reported)'}")
+        ok &= good or not gate
+    shutil.rmtree(f"{tmp}/yolo")
+    src.unlink()
+    # right to left: curation alone (the motion fallback)
+    src, _ = upload_clip(f"{tmp}/rtl", RTL_FRAMES, RTL_COW, reverse=True,
+                         travel=RTL_TRAVEL)
+    cur = ClipCurator(DataDirs(root=f"{tmp}/rtl_data").ensure(),
+                      device=eng.device)
+    report = cur.curate_video(src, "rtl")
+    sel = report["selected_window"]
+    good = bool(report["status"] == "success" and sel["needs_flip"]
+                and RTL_COW[0] <= sel["start_frame"]
+                and sel["end_frame"] <= RTL_COW[1] + 1)
+    log(f"  right to left ({RTL_FRAMES} frames, the cow over "
+        f"{RTL_COW[0]}-{RTL_COW[1]}): status {report['status']}, window "
+        f"{sel and (sel['start_frame'], sel['end_frame'])}, needs_flip "
+        f"{sel and sel['needs_flip']}, curation.track "
+        f"{cur.timers.summary()['curation.track']['last_s']:.3f} s  "
+        f"{'ok' if good else 'FAIL'}")
+    ok &= good
+    shutil.rmtree(f"{tmp}/rtl_data")
+    src.unlink()
+    return ok, launches
+
+
+def small_chain(dev, root, src):
+    """The tiny engine of ``small_stream_files`` (dropout 0) and its graph
+    heads at dropout 0 on ``dev``: ``process_video_file(src)`` with the
+    motion fallback.  Returns {file: parsed JSON}, the engine outputs and
+    the crop's scale to the engine's frame (the files' pixel coordinates are
+    the outputs' times it)."""
+    from pathlib import Path
+    import torch
+    from lameness_tpu_torch.core.config import Config, DataDirs
+    from lameness_tpu_torch.models.gait_transformer import GaitTransformer
+    from lameness_tpu_torch.models.tcn import TCN
+    from lameness_tpu_torch.pipeline.engine import make_test_engine
+    from lameness_tpu_torch.serve.driver import PipelineDriver
+    from lameness_tpu_torch.weights import seeded_state_dict
+    gen = torch.Generator().manual_seed(SEED)
+    eng = make_test_engine(device=dev, with_sam=True, generator=gen)
+    eng.tcn = TCN(input_dim=44, dropout=0.0, device=dev)
+    eng.gait = GaitTransformer(input_dim=44, dropout=0.0, device=dev)
+    eng.load_state_dicts({"tcn": seeded_state_dict(eng.tcn, gen),
+                          "gait": seeded_state_dict(eng.gait, gen)})
+    drv = PipelineDriver(config=Config(dirs=DataDirs(root=str(root))),
+                         engine=eng)
+    drv.graph_runner = zero_dropout(graph_runner(root, dev))
+    outs = {}
+    write = drv._write_stage_results
+
+    def capture(video_id, out, bi, scale, info):
+        outs.update({k: v[bi] for k, v in leaves(out)})
+        return write(video_id, out, bi, scale, info)
+    drv._write_stage_results = capture
+    drv.process_video_file(src, "small")
+    drv.bus.shutdown()
+    x1, y1, x2, y2 = drv.bus.messages_on("video.preprocessed")[0]["crop_box"]
+    scale = max(1.0, (x2 - x1) / eng.spec.frame_width,
+                (y2 - y1) / eng.spec.frame_height)
+    files = {p.relative_to(root).as_posix(): json.loads(p.read_text())
+             for p in sorted(Path(root).glob("*/**/*.json"))}
+    return files, outs, scale
+
+
+def check_small_chain(tmp, big_src=None) -> bool:
+    """8b: the whole chain at the small geometry on the card and on the
+    CPU over one upload: the engine's outputs under check_small_engine's
+    gates; the files key by key (list lengths equal, the clock and Re-ID's
+    random ids apart), their numbers within 1e-4 times the crop's scale to
+    the engine's frame (pixel coordinates are the outputs' times it), a
+    sam3 file only where the masks are equal bit for bit; and MOG2's masks
+    card against CPU, over the small upload and over frames MOG2_FRAMES of
+    the 720p one."""
+    import torch
+    from lameness_tpu_torch.video.curation import MotionDetector
+    from lameness_tpu_torch.video.decode import VideoReader
+    u = SMALL_UPLOAD
+    src, _ = upload_clip(f"{tmp}/small", u["n"], u["cow"], h=u["h"],
+                         w=u["w"], fps=u["fps"])
+    runs = {dev: small_chain(dev, f"{tmp}/small_{dev}", src)
+            for dev in ("cpu", "cuda")}
+    (cpu, cpu_out, scale), (gpu, gpu_out, _) = runs["cpu"], runs["cuda"]
+    ok = list(cpu) == list(gpu) and len(cpu) >= len(CHAIN_FILES) + 1
+    out_err, masks = 0.0, 1.0
+    for key, x in cpu_out.items():
+        y = gpu_out[key]
+        if key == "masks":
+            masks = float((x == y).mean())
+        elif x.dtype == bool or np.issubdtype(x.dtype, np.integer):
+            ok &= bool(np.array_equal(x, y))
+        else:
+            tol = 1e-3 if key == "mask_iou_pred" else 1e-4
+            err = float(np.abs(x.astype(np.float64) - y).max())
+            ok &= err <= tol
+            out_err = max(out_err, err)
+    ok &= masks >= 0.995
+    same_masks = masks == 1.0
+    worst, where, compared = 0.0, None, 0
+    for name, want in cpu.items():
+        w, g = dict(json_leaves(want)), dict(json_leaves(gpu[name]))
+        ok &= list(w) == list(g)
+        if "sam3" in name and not same_masks:
+            continue
+        compared += 1
+        for key, x in w.items():
+            if key.rsplit(".", 1)[-1] in VOLATILE_KEYS:
+                continue
+            y = g.get(key)
+            if isinstance(x, float):
+                if abs(x - y) > worst:
+                    worst, where = abs(x - y), f"{name}{key}"
+            elif not (isinstance(x, str) and x.startswith(str(tmp))):
+                ok &= x == y
+    ok &= worst <= 1e-4 * scale
+    quality = cpu["quality_reports/small_quality.json"]
+    log(f"  small chain: status {quality['status']}, window "
+        f"{quality['selected_window'] and quality['selected_window']['start_frame']}"
+        f", {quality['walking_passes_detected']} passes; the crop {scale:.3f}"
+        f"x the engine's frame")
+    log(f"  small chain card vs CPU: engine outputs max_abs_err "
+        f"{out_err:.3e}, mask agreement {masks:.5f}; {len(cpu)} files, "
+        f"{compared} compared key by key, max_abs_err {worst:.3e} ({where};"
+        f" gate {1e-4 * scale:.3e})  {'ok' if ok else 'FAIL'}")
+    masks_ok = True
+    clips = [(src, None)]
+    if big_src is not None:
+        clips.append((big_src, MOG2_FRAMES))
+    for path, span in clips:
+        with VideoReader(path, device="cuda") as vr:
+            frames = vr.read_sampled()[0]
+        if span:
+            frames = frames[span[0]:span[1]]
+        bgr = torch.from_numpy(np.ascontiguousarray(frames[..., ::-1]))
+        got = {dev: MotionDetector(device=dev).masks(bgr.to(dev)).cpu()
+               for dev in ("cpu", "cuda")}
+        equal = torch.equal(got["cpu"], got["cuda"])
+        masks_ok &= equal
+        log(f"  MOG2 masks card vs CPU, {len(frames)} frames of "
+            f"{frames.shape[2]}x{frames.shape[1]}: equal {equal} (foreground "
+            f"{float((got['cpu'] > 0).float().mean()):.4f})  "
+            f"{'ok' if equal else 'FAIL'}")
+    return ok and masks_ok
+
+
+def upload_phase(tmp) -> tuple:
+    """Phase 8: the decoder probe, 8a and 8b.  Returns (ok, the launch
+    counts of 8a's chains)."""
+    import torch
+    t0 = time.perf_counter()
+    log("decoder probe " + json.dumps(decoder_probe()))
+    eng = default_engine()
+    rng = np.random.default_rng(SEED + 6)
+    clip, cow = walking_clip(rng, eng.spec)       # phase 6's calibration
+    calibrate_yolo(eng, clip, cow)
+    del clip
+    t1 = time.perf_counter()
+    ok, launches = check_upload(eng, tmp)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    big, _ = upload_clip(f"{tmp}/mog2", MOG2_FRAMES[1], UPLOAD_COW)
+    log("small engine, upload chain:")
+    ok &= check_small_chain(tmp, big)
+    log(f"phase 8: {time.perf_counter() - t0:.1f} s (probe, engine and "
+        f"calibration {t1 - t0:.1f}, 8a {t2 - t1:.1f}, 8b "
+        f"{time.perf_counter() - t2:.1f})")
+    return ok, launches
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -2725,6 +3183,12 @@ def main() -> int:
         gc.collect()            # phase 6's engine, held by reference cycles
         torch.cuda.empty_cache()
         ok_a = analysis(work.name, f"{work.name}/stream", cow, stream)
+    log("== phase 8: upload")
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp, switches({}):
+        ok_u, upload_launches = upload_phase(tmp)
+    launches.update(upload_launches)
     for kid, rec in records.items():
         # each kernel's count on its own path (K1 runs on every one)
         rec["launches"] = max(counts[rec["name"]]
@@ -2736,7 +3200,7 @@ def main() -> int:
     kern = {"kernels": [{k: rec[k] for k in keys}
                         for rec in records.values()]}
     if not (ok_build and ok_k and ok_small and ok_e and ok_m and ok_c
-            and ok_s and ok_a):
+            and ok_s and ok_a and ok_u):
         log("chip_smoke: FAILED")
         return 1
     log(smi)

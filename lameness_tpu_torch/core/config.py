@@ -1,15 +1,18 @@
 """The slice of ``lameness_tpu/core/config.py`` the clip engine, the
-serving driver and the graph runner read.
+serving driver, curation and the graph runner read.
 
-Only the fields they use, with the JAX package's defaults; nothing outside
-the standard library is imported (the JAX config loads YAML).
+Only the fields they use, with the JAX package's defaults, and
+``Config.load`` (the data root and the YAML overlay).  Nothing outside the
+standard library is imported at module level: ``yaml`` only when a file is
+given (PyYAML is not a dependency of the port).
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 
 @dataclass(frozen=True)
@@ -80,6 +83,28 @@ class DataDirs:
 
 
 @dataclass(frozen=True)
+class CurationConfig:
+    """Clip curation (clip-curation/app/main.py:74-78 and 379-386)."""
+    target_fps: int = 25
+    target_width: int = 1280
+    target_height: int = 720
+    target_duration_s: float = 5.0
+    min_pass_frames: int = 30
+    window_step_frac: float = 0.25      # slide step = 25% of window
+    # six-part weighted window score (clip-curation:379-386)
+    w_framing: float = 0.25
+    w_steadiness: float = 0.25
+    w_straightness: float = 0.15
+    w_visual: float = 0.15
+    w_occlusion: float = 0.10
+    w_progress: float = 0.10
+
+    @property
+    def clip_frames(self) -> int:
+        return int(round(self.target_fps * self.target_duration_s))  # 125
+
+
+@dataclass(frozen=True)
 class YoloConfig:
     """YOLOv8-style detector (yolo-pipeline/app/main.py:37,67)."""
     confidence_threshold: float = 0.5
@@ -139,6 +164,7 @@ class GraphGPSConfig:
 class Config:
     subjects: Subjects = field(default_factory=Subjects)
     dirs: DataDirs = field(default_factory=DataDirs)
+    curation: CurationConfig = field(default_factory=CurationConfig)
     yolo: YoloConfig = field(default_factory=YoloConfig)
     sam: SamConfig = field(default_factory=SamConfig)
     dino: DinoConfig = field(default_factory=DinoConfig)
@@ -146,3 +172,31 @@ class Config:
     graphgps: GraphGPSConfig = field(default_factory=GraphGPSConfig)
     reid: ReidConfig = field(default_factory=ReidConfig)
     compute: ComputeConfig = field(default_factory=ComputeConfig)
+
+    @staticmethod
+    def load(path: Optional[str] = None,
+             data_root: Optional[str] = None) -> "Config":
+        """The defaults with the data root (``data_root``, else
+        ``LAMENESS_DATA_ROOT``, else "data"), and optionally a YAML file in
+        the reference's shared/config/config.yaml layout overlaid: YOLO's
+        ``models.yolo.confidence_threshold`` and ``data.videos_dir`` (its
+        parent is the data root).  The JAX config's database URL
+        (``DATABASE_URL``) has no counterpart: the port has no database."""
+        if data_root is None:
+            data_root = os.environ.get("LAMENESS_DATA_ROOT", "data")
+        cfg = dataclasses.replace(Config(), dirs=DataDirs(root=data_root))
+        if path and Path(path).exists():
+            import yaml
+            with open(path) as f:
+                raw: Dict[str, Any] = yaml.safe_load(f) or {}
+            y = raw.get("models", {}).get("yolo", {})
+            if "confidence_threshold" in y:
+                cfg = dataclasses.replace(
+                    cfg, yolo=dataclasses.replace(
+                        cfg.yolo,
+                        confidence_threshold=float(y["confidence_threshold"])))
+            d = raw.get("data", {})
+            if "videos_dir" in d:
+                root = str(Path(d["videos_dir"]).parent)
+                cfg = dataclasses.replace(cfg, dirs=DataDirs(root=root))
+        return cfg

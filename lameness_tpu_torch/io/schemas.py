@@ -4,8 +4,8 @@ The result files are the system's public contract: every downstream
 consumer of the reference reads files, not messages.  These are the JAX
 module's builders for the files the stream writes (yolo, sam3, dinov3,
 tleap, tcn, transformer) and the analysis after it (gnn,
-graph_transformer, ml, tracking, fusion, cow predictions), copied line for
-line (numpy only), with its
+graph_transformer, ml, tracking, fusion, cow predictions) and curation's
+quality report, copied line for line (numpy only), with its
 required-key registry and ``validate``; keys, nesting and number formats
 equal the JAX package's.  The deliberate fixes of the reference's quirks
 stay: the SAM shape features under both ``aggregated_features`` and
@@ -425,6 +425,29 @@ def cow_prediction_file(cow_id: str, prediction: Dict[str, Any],
         "prediction": prediction,
         "last_updated": last_updated,
         "latest_video": latest_video,
+    }
+
+
+def quality_report(video_id: str, source: Dict[str, Any], passes: List[Dict[str, Any]],
+                   selected_window: Optional[Dict[str, Any]],
+                   backup_window: Optional[Dict[str, Any]], status: str,
+                   rejection_reason: Optional[str],
+                   target_fps: int = 25, target_resolution=(1280, 720),
+                   target_duration: float = 5.0) -> Dict[str, Any]:
+    return {
+        "video_id": video_id,
+        "source_video": source,
+        "canonical_clip": {
+            "target_fps": target_fps,
+            "target_resolution": list(target_resolution),
+            "target_duration": target_duration,
+        },
+        "walking_passes_detected": len(passes),
+        "passes": passes,
+        "selected_window": selected_window,
+        "backup_window": backup_window,
+        "status": status,
+        "rejection_reason": rejection_reason,
     }
 
 

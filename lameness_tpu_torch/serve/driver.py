@@ -1,5 +1,21 @@
-"""The serving driver's stream path on the card (port of
-``lameness_tpu/serve/driver.py``).
+"""The serving driver on the card (port of ``lameness_tpu/serve/driver.py``).
+
+``process_video_file`` is the whole upload -> analysis chain for one video,
+in the JAX driver's order:
+- ``ingest`` copies the upload into ``data/videos`` (``video.uploaded``);
+- the curator (``video/curation.py`` ``ClipCurator``) selects the best 5 s
+  walking window, writes the canonical clip (a side output) and the
+  quality report, and keeps the raw upload's decoded frames;
+- ``preprocess`` crops the raw upload from that frame cache: the median
+  box of the first 10 detections curation found, plus 50 px
+  (``video.preprocessed``), written as ``<id>_cropped.y4m``;
+- ``run_feature_stages`` runs the engine on the crop and writes the six
+  stage result files; then ``run_tracking``, the graph heads, ``run_ml``
+  and fusion.
+The curator is built at first use: with the engine's YOLO weights loaded
+it detects with the engine's YOLO in chunks (``BatchedYoloDetector``),
+else with the motion fallback (MOG2 on the device); it moves to YOLO when
+the weights arrive later.
 
 ``process_stream`` takes (video_id, path) jobs, decodes them on a thread
 pool, runs the engine over batches of clips and writes each clip's six
@@ -14,25 +30,21 @@ messages, as the JAX driver does:
   the compute stream would wait for the kernels queued around it;
 - the writer thread turns each read-back batch into result files.
 
-Decoding is the caller's: ``reader`` is a callable ``path -> reader``
-with ``info`` ({"width", "height", "fps", "total_frames"}) and
-``read_selected(indices) -> {index: (H, W, 3) uint8 RGB frame}`` (the JAX
-package's ``VideoReader`` interface; a context manager is entered).  The
-port has no OpenCV: frames are resized to the engine's geometry by its
-bilinear resize (cv2's INTER_LINEAR within 1; a frame already at that size
-is used as it is, as cv2 leaves it), and ``_mask_features`` measures masks
-with ``serve/contours.py``.
+Decoding: ``reader`` is a callable ``path -> reader`` with ``info``
+({"width", "height", "fps", "total_frames"}) and ``read_selected(indices)
+-> {index: (H, W, 3) uint8 RGB frame}``; by default the port's
+``video/decode.py`` ``VideoReader`` on the driver's device (``.y4m``, or
+other containers through the ``ffmpeg`` binary).  The port has no
+OpenCV: frames are resized to the engine's geometry by its bilinear resize
+(cv2's INTER_LINEAR within 1; a frame already at that size is used as it
+is, as cv2 leaves it), and ``_mask_features`` measures masks with
+``serve/contours.py``.
 
-After the engine, ``process_video_file``'s back half runs as four calls
-in its order: ``run_tracking`` (host ByteTrack, or the device tracker, and
-Re-ID of each track's window of frame embeddings), the graph heads
+After the engine, ``run_tracking`` (host ByteTrack, or the device tracker,
+and Re-ID of each track's window of frame embeddings), the graph heads
 (``_ensure_graph_runner().process_video``, on ``device``), ``run_ml`` and
-``fusion.process_video``.
-
-Not ported yet (ROADMAP.md §1): ingest and preprocess (file copy, crop),
-``ClipCurator`` and ``process_video_file`` itself, and the mesh branch of
-``process_stream``.  Until ``ClipCurator`` is, the batched curation
-detector is exposed as ``detector``.
+``fusion.process_video``.  The mesh branch of ``process_stream`` is not
+ported.
 """
 from __future__ import annotations
 
@@ -42,8 +54,10 @@ import os
 import queue
 import threading
 import time
+import uuid
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
+from datetime import datetime, timezone
 from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional
 
@@ -65,6 +79,8 @@ from ..track.device_tracker import track_detection_frames
 from ..track.reid import CowReIDMatcher
 from ..utils.logging import get_logger
 from ..utils.timing import TIMERS
+from ..video.curation import BatchedYoloDetector, ClipCurator
+from ..video.decode import VideoReader, write_video
 from .contours import first_moments, largest_external_contour, \
     resize_nearest
 from .graph_runner import GraphHeadRunner
@@ -79,9 +95,11 @@ class PipelineDriver:
                  bus: Optional[MessageBus] = None,
                  store: Optional[VectorStore] = None,
                  reader: Optional[Callable] = None,
-                 detector=None, device=None):
-        """``device``: where the graph heads and the device tracker run
-        when there is no engine (with one, the engine's device)."""
+                 curator: Optional[ClipCurator] = None, device=None):
+        """``device``: where the graph heads, the device tracker, curation
+        and decoding run when there is no engine (with one, the engine's
+        device).  ``reader``: the engine's decoder (default
+        ``VideoReader`` on ``device``)."""
         self.config = config or Config()
         self.dirs = self.config.dirs.ensure()
         self.bus = bus or MessageBus(
@@ -105,11 +123,13 @@ class PipelineDriver:
         self.trackers: Dict[str, ByteTracker] = {}
         self.graph_runner = None        # built lazily (the two graph heads)
         self._device = device
-        self.reader = reader
-        # built lazily (the ``detector`` property): YOLO weights loaded
-        # after the driver was made must still reach curation
-        self._detector_injected = detector is not None
-        self._detector = detector
+        self.reader = reader or (lambda path: VideoReader(
+            path, device=self.device))
+        # built at first use (the ``curator`` property), and again when YOLO
+        # weights loaded after the driver was made reach the engine
+        self._curator_injected = curator is not None
+        self._curator_on_yolo = False
+        self._curator = curator
 
     @property
     def device(self):
@@ -127,25 +147,126 @@ class PipelineDriver:
         return self.engine is not None and bool(
             getattr(self.engine, "loaded_weights", {}).get("yolo"))
 
-    def _build_detector(self):
-        """The engine's YOLO as the chunked curation detector, when its
-        weights are loaded (the JAX driver's ``_build_curator``)."""
-        from ..video.curation import BatchedYoloDetector
-        return BatchedYoloDetector(
-            self.engine.yolo, cow_class_id=self.config.yolo.cow_class_id,
-            size=self.engine.spec.yolo_size)
+    def _build_curator(self) -> ClipCurator:
+        """The engine's YOLO as the chunked curation detector when its
+        weights are loaded; otherwise the weight-free motion fallback (the
+        reference's degradation, clip-curation:103-131)."""
+        detector = None
+        if self._engine_has_yolo():
+            detector = BatchedYoloDetector(
+                self.engine.yolo, cow_class_id=self.config.yolo.cow_class_id,
+                size=self.engine.spec.yolo_size)
+        self._curator_on_yolo = detector is not None
+        return ClipCurator(self.dirs, detector=detector, bus=self.bus,
+                           subjects=self.config.subjects, device=self.device)
+
+    @property
+    def curator(self) -> ClipCurator:
+        if self._curator is None or (
+                not self._curator_injected and not self._curator_on_yolo
+                and self._engine_has_yolo()):
+            if self._curator is not None:
+                LOG.info("curator.upgrade", detail="yolo weights arrived; "
+                         "curation moves to the batched device detector")
+            self._curator = self._build_curator()
+        return self._curator
+
+    @curator.setter
+    def curator(self, value: ClipCurator) -> None:
+        self._curator_injected = True
+        self._curator = value
 
     @property
     def detector(self):
-        """The curation detector: the one given, or the engine's YOLO once
-        its weights are loaded, else None (the motion fallback needs
-        OpenCV and is not ported)."""
-        if (not self._detector_injected and self._detector is None
-                and self._engine_has_yolo()):
-            LOG.info("curator.upgrade", detail="yolo weights arrived; "
-                     "curation moves to the batched device detector")
-            self._detector = self._build_detector()
-        return self._detector
+        """The curation detector (``curator.detector``)."""
+        return self.curator.detector
+
+    # ------------------------------------------------------------ ingest ---
+    def ingest(self, video_path: Path,
+               video_id: Optional[str] = None) -> str:
+        """Chunked copy into data/videos + ``video.uploaded``
+        (video-ingestion/app/main.py:87-154)."""
+        video_id = video_id or str(uuid.uuid4())
+        dest = self.dirs.videos / f"{video_id}{Path(video_path).suffix}"
+        with open(video_path, "rb") as src, open(dest, "wb") as dst:
+            while chunk := src.read(1024 * 1024):
+                dst.write(chunk)
+        self.bus.publish_sync(self.config.subjects.video_uploaded, {
+            "video_id": video_id, "filename": Path(video_path).name,
+            "path": str(dest),
+            "uploaded_at": datetime.now(timezone.utc).isoformat()})
+        return video_id
+
+    # -------------------------------------------------------- preprocess ---
+    def preprocess(self, video_id: str,
+                   detector=None) -> Optional[Dict[str, Any]]:
+        """Median-bbox crop of the first 10 detected frames + 50 px pad
+        (video-preprocessing/app/main.py:39-149)."""
+        with TIMERS.time("preprocess"):
+            return self._preprocess(video_id, detector)
+
+    def _preprocess(self, video_id: str,
+                    detector=None) -> Optional[Dict[str, Any]]:
+        matches = list(self.dirs.videos.glob(f"{video_id}.*"))
+        if not matches:
+            return None
+        src = matches[0]
+        # curation just ran the detector over every frame of this raw
+        # upload: its first 10 detections, not the detector again (when it
+        # found fewer than 10 there are no more to find)
+        bboxes = []
+        memo = getattr(self.curator, "last_detections", None)
+        use_memo = (detector is None and memo
+                    and memo.get("video_id") == video_id)
+        if use_memo:
+            bboxes = [d["detection"]["bbox"] for d in memo["detections"]
+                      if d["detection"] is not None][:10]
+        detector = detector or self.curator.detector
+        # curation's track pass kept this upload's decoded frames: crop
+        # from memory instead of decoding again (popping frees them)
+        cache = self.curator.take_frame_cache(src)
+        if cache is not None:
+            info = cache["info"]
+            frames = cache["frames"]
+            if not use_memo:
+                for frame in frames:
+                    if len(bboxes) >= 10:
+                        break
+                    det = detector(np.ascontiguousarray(frame[..., ::-1]))
+                    if det is not None:
+                        bboxes.append(det["bbox"])
+        else:
+            with VideoReader(src, device=self.device) as vr:
+                info = vr.info
+                frames = []
+                for idx, frame in vr.frames(interval=1, rgb=True):
+                    frames.append(frame)
+                    if not use_memo and len(bboxes) < 10:
+                        det = detector(np.ascontiguousarray(
+                            frame[..., ::-1]))
+                        if det is not None:
+                            bboxes.append(det["bbox"])
+        h, w = info["height"], info["width"]
+        if bboxes:
+            med = np.median(np.asarray(bboxes), axis=0)
+            x1 = max(0, int(med[0]) - 50)
+            y1 = max(0, int(med[1]) - 50)
+            x2 = min(w, int(med[2]) + 50)
+            y2 = min(h, int(med[3]) + 50)
+            # I420 needs even dimensions
+            x2 -= (x2 - x1) % 2
+            y2 -= (y2 - y1) % 2
+        else:
+            x1, y1, x2, y2 = 0, 0, w, h
+        cropped = [f[y1:y2, x1:x2] for f in frames]
+        out_path = write_video(self.dirs.processed / f"{video_id}_cropped",
+                               cropped, info["fps"], device=self.device)
+        payload = {
+            "video_id": video_id, "processed_path": str(out_path),
+            "crop_box": [x1, y1, x2, y2], "fps": info["fps"],
+        }
+        self.bus.publish_sync(self.config.subjects.video_preprocessed, payload)
+        return payload
 
     # ------------------------------------------------ fused device stages ---
     def _load_engine_frames(self, video_path: Path):
@@ -154,11 +275,6 @@ class PipelineDriver:
 
         Only the frames the stage subsets consume (det ∪ dino ∪ pose, 33
         of 125 for a canonical clip) are read and resized."""
-        if self.reader is None:
-            raise RuntimeError(
-                "PipelineDriver needs reader=: lameness_tpu_torch has no "
-                "video decoder yet (path -> object with info and "
-                "read_selected)")
         s = self.engine.spec
         union = [int(i) for i in np.asarray(s.packed_idx)]
         with contextlib.ExitStack() as stack:
@@ -742,3 +858,27 @@ class PipelineDriver:
                               schemas.ml_message(video_id, str(path),
                                                  ml_result))
         return ml_result
+
+    # ----------------------------------------------------------- full run --
+    def process_video_file(self, video_path: Path,
+                           video_id: Optional[str] = None,
+                           curate: bool = True,
+                           graph_heads: bool = True) -> Dict[str, Any]:
+        """The complete upload -> analysis.complete chain, one call."""
+        video_id = self.ingest(video_path, video_id)
+        if curate:
+            raw = next(iter(self.dirs.videos.glob(f"{video_id}.*")))
+            with TIMERS.time("curation"):
+                self.curator.curate_video(raw, video_id)
+        pre = self.preprocess(video_id)
+        self.run_feature_stages(video_id, Path(pre["processed_path"]))
+        self.run_tracking(video_id)
+        if graph_heads:
+            with TIMERS.time("graph_heads"):
+                self._ensure_graph_runner().process_video(video_id)
+        with TIMERS.time("ml"):
+            self.run_ml(video_id)
+        with TIMERS.time("fusion"):
+            fusion = self.fusion.process_video(
+                video_id, timestamp=datetime.now(timezone.utc).isoformat())
+        return {"video_id": video_id, "fusion": fusion}

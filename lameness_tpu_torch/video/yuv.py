@@ -9,11 +9,16 @@ Layout: standard I420 in one (..., H*3//2, W) uint8 plane -- Y rows
 after them (two chroma rows per buffer row; the planes do not align to
 buffer rows when H/2 is odd).
 
-Conversion is ITU-R BT.601 limited range.  The host side has no OpenCV:
+Conversion is ITU-R BT.601 limited range.  The port has no OpenCV:
 ``rgb_to_i420`` is cv2's ``COLOR_RGB2YUV_I420`` fixed-point arithmetic (20
 fraction bits; U and V from the top-left pixel of each 2x2 block), equal
-to it byte for byte.  The device side replicates chroma and rounds half to
-even, as the JAX package's XLA program does on the CPU.
+to it byte for byte.  ``i420_to_rgb_device`` replicates chroma and rounds
+half to even, as the JAX package's XLA program does on the CPU (the
+engine's I420 ingest).  The decoder's conversion is another one:
+``i420_to_rgb`` is cv2's ``COLOR_YUV2RGB_I420`` (20 fraction bits, nearest
+chroma), and ``rgb_to_gray`` cv2's 8-bit ``COLOR_RGB2GRAY`` (15 fraction
+bits), each equal to cv2 over every input (tests/test_torch_decode.py).
+Both are integer tensor arithmetic on the tensor's device.
 """
 from __future__ import annotations
 
@@ -23,7 +28,8 @@ import numpy as np
 import torch
 
 __all__ = ["i420_shape", "rgb_to_i420", "pack_i420_flat", "flat_views",
-           "i420_flat_to_rgb_device", "i420_to_rgb_device"]
+           "i420_flat_to_rgb_device", "i420_to_rgb_device", "i420_to_rgb",
+           "rgb_to_gray"]
 
 # cv2's BT.601 RGB -> YUV coefficients, fixed point with 20 fraction bits
 _SHIFT = 20
@@ -31,6 +37,10 @@ _HALF = 1 << (_SHIFT - 1)
 _Y = (269484, 528482, 102760)
 _U = (-155188, -305135, 460324)
 _V = (460324, -385875, -74448)
+# cv2's BT.601 YUV -> RGB coefficients (ITUR_BT_601_*), 20 fraction bits
+_CY, _CUB, _CUG, _CVG, _CVR = 1220542, 2116026, -409993, -852492, 1673527
+# cv2's 8-bit RGB -> gray coefficients, 15 fraction bits
+_GRAY = (9798, 19235, 3735)
 
 
 def i420_shape(h: int, w: int) -> tuple:
@@ -46,23 +56,71 @@ def _plane(r, g, b, coef, offset: int, out: torch.Tensor) -> None:
     out.copy_(acc.reshape(out.shape))
 
 
-def rgb_to_i420(frames: np.ndarray) -> np.ndarray:
-    """Host-side (..., H, W, 3) uint8 RGB -> (..., H*3//2, W) uint8 I420,
-    frame by frame in int32 on the CPU."""
+def rgb_to_i420(frames):
+    """(..., H, W, 3) uint8 RGB -> (..., H*3//2, W) uint8 I420.  A numpy
+    array is converted on the host, frame by frame in int32; a tensor as
+    a whole on its device (a tensor back)."""
+    if isinstance(frames, torch.Tensor):
+        h, w = frames.shape[-3], frames.shape[-2]
+        lead = tuple(frames.shape[:-3])
+        src = frames.reshape((-1, h, w, 3))
+        out = torch.empty((src.shape[0],) + i420_shape(h, w),
+                          dtype=torch.uint8, device=frames.device)
+        _i420_planes(src, out.view(src.shape[0], -1), h, w)
+        return out.reshape(lead + i420_shape(h, w))
     frames = np.asarray(frames)
     h, w = frames.shape[-3], frames.shape[-2]
     lead = frames.shape[:-3]
     src = torch.from_numpy(np.ascontiguousarray(frames).reshape(-1, h, w, 3))
     out = np.empty((src.shape[0],) + i420_shape(h, w), np.uint8)
     dst = torch.from_numpy(out).view(src.shape[0], -1)
-    n, q = h * w, h * w // 4
     for i in range(src.shape[0]):
-        r, g, b = src[i].to(torch.int32).unbind(-1)
-        _plane(r, g, b, _Y, 16, dst[i, :n])
-        r2, g2, b2 = (c[::2, ::2] for c in (r, g, b))
-        _plane(r2, g2, b2, _U, 128, dst[i, n:n + q])
-        _plane(r2, g2, b2, _V, 128, dst[i, n + q:])
+        _i420_planes(src[i:i + 1], dst[i:i + 1], h, w)
     return out.reshape(lead + i420_shape(h, w))
+
+
+def _i420_planes(src: torch.Tensor, dst: torch.Tensor, h: int, w: int):
+    """(N, H, W, 3) uint8 RGB -> the rows of ``dst`` (N, H*W*3//2)."""
+    n, q = h * w, h * w // 4
+    r, g, b = src.to(torch.int32).unbind(-1)
+    _plane(r, g, b, _Y, 16, dst[:, :n])
+    r2, g2, b2 = (c[:, ::2, ::2] for c in (r, g, b))
+    _plane(r2, g2, b2, _U, 128, dst[:, n:n + q])
+    _plane(r2, g2, b2, _V, 128, dst[:, n + q:])
+
+
+def i420_to_rgb(yuv: torch.Tensor) -> torch.Tensor:
+    """(..., H*3//2, W) uint8 I420 -> (..., H, W, 3) uint8 RGB on the
+    tensor's device, as ``cv2.cvtColor(.., COLOR_YUV2RGB_I420)``: Y below
+    16 taken as 16, each chroma sample over its 2x2 block, every channel
+    (C_Y (Y - 16) + C (chroma - 128) + 2^19) >> 20, saturated."""
+    h15, w = yuv.shape[-2], yuv.shape[-1]
+    h = h15 * 2 // 3
+    lead = tuple(yuv.shape[:-2])
+    y = (yuv[..., :h, :].to(torch.int32) - 16).clamp_(min=0).mul_(_CY)
+    chroma = yuv[..., h:, :].reshape(lead + (h * w // 2,))
+    q = h * w // 4
+    u = chroma[..., :q].to(torch.int32) - 128
+    v = chroma[..., q:].to(torch.int32) - 128
+
+    def up(c):
+        c = c.add_(1 << (_SHIFT - 1)).reshape(lead + (h // 2, 1, w // 2, 1))
+        return c.expand(lead + (h // 2, 2, w // 2, 2)).reshape(lead + (h, w))
+    out = []
+    for c in (v * _CVR, v * _CVG + u * _CUG, u * _CUB):
+        out.append(up(c).add_(y).bitwise_right_shift_(_SHIFT)
+                   .clamp_(0, 255).to(torch.uint8))
+    return torch.stack(out, dim=-1)
+
+
+def rgb_to_gray(rgb: torch.Tensor) -> torch.Tensor:
+    """(..., 3) uint8 RGB -> (...) uint8 gray on the tensor's device, as
+    ``cv2.cvtColor(.., COLOR_RGB2GRAY)``: (9798 R + 19235 G + 3735 B +
+    2^14) >> 15."""
+    r, g, b = rgb.to(torch.int32).unbind(-1)
+    acc = r * _GRAY[0]
+    acc.add_(g * _GRAY[1]).add_(b * _GRAY[2]).add_(1 << 14)
+    return acc.bitwise_right_shift_(15).to(torch.uint8)
 
 
 def pack_i420_flat(tree: Union[np.ndarray, Dict[str, np.ndarray]]):

@@ -22,10 +22,13 @@ PORT_FILES = sorted((ROOT / "lameness_tpu_torch").rglob("*.py")) + [
 def test_import_leaves_jax_out():
     """Importing the port loads no JAX, nothing of the JAX package, no
     OpenCV, and none of the libraries the card's machine lacks (joblib,
-    sklearn, the boosting libraries, lap)."""
+    sklearn, the boosting libraries, lap, PyYAML)."""
     code = ("import sys, lameness_tpu_torch.pipeline.engine, "
             "lameness_tpu_torch.pipeline.checkpoint, "
             "lameness_tpu_torch.video.yuv, lameness_tpu_torch.weights, "
+            "lameness_tpu_torch.video.decode, "
+            "lameness_tpu_torch.video.curation, "
+            "lameness_tpu_torch.core.config, lameness_tpu_torch.__main__, "
             "lameness_tpu_torch.serve.driver, "
             "lameness_tpu_torch.serve.graph_runner, "
             "lameness_tpu_torch.track.assignment, "
@@ -37,7 +40,7 @@ def test_import_leaves_jax_out():
             "lameness_tpu_torch.ml.ensemble; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'lameness_tpu', 'cv2', 'joblib', "
-            "'sklearn', 'catboost', 'xgboost', 'lightgbm', 'lap')]; "
+            "'sklearn', 'catboost', 'xgboost', 'lightgbm', 'lap', 'yaml')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)

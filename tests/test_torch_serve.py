@@ -487,23 +487,34 @@ def test_process_stream_survives_decode_failure(engines, tmp_path):
 
 
 def test_driver_needs_a_reader(engines, tmp_path):
+    """Without ``reader=`` the driver decodes with the port's VideoReader on
+    the engine's device; a file it cannot open raises."""
+    from lameness_tpu_torch.video.decode import VideoReader, write_video
     _, tdrv = _drivers(engines, tmp_path)
-    with pytest.raises(RuntimeError, match="reader"):
+    with pytest.raises(IOError, match="failed to open video"):
         tdrv._load_engine_frames(Path("x.mp4"))
+    clip = write_video(tmp_path / "c", np.zeros((2, 90, 160, 3), np.uint8),
+                       5, device="cpu")
+    with tdrv.reader(clip) as vr:
+        assert isinstance(vr, VideoReader) and vr.device.type == "cpu"
+        assert vr.info["total_frames"] == 2
 
 
 def test_detector_follows_loaded_yolo(engines, tmp_path):
-    """No YOLO weights loaded: no curation detector; once they are, the
-    engine's YOLO as the batched detector (built once)."""
+    """No YOLO weights loaded: curation's motion fallback; once they are,
+    the engine's YOLO as the batched detector (the curator built once
+    more, then kept)."""
+    from lameness_tpu_torch.video.curation import MotionDetector
     _, tdrv = _drivers(engines, tmp_path)
     eng = tdrv.engine
     saved = dict(eng.loaded_weights)
     try:
         eng.loaded_weights["yolo"] = False
-        assert tdrv.detector is None
+        assert isinstance(tdrv.detector, MotionDetector)
+        assert tdrv.detector.device.type == "cpu"
         eng.loaded_weights["yolo"] = True
         det = tdrv.detector
         assert det.model is eng.yolo and det.size == eng.spec.yolo_size
-        assert tdrv.detector is det
+        assert tdrv.detector is det and tdrv.curator.detector is det
     finally:
         eng.loaded_weights.update(saved)

@@ -14,7 +14,12 @@ one.  The file imports no JAX (tests/conftest.py does, hence
   writer, byte for byte;
 - ``BatchedYoloDetector`` on the card (f32, RGB and I420 transfer, chunks
   16 and 5) against the same detector on the CPU: the same ``None``
-  pattern, bbox and centroid within 1e-3 px, confidence within 1e-5.
+  pattern, bbox and centroid within 1e-3 px, confidence within 1e-5;
+- the upload chain (``process_video_file`` of a written ``.y4m`` with the
+  motion fallback, the tiny engine) on the card against its CPU path, and
+  MOG2's masks card against CPU (``chip_smoke.py``'s ``check_small_chain``,
+  with its gates); the card's ``i420_to_rgb`` and ``rgb_to_gray`` equal the
+  CPU's over every input.
 """
 from pathlib import Path
 
@@ -108,3 +113,29 @@ def test_detector_card_matches_cpu(dev, transfer, chunk):
                                        atol=1e-3)
             np.testing.assert_allclose(g["confidence"], w["confidence"],
                                        atol=1e-5)
+
+
+def test_upload_chain_card_matches_cpu(dev, tmp_path):
+    import chip_smoke
+    assert chip_smoke.check_small_chain(tmp_path)
+
+
+def test_decoder_conversions_card_match_cpu(dev):
+    """Every (Y, U, V) triple once (each chroma sample's 2x2 block holds
+    four Y values, 64 blocks a (U, V) pair), every (R, G, B) once."""
+    from lameness_tpu_torch.video.yuv import i420_to_rgb, rgb_to_gray
+    h = w = 4096
+    block = np.arange(h // 2 * w // 2)
+    uv, sub = block // 64, block % 64
+    ys = (sub[:, None] * 4 + np.arange(4)).astype(np.uint8)
+    y = np.zeros((h, w), np.uint8)
+    for k, (dy, dx) in enumerate(((0, 0), (0, 1), (1, 0), (1, 1))):
+        y[dy::2, dx::2] = ys[:, k].reshape(h // 2, w // 2)
+    planes = torch.from_numpy(np.concatenate(
+        [y.ravel(), (uv // 256).astype(np.uint8),
+         (uv % 256).astype(np.uint8)]).reshape(h * 3 // 2, w))
+    assert torch.equal(i420_to_rgb(planes.to(dev)).cpu(), i420_to_rgb(planes))
+    idx = torch.arange(1 << 24, dtype=torch.int64).reshape(h, w)
+    rgb = torch.stack([idx >> 16, idx >> 8 & 255, idx & 255],
+                      -1).to(torch.uint8)
+    assert torch.equal(rgb_to_gray(rgb.to(dev)).cpu(), rgb_to_gray(rgb))
