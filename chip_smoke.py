@@ -102,6 +102,20 @@ Phases, each failing loudly (no exception is swallowed):
      right-to-left upload's curation flipped; (b) the tiny engine's chain
      card against CPU (outputs under check_small_engine's gates, files key
      by key) and MOG2's masks card against CPU.
+  9. training (in a process of its own; no kernel of its own: K1's wrapper
+     must refuse operands that require grad): (a) DetectTrainer on YOLOv8-n
+     at the 640 canvas, batch 16, over letterboxed synthetic square cows:
+     the loss falls, the EMA weights go through save_params and
+     restore_engine into the default engine, which must find a walking
+     cow on most detect frames; (b) train_heads over labelled tleap files:
+     completed, tcn and gait restored, the engine's heads give the
+     report's train accuracy; (c) train_pose_model at 320, 20 keypoints,
+     batch 8, restored into the default (pose_pixels) engine; (d)
+     train_graph_heads at the serving widths over 64 labelled videos; (e)
+     TrainingService.run_training(cv_folds=2), whose reference files the
+     driver's GBDTEnsemble loads and run_ml uses; each with a ``training
+     record`` (ms and launches a step, device busy share, peak GB); (f)
+     each trainer's two steps at a tiny size, card against CPU (TF32 off).
 The line before the last is the kernel record (JSON); the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 without a CUDA device or outside the repository.
@@ -113,6 +127,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import os
 import re
 import shutil
@@ -3104,6 +3119,616 @@ def upload_phase(tmp) -> tuple:
     return ok, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 9
+# ---------------------------------------------------------------------------
+# 9a: YOLOv8-n (80 classes, the engine's) trained at the engine's 640 canvas
+# on letterboxed synthetic cows: tests/test_training_e2e.py's _cow_dataset
+# at 720p (a bright square with darker rows every 32 px on flat gray, 224 to
+# 480 px a side), through the engine's own letterbox.  The seeded weights
+# get ultralytics' detect-head bias init (``detect_bias_init``): from zero
+# biases the 8400 x 80 class logits start at sigmoid 0.5, and after 200
+# steps no detect frame held a cow detection (best cow score 0.000); with
+# it, 320 steps found the cow on 11 and on 10 of 11 (scores 0.957 and
+# 0.707: the card's training is not deterministic) in two runs (H100,
+# 700 W), so phase 9 takes 400
+DET_FRAMES = 96
+DET_BATCH = 16
+DET_STEPS = 400
+DET_LR = 2e-3
+DET_FOUND = 0.5           # share of detect frames whose cow must be found
+DET_IOU = 0.5
+HEAD_VIDEOS = 24          # 9b: labelled tleap files, 30 pose frames each
+HEAD_EPOCHS = 30
+POSE_IMAGES = 32          # 9c: 320² images, 20 keypoints
+POSE_EPOCHS = 3
+GRAPH_COWS, GRAPH_PER_COW = 16, 4     # 9d/9e: 64 labelled videos
+GRAPH_EPOCHS = 100
+# 9f: card against CPU, f32 with TF32 off, from the same weights and batch.
+# The first step's loss parts within 1e-5 relative, the second's within
+# 2e-4; the parameters after two steps with 90% of all elements within 2%
+# of a step and every element within 4·lr (two steps each way): Adam's
+# update is g / (|g| + eps) per element, so a gradient that is zero but for
+# rounding moves its element by up to a step either way
+# (tests/test_torch_training.py holds the port to JAX by the same rule)
+TRAIN_RTOL = (1e-5, 2e-4)
+TRAIN_STEP_SHARE, TRAIN_SHARE = 0.02, 0.9
+
+
+def square_cows(rng, n, h=720, w=1280, size=(224, 480)):
+    """n frames of one bright square cow each, and its boxes."""
+    frames = np.full((n, h, w, 3), 60, np.uint8)
+    boxes = np.zeros((n, 4), np.float32)
+    for i in range(n):
+        s = int(rng.integers(*size))
+        x, y = int(rng.integers(0, w - s)), int(rng.integers(0, h - s))
+        frames[i, y:y + s, x:x + s] = 220
+        frames[i, y:y + s:32, x:x + s] = 160
+        boxes[i] = [x, y, x + s, y + s]
+    return frames, boxes
+
+
+def walking_square_clip(t=125, h=720, w=1280, s=320):
+    """A clip of the same cow walking left to right, and its boxes."""
+    frames = np.full((t, h, w, 3), 60, np.uint8)
+    y = (h - s) // 2
+    boxes = np.zeros((t, 4), np.float32)
+    for i in range(t):
+        x = round(i * (w - s) / (t - 1))
+        frames[i, y:y + s, x:x + s] = 220
+        frames[i, y:y + s:32, x:x + s] = 160
+        boxes[i] = [x, y, x + s, y + s]
+    return frames, boxes
+
+
+def box_iou(a, b) -> float:
+    ix = max(0.0, min(a[2], b[2]) - max(a[0], b[0]))
+    iy = max(0.0, min(a[3], b[3]) - max(a[1], b[1]))
+    inter = ix * iy
+    return inter / ((a[2] - a[0]) * (a[3] - a[1])
+                    + (b[2] - b[0]) * (b[3] - b[1]) - inter)
+
+
+def detect_bias_init(model) -> None:
+    """Ultralytics' ``Detect.bias_init``: box biases 1, class biases
+    log(5 / nc / (640 / stride)²)."""
+    import torch
+    with torch.no_grad():
+        for i, stride in enumerate((8, 16, 32)):
+            branch = getattr(model, f"detect{i}")
+            branch.box2.bias.fill_(1.0)
+            branch.cls2.bias.fill_(math.log(5 / model.num_classes
+                                            / (640 / stride) ** 2))
+
+
+def cow_found(eng, out, truth) -> list:
+    """Per detect frame of the clip: whether a valid cow-class detection
+    overlaps the cow's box by DET_IOU."""
+    cow = eng.config.yolo.cow_class_id
+    found = []
+    for t, fi in enumerate(eng.spec.det_idx):
+        found.append(any(
+            out["det_valid"][0, t, k] and out["det_classes"][0, t, k] == cow
+            and box_iou(out["det_boxes"][0, t, k], truth[fi]) >= DET_IOU
+            for k in range(out["det_valid"].shape[-1])))
+    return found
+
+
+def step_record(name, fn, steps, wall_s, **extra) -> dict:
+    """One more step of ``fn`` profiled (its kernels and copies, device ms,
+    busy share of its wall) beside the loop's ms a step."""
+    kernels, copies, dev_ms = kernel_events(fn)
+    wall_ms, busy = busy_share(fn)
+    rec = {"trainer": name, "steps": steps, "ms_step": 1e3 * wall_s / steps,
+           "launches_step": kernels, "copies_step": copies,
+           "device_ms_step": dev_ms, "profiled_wall_ms": wall_ms,
+           "busy_share": busy, **extra}
+    log("training record " + json.dumps(rec))
+    return rec
+
+
+def train_detector(eng, models_dir) -> bool:
+    """9a: DetectTrainer at 640, batch 16; the loss must fall, and the EMA
+    weights, saved and restored into the default engine, must find the cow
+    on DET_FOUND of a walking clip's detect frames."""
+    import torch
+    from lameness_tpu_torch.models.yolo import YoloV8
+    from lameness_tpu_torch.ops import preprocess as prep
+    from lameness_tpu_torch.pipeline.checkpoint import (restore_engine,
+                                                        save_params)
+    from lameness_tpu_torch.pipeline.detect_training import DetectTrainer
+    from lameness_tpu_torch.weights import seeded_state_dict
+    rng = np.random.default_rng(SEED + 9)
+    frames, boxes = square_cows(rng, DET_FRAMES)
+    images, r, pad = prep.letterbox(torch.from_numpy(frames).cuda(),
+                                    eng.spec.yolo_size)
+    del frames
+    shift = torch.cat([pad, pad], dim=-1)
+    gt = torch.zeros((DET_FRAMES, 2, 4), device="cuda")
+    gt[:, 0] = torch.from_numpy(boxes).cuda() * r[:, None] + shift
+    labels = torch.full((DET_FRAMES, 2), eng.config.yolo.cow_class_id,
+                        dtype=torch.long, device="cuda")
+    mask = torch.zeros((DET_FRAMES, 2), dtype=torch.bool, device="cuda")
+    mask[:, 0] = True
+    model = YoloV8("n", num_classes=eng.config.yolo.num_classes)
+    model.load_state_dict(seeded_state_dict(
+        model, torch.Generator().manual_seed(SEED)))
+    detect_bias_init(model)
+    trainer = DetectTrainer(model, lr=DET_LR)
+
+    def step():
+        idx = torch.from_numpy(rng.permutation(DET_FRAMES)[:DET_BATCH]
+                               ).cuda()
+        return trainer.train_step(images[idx], labels[idx], gt[idx],
+                                  mask[idx])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = [step()["total"]]
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    losses += [step()["total"] for _ in range(DET_STEPS - 1)]
+    loop_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    falls = bool(np.isfinite(losses).all()
+                 and np.mean(losses[-10:]) < np.mean(losses[:10]))
+    step_record("DetectTrainer (YOLOv8-n 640, batch 16)", step,
+                DET_STEPS - 1, loop_s, first_step_s=first_s, peak_gb=peak,
+                loss_first10=float(np.mean(losses[:10])),
+                loss_last10=float(np.mean(losses[-10:])))
+    clip, truth = walking_square_clip()
+    before = cow_found(eng, eng.process_clip_batch(clip[None]), truth)
+    save_params(models_dir, "yolo", trainer.ema_params)
+    loaded = restore_engine(eng, models_dir)
+    out = eng.process_clip_batch(clip[None])
+    found = cow_found(eng, out, truth)
+    cow = eng.config.yolo.cow_class_id
+    best = float(np.where(out["det_classes"][0] == cow,
+                          out["det_scores"][0], 0).max())
+    ok = falls and loaded.get("yolo") is True \
+        and np.mean(found) >= DET_FOUND
+    log(f"  9a detector: loss {np.mean(losses[:10]):.4g} -> "
+        f"{np.mean(losses[-10:]):.4g} over {DET_STEPS} steps (falls "
+        f"{falls}); restore_engine {json.dumps(loaded)}; cow found on "
+        f"{sum(found)} of {len(found)} detect frames (seeded weights "
+        f"{sum(before)}), best cow score {best:.3f}  "
+        f"{'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def write_pose_sequences(dirs, n: int = HEAD_VIDEOS, frames: int = 30):
+    """tests/test_head_training.py's labelled videos: a tleap file of 30
+    pose frames a video, where lame cows sag and bob their heads."""
+    from lameness_tpu_torch.io import schemas
+    from lameness_tpu_torch.models import pose
+    rng = np.random.default_rng(SEED + 91)
+    labels_dir = dirs.training / "labels"
+    labels_dir.mkdir(parents=True, exist_ok=True)
+    for i in range(n):
+        vid, label = f"h{i:02d}", i % 2
+        schemas.write_result(labels_dir / f"{vid}_label.json",
+                             {"label": label})
+        seqs = []
+        for f in range(frames):
+            x0 = 50 + 6 * f
+            bbox = [x0, 100, x0 + 400, 400]
+            kps = pose.heuristic_keypoints(bbox)
+            for k in kps:
+                k["y"] += (100.0 if label else 0.0) + rng.standard_normal()
+                if k["name"] == "nose":
+                    k["y"] += (25.0 if label else 2.0) * np.sin(f * 1.1)
+            seqs.append({"frame": f * 5, "bbox": bbox, "keypoints": kps,
+                         "detection_confidence": 0.9})
+        schemas.write_result(dirs.results_for("tleap") / f"{vid}_tleap.json",
+                             {"pose_sequences": seqs})
+
+
+def train_sequence_heads(eng, dirs, models_dir) -> bool:
+    """9b: train_heads at the default widths; the restored heads in the
+    engine give the report's train accuracy (train_heads computes it with
+    its best weights in memory) and new head outputs."""
+    import torch
+    from lameness_tpu_torch.models.gait_transformer import GaitTransformer
+    from lameness_tpu_torch.models.tcn import TCN
+    from lameness_tpu_torch.pipeline.checkpoint import restore_engine
+    from lameness_tpu_torch.pipeline.head_training import (build_dataset,
+                                                           heads_loss,
+                                                           train_heads)
+    from lameness_tpu_torch.pipeline.optim import Optimizer
+    write_pose_sequences(dirs)
+    data = build_dataset(dirs)
+    clip = np.random.default_rng(SEED).integers(
+        0, 256, (1, eng.spec.clip_frames, eng.spec.frame_height,
+                 eng.spec.frame_width, 3), dtype=np.uint8)
+    seeded = eng.process_clip_batch(clip)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    report = train_heads(dirs, models_dir, epochs=HEAD_EPOCHS, batch_size=8,
+                         lr=3e-3)
+    wall = time.perf_counter() - t0
+    steps = report.get("epochs_run", 0) * -(-HEAD_VIDEOS // 8)
+    loaded = restore_engine(eng, models_dir)
+    x = torch.from_numpy(data["features"]).cuda()
+    m = torch.from_numpy(data["masks"]).cuda()
+    y = data["labels"] > 0.5
+    with torch.no_grad():
+        acc = {"tcn": float(((eng.tcn(x)[:, 0] > 0.5).cpu().numpy()
+                             == y).mean()),
+               "gait": float(((eng.gait(x, m)["probability"][:, 0] > 0.5)
+                              .cpu().numpy() == y).mean())}
+    out = eng.process_clip_batch(clip)
+    moved = not np.array_equal(out["tcn_probability"],
+                               seeded["tcn_probability"])
+    tcn, gait = TCN(input_dim=44), GaitTransformer(input_dim=44)
+    opt = Optimizer([*tcn.parameters(), *gait.parameters()], 3e-3,
+                    max_norm=1.0)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def step():
+        loss, _ = heads_loss(tcn, gait, x[:8], m[:8],
+                             torch.from_numpy(data["labels"][:8]).cuda(),
+                             gen)
+        opt.step(loss)
+        return loss.item()
+    step_record("train_heads (TCN + GaitTransformer, batch 8)", step,
+                steps, wall, epochs=report.get("epochs_run"),
+                best_loss=report.get("best_loss"),
+                train_accuracy=report.get("train_accuracy"))
+    ok = (report["status"] == "completed" and loaded.get("tcn") is True
+          and loaded.get("gait") is True
+          and acc == report["train_accuracy"] and moved)
+    log(f"  9b heads: {report['status']}, {report.get('epochs_run')} epochs, "
+        f"best loss {report.get('best_loss'):.4g} (first "
+        f"{report['loss_history'][0]:.4g}); restored {json.dumps(loaded)}; "
+        f"the engine's heads give train accuracy {acc} (report "
+        f"{report.get('train_accuracy')}); tcn_probability moved {moved}  "
+        f"{'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def pose_images(rng, n=POSE_IMAGES, img=320, nk=20):
+    """tests/test_pose_training.py's synthetic pose set: cow blobs with a
+    fixed keypoint layout."""
+    images = np.full((n, img, img, 3), 40, np.uint8)
+    boxes = np.zeros((n, 4), np.float32)
+    kpts = np.zeros((n, nk, 3), np.float32)
+    for i in range(n):
+        w = int(rng.integers(img * 5 // 16, img * 9 // 16))
+        h = int(rng.integers(img * 7 // 32, img * 3 // 8))
+        x1, y1 = int(rng.integers(0, img - w)), int(rng.integers(0, img - h))
+        images[i, y1:y1 + h, x1:x1 + w] = 210
+        boxes[i] = [x1, y1, x1 + w, y1 + h]
+        for k in range(nk):
+            kpts[i, k] = [x1 + (k % 5 + 0.5) / 5 * w,
+                          y1 + (k // 5 + 0.5) / 4 * h, 1.0]
+    return images, boxes, kpts
+
+
+def train_pose(eng, models_dir) -> bool:
+    """9c: train_pose_model at 320, 20 keypoints, batch 8; the checkpoint
+    restored into the (pose_pixels) default engine runs trained pose."""
+    import torch
+    from lameness_tpu_torch.models.yolo import YoloV8
+    from lameness_tpu_torch.pipeline.checkpoint import restore_engine
+    from lameness_tpu_torch.pipeline.optim import Optimizer
+    from lameness_tpu_torch.pipeline.pose_training import (assign_targets,
+                                                           pose_loss,
+                                                           train_pose_model)
+    images, boxes, kpts = pose_images(np.random.default_rng(SEED + 92))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    report = train_pose_model(images, boxes, kpts, models_dir=models_dir,
+                              epochs=POSE_EPOCHS, batch_size=8, img_size=320)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    loaded = restore_engine(eng, models_dir)
+    same = all(torch.equal(v, report["params"][k].to(v.dtype))
+               for k, v in eng.pose_model.state_dict().items())
+    clip, _ = walking_square_clip()
+    out = eng.process_clip_batch(clip[None])
+    model = YoloV8("n", num_classes=1, num_keypoints=20)
+    model.load_state_dict(report["params"])
+    opt = Optimizer(model.parameters(), 1e-3)
+    x = torch.from_numpy(images[:8].astype(np.float32) / 255.0).cuda()
+    tb = {k: torch.from_numpy(v[:8]).cuda()
+          for k, v in assign_targets(boxes, kpts, 320).items()}
+
+    def step():
+        loss, _ = pose_loss(model, x, tb)
+        opt.step(loss)
+        return loss.item()
+    step_record("train_pose_model (YOLOv8-n pose 320, batch 8)", step,
+                POSE_EPOCHS * (POSE_IMAGES // 8), wall, peak_gb=peak,
+                loss_history=report["loss_history"])
+    hist = report["loss_history"]
+    ok = (report["status"] == "completed" and bool(np.isfinite(hist).all())
+          and loaded.get("pose") is True and same
+          and "keypoints_model" in out)
+    log(f"  9c pose: loss {hist[0]:.4g} -> {hist[-1]:.4g}; restored "
+        f"{json.dumps(loaded)}, the engine's pose model the trained weights "
+        f"{same}, trained pose in its outputs {'keypoints_model' in out}  "
+        f"{'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def label_cow_videos(dirs, vids):
+    """Every odd cow's videos lame (label 1), the others sound."""
+    from lameness_tpu_torch.io import schemas
+    for vid in vids:
+        schemas.write_result(dirs.training / "labels" / f"{vid}_label.json",
+                             {"label": int(vid[3:5]) % 2})
+
+
+def train_graphs(dirs, models_dir) -> bool:
+    """9d: train_graph_heads at the serving widths (GraphGPS 128-d 4
+    layers, Graphormer 128-d 6 layers) on 64 labelled videos."""
+    import torch
+    from lameness_tpu_torch.models.graphgps import EnhancedGraphGPS
+    from lameness_tpu_torch.models.graphormer import CowLamenessGraphormer
+    from lameness_tpu_torch.pipeline.checkpoint import load_params
+    from lameness_tpu_torch.pipeline.graph_training import (
+        build_graph_dataset, graph_loss, train_graph_heads)
+    from lameness_tpu_torch.pipeline.optim import Optimizer
+    from lameness_tpu_torch.serve.graph_runner import gt_inputs, on_device
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    report = train_graph_heads(dirs, models_dir, epochs=GRAPH_EPOCHS)
+    wall = time.perf_counter() - t0
+    heads = {}
+    for name, cls in (("gnn", EnhancedGraphGPS),
+                      ("graphormer", CowLamenessGraphormer)):
+        heads[name] = cls()
+        heads[name].load_state_dict(load_params(models_dir, name))
+    g = build_graph_dataset(dirs)
+    args = on_device(gt_inputs(g), "cuda")
+    model = heads["graphormer"]
+    opt = Optimizer(model.parameters(), 3e-4, max_norm=0.5)
+    y = torch.from_numpy(g["labels"]).cuda()
+    lm = torch.from_numpy(g["label_mask"].astype(np.float32)).cuda()
+    mean_label = float((g["labels"] * g["label_mask"]).sum()
+                       / g["label_mask"].sum())
+
+    def step():
+        loss = graph_loss(model, args, y, lm, mean_label)
+        opt.step(loss)
+        return loss.item()
+    steps = sum(report.get("epochs_run", {}).values())
+    step_record("train_graph_heads (GraphGPS + Graphormer, 64 nodes; the "
+                "profiled step is Graphormer's)", step, steps, wall,
+                epochs_run=report.get("epochs_run"),
+                train_accuracy=report.get("train_accuracy"))
+    hist = report.get("loss_history", [])
+    ok = (report["status"] == "completed" and report["num_nodes"] == 64
+          and bool(np.isfinite(hist).all()))
+    log(f"  9d graph heads: {report['status']}, nodes "
+        f"{report.get('num_nodes')}, epochs {report.get('epochs_run')}, "
+        f"train accuracy {report.get('train_accuracy')}; both checkpoints "
+        f"load  {'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def train_tabular(dirs, vids) -> bool:
+    """9e: TrainingService.run_training(cv_folds=2) over the labelled result
+    files; the driver's GBDTEnsemble loads the saved reference files and
+    run_ml predicts with all three."""
+    from lameness_tpu_torch.core.config import Config
+    from lameness_tpu_torch.io.bus import MessageBus
+    from lameness_tpu_torch.ml.training import TrainingService
+    from lameness_tpu_torch.serve.driver import PipelineDriver
+    bus = MessageBus()
+    t0 = time.perf_counter()
+    status = TrainingService(dirs, bus=bus).run_training(cv_folds=2)
+    wall = time.perf_counter() - t0
+    drv = PipelineDriver(config=Config(dirs=dirs), device="cuda")
+    slots = sorted(drv.ensemble.models)
+    ml = drv.run_ml(vids[0])
+    drv.bus.shutdown()
+    preds = sorted(k for k in ml["predictions"] if k != "ensemble")
+    report = status.get("report", {})
+    ok = (status["status"] == "completed"
+          and slots == preds == ["catboost", "lightgbm", "xgboost"]
+          and len(bus.messages_on("training.completed")) == 1)
+    log(f"  9e tabular: {status['status']} in {wall:.2f} s host, "
+        f"{status.get('num_labeled')} labelled, cv "
+        f"{json.dumps({k: v.get('cv_accuracy_mean') for k, v in report.get('models', {}).items()})}; "
+        f"the driver's ensemble loads {slots}, run_ml predicts with "
+        f"{preds}  {'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def tiny_steps(dev) -> dict:
+    """9f: each trainer's step at a tiny size on ``dev`` from seeded weights
+    and a seeded batch: {trainer: (loss parts per step, parameters after two
+    steps (CPU), lr)}."""
+    import torch
+    from lameness_tpu_torch.models.gait_transformer import GaitTransformer
+    from lameness_tpu_torch.models.graphgps import EnhancedGraphGPS
+    from lameness_tpu_torch.models.graphormer import CowLamenessGraphormer
+    from lameness_tpu_torch.models.tcn import TCN
+    from lameness_tpu_torch.models.yolo import YoloV8
+    from lameness_tpu_torch.pipeline import detect_training as dt
+    from lameness_tpu_torch.pipeline import graph_training as gtr
+    from lameness_tpu_torch.pipeline import head_training as ht
+    from lameness_tpu_torch.pipeline import pose_training as pt
+    from lameness_tpu_torch.graph import build as gb
+    from lameness_tpu_torch.pipeline.optim import Optimizer
+    from lameness_tpu_torch.serve.graph_runner import (gnn_inputs, gt_inputs,
+                                                       on_device)
+    from lameness_tpu_torch.weights import seeded_state_dict
+    rng = np.random.default_rng(SEED + 93)
+
+    def seeded(model, seed):
+        model.load_state_dict(seeded_state_dict(
+            model, torch.Generator().manual_seed(seed)))
+        return model
+
+    def cpu_params(model):
+        return {k: v.detach().cpu() for k, v in model.named_parameters()}
+    res = {}
+    # DetectTrainer, 64 canvas, 2 classes
+    model = seeded(YoloV8("n", num_classes=2, device=dev), 1)
+    tr = dt.DetectTrainer(model, lr=1e-3, device=dev)
+    images = rng.uniform(0, 1, (2, 64, 64, 3)).astype(np.float32)
+    gt = np.array([[[6, 8, 40, 44], [0, 0, 0, 0]],
+                   [[20, 4, 60, 30], [2, 30, 30, 62]]], np.float32)
+    batch = (images, np.array([[0, 0], [1, 0]]), gt,
+             np.array([[True, False], [True, True]]))
+    res["DetectTrainer"] = ([tr.train_step(*batch) for _ in range(2)],
+                            cpu_params(model), 1e-3)
+    # pose step, 64 canvas, 20 keypoints
+    model = seeded(YoloV8("n", num_classes=1, num_keypoints=20, device=dev),
+                   2)
+    opt = Optimizer(model.parameters(), 1e-3)
+    ims, bxs, kps = pose_images(rng, n=2, img=64)
+    x = torch.from_numpy(ims.astype(np.float32) / 255.0).to(dev)
+    tb = {k: torch.from_numpy(v).to(dev)
+          for k, v in pt.assign_targets(bxs, kps, 64).items()}
+    parts = []
+    for _ in range(2):
+        loss, aux = pt.pose_loss(model, x, tb)
+        parts.append({"total": loss.item(),
+                      **{k: v.item() for k, v in aux.items()}})
+        opt.step(loss)
+    res["pose"] = (parts, cpu_params(model), 1e-3)
+    # the sequence heads, dropout 0
+    tcn = seeded(TCN(dropout=0.0, device=dev), 3)
+    gait = seeded(GaitTransformer(dropout=0.0, device=dev), 4)
+    opt = Optimizer([*tcn.parameters(), *gait.parameters()], 1e-3,
+                    max_norm=1.0)
+    xs = torch.from_numpy(rng.standard_normal((4, 125, 44)).astype(
+        np.float32)).to(dev)
+    ms = torch.zeros((4, 125), dtype=torch.bool, device=dev)
+    ms[:, :10] = True
+    ys = torch.tensor([0.0, 1.0, 1.0, 0.0], device=dev)
+    parts = []
+    for _ in range(2):
+        loss, _ = ht.heads_loss(tcn, gait, xs, ms, ys, None)
+        parts.append({"total": loss.item()})
+        opt.step(loss)
+    res["heads"] = (parts, {**{"tcn." + k: v for k, v in
+                               cpu_params(tcn).items()},
+                            **{"gait." + k: v for k, v in
+                               cpu_params(gait).items()}}, 1e-3)
+    # the graph heads at the serving widths on a 16-node graph
+    g = gb.build_dense_graph(rng.standard_normal((11, 50)).astype(np.float32),
+                             rng.standard_normal((11, 32)).astype(np.float32),
+                             max_nodes=16)
+    g["x"] = gb.standardize_features(g["x"], g["node_mask"])
+    y = torch.from_numpy((np.arange(16) % 2).astype(np.float32)).to(dev)
+    lm = torch.from_numpy(g["node_mask"].astype(np.float32)).to(dev)
+    for name, cls, inputs, seed in (
+            ("GraphGPS", EnhancedGraphGPS, gnn_inputs, 5),
+            ("Graphormer", CowLamenessGraphormer, gt_inputs, 6)):
+        model = seeded(cls(device=dev), seed)
+        opt = Optimizer(model.parameters(), 3e-4, max_norm=0.5)
+        args = on_device(inputs(g), dev)
+        parts = []
+        for _ in range(2):
+            loss = gtr.graph_loss(model, args, y, lm, 0.5)
+            parts.append({"total": loss.item()})
+            opt.step(loss)
+        res[name] = (parts, cpu_params(model), 3e-4)
+    return res
+
+
+def trainers_card_vs_cpu() -> bool:
+    """9f: the card's steps against the CPU's under TRAIN_RTOL and the
+    parameter rule."""
+    card, cpu = tiny_steps("cuda"), tiny_steps("cpu")
+    ok = True
+    for name, (parts, params, lr) in card.items():
+        want_parts, want_params, _ = cpu[name]
+        rel = max(abs(p[k] - w[k]) / max(abs(w[k]), 1e-12)
+                  for p, w in zip(parts, want_parts) for k in w)
+        loss_ok = all(abs(p[k] - w[k]) <= rtol * max(abs(w[k]), 1e-12)
+                      for p, w, rtol in zip(parts, want_parts, TRAIN_RTOL)
+                      for k in w)
+        close = total = 0
+        worst = 0.0
+        for key, val in params.items():
+            diff = (val - want_params[key]).abs()
+            worst = max(worst, float(diff.max()) / lr)
+            close += int((diff <= TRAIN_STEP_SHARE * lr).sum())
+            total += diff.numel()
+        share = close / total
+        good = loss_ok and worst <= 4.0 and share >= TRAIN_SHARE
+        ok &= good
+        log(f"  9f {name}: loss parts card vs CPU max rel {rel:.3g}; "
+            f"parameters after two steps max |diff| {worst:.3g} lr, "
+            f"{share:.4f} within {TRAIN_STEP_SHARE} lr  "
+            f"{'ok' if good else 'FAIL'}")
+    return ok
+
+
+def grad_refused() -> bool:
+    """The kernel wrappers refuse operands that require grad under grad
+    mode (their kernels have no backward) and launch nothing."""
+    import torch
+    from lameness_tpu_torch.ops import attention as at
+    q = torch.randn(1, 2, 16, 64, device="cuda", requires_grad=True)
+    before = at.KERNEL.launches
+    try:
+        at.flash_attention(q, q, q)
+    except RuntimeError as exc:
+        ok = "requires grad" in str(exc) and at.KERNEL.launches == before
+    else:
+        ok = False
+    with torch.no_grad():
+        at.flash_attention(q, q, q)
+    ok &= at.KERNEL.launches == before + 1
+    log(f"  K1 with operands requiring grad: refused, no launch; under "
+        f"no_grad launched  {'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def training_phase() -> bool:
+    """Phase 9 (in a process of its own: ``chip_smoke.py --training``)."""
+    import torch
+    from lameness_tpu_torch.core.config import DataDirs
+    from lameness_tpu_torch.ops import _cuda
+    _cuda.build(["attention", "sam_window_attention", "sam_global_attention"])
+    t = [time.perf_counter()]
+    ok = grad_refused()
+    with tempfile.TemporaryDirectory() as tmp:
+        models_dir = f"{tmp}/models"
+        eng = default_engine()
+        t.append(time.perf_counter())
+        ok &= train_detector(eng, models_dir)
+        t.append(time.perf_counter())
+        dirs = DataDirs(root=f"{tmp}/heads")
+        ok &= train_sequence_heads(eng, dirs, models_dir)
+        t.append(time.perf_counter())
+        ok &= train_pose(eng, models_dir)
+        t.append(time.perf_counter())
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        dirs = DataDirs(root=f"{tmp}/cows")
+        vids = write_cow_videos(dirs.root, cows=GRAPH_COWS,
+                                per_cow=GRAPH_PER_COW, tracking=False)
+        label_cow_videos(dirs, vids)
+        ok &= train_graphs(dirs, models_dir)
+        t.append(time.perf_counter())
+        ok &= train_tabular(dirs, vids)
+        t.append(time.perf_counter())
+    ok &= trainers_card_vs_cpu()
+    t.append(time.perf_counter())
+    names = ("engine", "9a", "9b", "9c", "9d", "9e", "9f")
+    log(f"phase 9: {t[-1] - t[0]:.1f} s ("
+        + ", ".join(f"{n} {b - a:.1f}" for n, a, b in zip(names, t, t[1:]))
+        + ")")
+    return ok
+
+
+def training_in_fresh_process() -> bool:
+    """Phase 9 in a process of its own: the profiler readings of a step
+    are taken fresh (see hd80_in_fresh_process), and the trainers' memory
+    goes with the process."""
+    res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          "--training"], timeout=900)
+    return res.returncode == 0
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -3122,6 +3747,10 @@ def main() -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         return 0 if hd80_kernels(json.loads(sys.argv[2])) else 1
+    if sys.argv[1:2] == ["--training"]:      # training_in_fresh_process
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        return 0 if training_phase() else 1
     smi, hgmma = setup()
     ok_build = all(hgmma[name] > 0 for name in HOPPER_SOURCES)
     if not ok_build:
@@ -3189,6 +3818,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp, switches({}):
         ok_u, upload_launches = upload_phase(tmp)
     launches.update(upload_launches)
+    log("== phase 9: training")
+    gc.collect()
+    torch.cuda.empty_cache()
+    ok_t = training_in_fresh_process()
     for kid, rec in records.items():
         # each kernel's count on its own path (K1 runs on every one)
         rec["launches"] = max(counts[rec["name"]]
@@ -3200,7 +3833,7 @@ def main() -> int:
     kern = {"kernels": [{k: rec[k] for k in keys}
                         for rec in records.values()]}
     if not (ok_build and ok_k and ok_small and ok_e and ok_m and ok_c
-            and ok_s and ok_a and ok_u):
+            and ok_s and ok_a and ok_u and ok_t):
         log("chip_smoke: FAILED")
         return 1
     log(smi)

@@ -155,8 +155,15 @@ def check_operands(name: str, tensors, dtype: Optional[torch.dtype] = None
                    ) -> None:
     """Raise unless every tensor is on one CUDA device, of one supported
     dtype, with a contiguous innermost axis (the kernels take strides for
-    the other axes)."""
+    the other axes), and none asks for a gradient: the kernels have no
+    backward, so under grad mode their outputs would come back detached
+    and the weights before them would get no gradient without an error."""
     first = tensors[0]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an operand requires grad, and the CUDA kernel has no "
+            f"backward; run it under torch.no_grad() (inference) or on CPU "
+            f"tensors, whose plain version is differentiable")
     dtype = dtype or first.dtype
     if first.device.type != "cuda":
         raise ValueError(f"{name}: expected CUDA tensors, got {first.device}")

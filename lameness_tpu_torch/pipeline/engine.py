@@ -339,11 +339,6 @@ class LamenessEngine:
             if sam_mod.detect_sam_layout(state_dict) == "sa":
                 state_dict = sam_mod.sa_to_hf_state_dict(state_dict)
             tree = sam_mod.convert_hf_state_dict(state_dict)
-            dim = tree["params"]["vision_encoder"]["pos_embed"].shape[-1]
-            if self.sam is not None and dim != self.sam.encoder_dim:
-                self.sam = build_sam(sam_mod.infer_variant(dim),
-                                     img_size=self.spec.sam_size,
-                                     device=self.device)
         elif name == "yolo":
             tree = convert_ultralytics_state_dict(state_dict)
         elif name == "pose":
@@ -352,38 +347,64 @@ class LamenessEngine:
             return
         else:
             raise ValueError(f"no torch checkpoint format for {name!r}")
-        self._install(name, tree)
+        self.install_jax_params(name, tree)
 
     def install_pose_params(self, tree) -> None:
         """Install trained pose weights (a flax-layout tree, as
         ``convert_ultralytics_state_dict(..., has_pose=True)`` gives) and
         switch the heads stage to trained inference with a per-frame
         heuristic fallback (tleap:142-197's hybrid)."""
-        if not self.spec.pose_pixels:
-            raise ValueError(
-                "this engine's spec has pose_pixels=False (heuristic-pose "
-                "wire trim: no pose frames are transferred) — rebuild with "
-                "EngineSpec(pose_pixels=True) to run a trained pose model")
-        if self.pose_model is None:
-            self.pose_model = YoloV8("n", num_classes=1,
-                                     num_keypoints=pose_mod.NUM_KEYPOINTS,
-                                     device=self.device)
-        self._install("pose", tree)
+        self.install_jax_params("pose", tree)
 
-    def _install(self, name: str, tree) -> None:
-        """A flax-layout tree into sub-model ``name``; a module built after
-        the bf16 policy (a rebuilt SAM, a new pose model) is recast, one
-        that already follows it keeps its dtypes (``load_state_dict`` copies
-        into them)."""
+    def install_jax_params(self, name: str, tree) -> None:
+        """A flax-layout tree (numpy leaves, as the JAX package's params
+        and converters give) into sub-model ``name``."""
         from ..weights import from_jax_params
+        self.install_state_dict(name, from_jax_params({name: tree})[name])
+
+    def install_state_dict(self, name: str, sd) -> None:
+        """A state dict into sub-model ``name`` (strict key match).  ``pose``
+        builds the trained pose model (the spec must carry pose frames); a
+        SAM state dict of another encoder width rebuilds SAM at its variant.
+        A module built after the bf16 policy (a rebuilt SAM, a new pose
+        model) is recast; one that already follows it keeps its dtypes
+        (``load_state_dict`` copies into them)."""
         module = self.pose_model if name == "pose" else getattr(self, name)
+        if name == "pose":
+            if not self.spec.pose_pixels:
+                raise ValueError(
+                    "this engine's spec has pose_pixels=False (heuristic-pose "
+                    "wire trim: no pose frames are transferred) — rebuild "
+                    "with EngineSpec(pose_pixels=True) to run a trained pose "
+                    "model")
+            if module is None:
+                module = YoloV8("n", num_classes=1,
+                                num_keypoints=pose_mod.NUM_KEYPOINTS,
+                                device=self.device)
+        elif name == "sam" and module is not None:
+            dim = sd["vision_encoder.pos_embed"].shape[-1]
+            if dim != module.encoder_dim:
+                module = build_sam(sam_mod.infer_variant(dim),
+                                   img_size=self.spec.sam_size,
+                                   device=self.device)
         if module is not None:
-            module.load_state_dict(from_jax_params({name: tree})[name],
-                                   strict=True)
+            # checked first: a strict load that fails on a key or shape has
+            # already copied the others
+            have = module.state_dict()
+            bad = set(have) ^ set(sd) or {
+                k for k, v in sd.items() if v.shape != have[k].shape}
+            if bad:
+                raise ValueError(f"{name}: state dict does not fit the "
+                                 f"module ({sorted(bad)[:4]} ...)")
+            module.load_state_dict(sd, strict=True)
             module.eval()
             if self.spec.dtype == torch.bfloat16:
                 from .precision import recast_installed
                 self.precision[name] = recast_installed(name, module)
+            if name == "pose":
+                self.pose_model = module
+            else:
+                setattr(self, name, module)
         self.loaded_weights[name] = True
 
     # -- stage 1: detection --------------------------------------------------

@@ -99,6 +99,28 @@ def embedding_for_video(dirs, video_id: str) -> Optional[np.ndarray]:
     return np.asarray(emb, np.float32) if emb is not None else None
 
 
+def gnn_inputs(g) -> tuple:
+    """GraphGPS's inputs from a dense graph (numpy): features, Laplacian and
+    random-walk encodings, edge features, edge and node masks."""
+    lap = gb.laplacian_pe(g["edge_mask"], g["node_mask"], 8)
+    rw = gb.random_walk_pe(g["edge_mask"], g["node_mask"], 16)
+    return (g["x"], lap, rw, g["edge_attr"], g["edge_mask"], g["node_mask"])
+
+
+def gt_inputs(g) -> tuple:
+    """Graphormer's inputs from a dense graph (numpy): features, shortest
+    paths, edge features, edge mask, degrees, timestamps, node mask."""
+    spd = gb.shortest_path_dense(g["edge_mask"], g["node_mask"], 10)
+    din, dout = gb.degrees(g["edge_mask"], g["node_mask"])
+    return (g["x"], spd, g["edge_attr"], g["edge_mask"], din, dout,
+            g["timestamps"], g["node_mask"])
+
+
+def on_device(arrays, device) -> tuple:
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                 for a in arrays)
+
+
 class GraphHeadRunner:
     def __init__(self, config: Config, bus=None,
                  max_nodes: Optional[int] = None, device=None,
@@ -122,21 +144,11 @@ class GraphHeadRunner:
         self.gnn.load_state_dict(params["gnn"])
         self.gt.load_state_dict(params["gt"])
 
-    def _tensors(self, *arrays):
-        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-                     for a in arrays)
-
     def _gnn_args(self, g):
-        lap = gb.laplacian_pe(g["edge_mask"], g["node_mask"], 8)
-        rw = gb.random_walk_pe(g["edge_mask"], g["node_mask"], 16)
-        return self._tensors(g["x"], lap, rw, g["edge_attr"], g["edge_mask"],
-                             g["node_mask"])
+        return on_device(gnn_inputs(g), self.device)
 
     def _gt_args(self, g):
-        spd = gb.shortest_path_dense(g["edge_mask"], g["node_mask"], 10)
-        din, dout = gb.degrees(g["edge_mask"], g["node_mask"])
-        return self._tensors(g["x"], spd, g["edge_attr"], g["edge_mask"],
-                             din, dout, g["timestamps"], g["node_mask"])
+        return on_device(gt_inputs(g), self.device)
 
     def _mc_generator(self, video_id: str) -> torch.Generator:
         # stable seed: builtin hash() is salted per process

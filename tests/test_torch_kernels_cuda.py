@@ -553,3 +553,48 @@ def test_cuda_wrappers_reject_bad_operands(dev):
         with pytest.raises(ValueError, match="16-byte"):
             getattr(sa, entry)(*args)
         assert kernel.launches == before
+
+
+@pytest.mark.parametrize("entry", [
+    "flash_attention", "sam_window_attention_v3", "sam_window_attention_v1",
+    "sam_window_attention_v2", "sam_window_attention_v5",
+    "sam_global_attention_v4", "sam_global_attention_v1",
+    "sam_global_attention_v2", "sam_global_attention_v3"])
+def test_cuda_wrappers_refuse_gradients(dev, entry):
+    """K1-K9 have no backward: under grad mode, an operand that requires
+    grad raises before any launch (a detached output would leave the
+    weights before the kernel without a gradient, silently); under
+    no_grad the same call launches."""
+    f = torch.float32
+    if entry == "flash_attention":
+        args = [_rnd(dev, f, 1, 2, 16, 64, seed=i) for i in range(3)]
+        call = at.flash_attention
+    elif entry in ("sam_window_attention_v3", "sam_window_attention_v5"):
+        # 7 x 7 windows, (BW, N, nH, hd) and (BW, N, nH, win)
+        args = [_rnd(dev, f, 2, 49, 2, 64, seed=i) for i in range(3)] + \
+            [_rnd(dev, f, 2, 49, 2, 7, seed=3 + i) for i in range(2)]
+        call = getattr(sa, entry)
+    elif entry.startswith("sam_window"):
+        args = [_rnd(dev, f, 2, 2, 49, 64, seed=i) for i in range(3)] + \
+            [_rnd(dev, f, 2, 2, 49, 7, seed=3 + i) for i in range(2)]
+        call = getattr(sa, entry)
+    elif entry == "sam_global_attention_v3":
+        # a 7 x 9 grid, (B, N, nH, hd), (B, N, nH, GH) and (B, N, nH, GW)
+        args = [_rnd(dev, f, 1, 63, 2, 64, seed=i) for i in range(3)] + \
+            [_rnd(dev, f, 1, 63, 2, 7, seed=3),
+             _rnd(dev, f, 1, 63, 2, 9, seed=4)]
+        call = getattr(sa, entry)
+    else:
+        args = [_rnd(dev, f, 2, 63, 64, seed=i) for i in range(3)] + \
+            [_rnd(dev, f, 2, 7, 9, 7, seed=3), _rnd(dev, f, 2, 7, 9, 9,
+                                                   seed=4)]
+        call = getattr(sa, entry)
+    args[0].requires_grad_(True)
+    before = {name: k.launches for name, k in KERNELS.items()}
+    with pytest.raises(RuntimeError, match="requires grad"):
+        call(*args)
+    assert {name: k.launches for name, k in KERNELS.items()} == before
+    with torch.no_grad():
+        call(*args)
+    assert sum(k.launches for k in KERNELS.values()) == \
+        sum(before.values()) + 1

@@ -21,8 +21,8 @@ PORT_FILES = sorted((ROOT / "lameness_tpu_torch").rglob("*.py")) + [
 
 def test_import_leaves_jax_out():
     """Importing the port loads no JAX, nothing of the JAX package, no
-    OpenCV, and none of the libraries the card's machine lacks (joblib,
-    sklearn, the boosting libraries, lap, PyYAML)."""
+    OpenCV, and none of the libraries the card's machine lacks (optax,
+    orbax, joblib, sklearn, the boosting libraries, lap, PyYAML)."""
     code = ("import sys, lameness_tpu_torch.pipeline.engine, "
             "lameness_tpu_torch.pipeline.checkpoint, "
             "lameness_tpu_torch.video.yuv, lameness_tpu_torch.weights, "
@@ -37,10 +37,21 @@ def test_import_leaves_jax_out():
             "lameness_tpu_torch.track.kalman, "
             "lameness_tpu_torch.track.reid, "
             "lameness_tpu_torch.fuse.fusion, "
-            "lameness_tpu_torch.ml.ensemble; "
+            "lameness_tpu_torch.fuse.stacking, "
+            "lameness_tpu_torch.ml.ensemble, "
+            "lameness_tpu_torch.ml.gbdt_train, "
+            "lameness_tpu_torch.ml.training, "
+            "lameness_tpu_torch.models.sequence_features, "
+            "lameness_tpu_torch.pipeline.optim, "
+            "lameness_tpu_torch.pipeline.evaluation, "
+            "lameness_tpu_torch.pipeline.head_training, "
+            "lameness_tpu_torch.pipeline.detect_training, "
+            "lameness_tpu_torch.pipeline.pose_training, "
+            "lameness_tpu_torch.pipeline.graph_training; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'lameness_tpu', 'cv2', 'joblib', "
-            "'sklearn', 'catboost', 'xgboost', 'lightgbm', 'lap', 'yaml')]; "
+            "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'lameness_tpu', "
+            "'cv2', 'joblib', 'sklearn', 'catboost', 'xgboost', 'lightgbm', "
+            "'lap', 'yaml')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
@@ -60,7 +71,8 @@ def _imports(path):
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
 def test_no_jax_imports(path):
     for line, top in _imports(path):
-        assert top not in ("jax", "jaxlib", "flax", "lameness_tpu"), \
+        assert top not in ("jax", "jaxlib", "flax", "optax", "orbax",
+                           "lameness_tpu"), \
             f"{path.name}:{line} imports {top}"
 
 
