@@ -116,6 +116,29 @@ Phases, each failing loudly (no exception is swallowed):
      driver's GBDTEnsemble loads and run_ml uses; each with a ``training
      record`` (ms and launches a step, device busy share, peak GB); (f)
      each trainer's two steps at a tiny size, card against CPU (TF32 off).
+  10. platform (no kernel of its own; the app's engine runs K1-K3):
+     ``LamenessApp`` with its admin API and SPA on the card, over HTTP with
+     urllib. (a) ``GET /`` serves the SPA's index.html; the admin logs in
+     and uploads phase 8's 250-frame 720p ``.y4m`` through
+     ``POST /api/videos/upload``; the job completes; every result file is
+     valid, the SHAP and LLM files and a lameness record exist, the files
+     equal ``process_video_file``'s of the same upload on the same engine
+     (1e-4; which are bit for bit is printed) and K1-K3 launch at the
+     default engine's counts; the seconds from upload to fusion with the
+     stage timers; (b) two raters' pairwise and triplet comparisons through
+     the API, the rater-reliability and Elo/hierarchy endpoints reflecting
+     them, the SHAP what-if of the video; (c) the render endpoint's
+     annotated ``.y4m`` (the crop's frame count, streamed by the annotated
+     route) against a ``device="cpu"`` render, within 1, ms a frame; (d)
+     eight 125-frame uploads of phase 6's cow, each curated and cropped,
+     their crops handed back to back to an app batching 4 clips an engine
+     call: grouped into 2 engine calls (the batcher's count and K1-K3's
+     launches), every job completed, each clip's files equal its crop run
+     alone (1e-4), app clips/s beside phase 6's stream at B = 4; (e) a job put
+     back to 'processing' with its crop on disk resumed by a new app; (f)
+     the tiny app card against CPU, its files key by key (check_small_
+     engine's gates).  Its uploads and intermediates live in a temporary
+     directory, removed at the end.
 The line before the last is the kernel record (JSON); the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 without a CUDA device or outside the repository.
@@ -356,16 +379,22 @@ def device_ms(fn, reps: int, only: str = "", tries: int = 3) -> float:
 
 def kernel_names(fn) -> list:
     """Names of the device kernels and copies one call of ``fn`` runs, by
-    torch.profiler."""
+    torch.profiler; a session that recorded no device event (as in
+    ``device_ms``) is asked again, up to three sessions."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sorted({e.key for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA})
+    names = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = sorted({e.key for e in prof.key_averages()
+                        if e.device_type == torch.autograd.DeviceType.CUDA})
+        if names:
+            break
+    return names
 
 
 def foreign_kernels(fn) -> list:
@@ -1501,6 +1530,8 @@ def hd80_in_fresh_process(launches) -> bool:
 STREAM_CLIPS = 8
 STREAM_JOBS = 32
 STREAM_BATCHES = (4, 2, 8)
+# clips/s of each batch size's stream, for phase 10's batcher record
+STREAM_RATES = {}
 CURATION_CHUNKS = (16, 48)
 RESULT_KINDS = ("yolo", "sam3", "dinov3", "tleap", "tcn", "transformer")
 TIMER_STAGES = ("decode", "transfer", "engine_stream", "readback",
@@ -1993,7 +2024,7 @@ def serve_stream(eng, clips, keep_root=None) -> bool:
             good = len(res) == STREAM_JOBS and read_files(drv, f"stream{b}")
             ok &= good
             summ = TIMERS.summary()
-            rates[b] = STREAM_JOBS / wall
+            rates[b] = STREAM_RATES[b] = STREAM_JOBS / wall
             log("stream record " + json.dumps({
                 "batch": b, "clips": STREAM_JOBS, "wall_s": wall,
                 "clips_s": rates[b],
@@ -2973,19 +3004,12 @@ def check_upload(eng, tmp) -> tuple:
     return ok, launches
 
 
-def small_chain(dev, root, src):
-    """The tiny engine of ``small_stream_files`` (dropout 0) and its graph
-    heads at dropout 0 on ``dev``: ``process_video_file(src)`` with the
-    motion fallback.  Returns {file: parsed JSON}, the engine outputs and
-    the crop's scale to the engine's frame (the files' pixel coordinates are
-    the outputs' times it)."""
-    from pathlib import Path
+def tiny_engine(dev):
+    """The tiny engine of ``small_stream_files`` at dropout 0 on ``dev``."""
     import torch
-    from lameness_tpu_torch.core.config import Config, DataDirs
     from lameness_tpu_torch.models.gait_transformer import GaitTransformer
     from lameness_tpu_torch.models.tcn import TCN
     from lameness_tpu_torch.pipeline.engine import make_test_engine
-    from lameness_tpu_torch.serve.driver import PipelineDriver
     from lameness_tpu_torch.weights import seeded_state_dict
     gen = torch.Generator().manual_seed(SEED)
     eng = make_test_engine(device=dev, with_sam=True, generator=gen)
@@ -2993,9 +3017,12 @@ def small_chain(dev, root, src):
     eng.gait = GaitTransformer(input_dim=44, dropout=0.0, device=dev)
     eng.load_state_dicts({"tcn": seeded_state_dict(eng.tcn, gen),
                           "gait": seeded_state_dict(eng.gait, gen)})
-    drv = PipelineDriver(config=Config(dirs=DataDirs(root=str(root))),
-                         engine=eng)
-    drv.graph_runner = zero_dropout(graph_runner(root, dev))
+    return eng
+
+
+def capture_outputs(drv) -> dict:
+    """The engine outputs behind ``drv``'s result files, collected as the
+    driver writes them (one clip: {key: array})."""
     outs = {}
     write = drv._write_stage_results
 
@@ -3003,6 +3030,23 @@ def small_chain(dev, root, src):
         outs.update({k: v[bi] for k, v in leaves(out)})
         return write(video_id, out, bi, scale, info)
     drv._write_stage_results = capture
+    return outs
+
+
+def small_chain(dev, root, src):
+    """The tiny engine of ``small_stream_files`` (dropout 0) and its graph
+    heads at dropout 0 on ``dev``: ``process_video_file(src)`` with the
+    motion fallback.  Returns {file: parsed JSON}, the engine outputs and
+    the crop's scale to the engine's frame (the files' pixel coordinates are
+    the outputs' times it)."""
+    from pathlib import Path
+    from lameness_tpu_torch.core.config import Config, DataDirs
+    from lameness_tpu_torch.serve.driver import PipelineDriver
+    eng = tiny_engine(dev)
+    drv = PipelineDriver(config=Config(dirs=DataDirs(root=str(root))),
+                         engine=eng)
+    drv.graph_runner = zero_dropout(graph_runner(root, dev))
+    outs = capture_outputs(drv)
     drv.process_video_file(src, "small")
     drv.bus.shutdown()
     x1, y1, x2, y2 = drv.bus.messages_on("video.preprocessed")[0]["crop_box"]
@@ -3030,6 +3074,36 @@ def check_small_chain(tmp, big_src=None) -> bool:
                          w=u["w"], fps=u["fps"])
     runs = {dev: small_chain(dev, f"{tmp}/small_{dev}", src)
             for dev in ("cpu", "cuda")}
+    ok = small_runs_agree(runs, tmp, "small chain")
+    masks_ok = True
+    clips = [(src, None)]
+    if big_src is not None:
+        clips.append((big_src, MOG2_FRAMES))
+    for path, span in clips:
+        with VideoReader(path, device="cuda") as vr:
+            frames = vr.read_sampled()[0]
+        if span:
+            frames = frames[span[0]:span[1]]
+        bgr = torch.from_numpy(np.ascontiguousarray(frames[..., ::-1]))
+        got = {dev: MotionDetector(device=dev).masks(bgr.to(dev)).cpu()
+               for dev in ("cpu", "cuda")}
+        equal = torch.equal(got["cpu"], got["cuda"])
+        masks_ok &= equal
+        log(f"  MOG2 masks card vs CPU, {len(frames)} frames of "
+            f"{frames.shape[2]}x{frames.shape[1]}: equal {equal} (foreground "
+            f"{float((got['cpu'] > 0).float().mean()):.4f})  "
+            f"{'ok' if equal else 'FAIL'}")
+    return ok and masks_ok
+
+
+def small_runs_agree(runs, tmp, label: str, loose=()) -> bool:
+    """The card's and the CPU's small chain ({"cpu"/"cuda": (files, engine
+    outputs, crop scale)}): the engine's outputs under check_small_engine's
+    gates; the files key by key (list lengths equal, the clock and Re-ID's
+    random ids apart; strings under the keys ``loose``, text rendered from
+    the numbers, by their keys only), their numbers within 1e-4 times the
+    crop's scale to the engine's frame (pixel coordinates are the outputs'
+    times it), a sam3 file only where the masks are equal bit for bit."""
     (cpu, cpu_out, scale), (gpu, gpu_out, _) = runs["cpu"], runs["cuda"]
     ok = list(cpu) == list(gpu) and len(cpu) >= len(CHAIN_FILES) + 1
     out_err, masks = 0.0, 1.0
@@ -3060,37 +3134,21 @@ def check_small_chain(tmp, big_src=None) -> bool:
             if isinstance(x, float):
                 if abs(x - y) > worst:
                     worst, where = abs(x - y), f"{name}{key}"
+            elif key.rsplit(".", 1)[-1] in loose:
+                ok &= type(x) is type(y)
             elif not (isinstance(x, str) and x.startswith(str(tmp))):
                 ok &= x == y
     ok &= worst <= 1e-4 * scale
     quality = cpu["quality_reports/small_quality.json"]
-    log(f"  small chain: status {quality['status']}, window "
+    log(f"  {label}: status {quality['status']}, window "
         f"{quality['selected_window'] and quality['selected_window']['start_frame']}"
         f", {quality['walking_passes_detected']} passes; the crop {scale:.3f}"
         f"x the engine's frame")
-    log(f"  small chain card vs CPU: engine outputs max_abs_err "
+    log(f"  {label} card vs CPU: engine outputs max_abs_err "
         f"{out_err:.3e}, mask agreement {masks:.5f}; {len(cpu)} files, "
         f"{compared} compared key by key, max_abs_err {worst:.3e} ({where};"
         f" gate {1e-4 * scale:.3e})  {'ok' if ok else 'FAIL'}")
-    masks_ok = True
-    clips = [(src, None)]
-    if big_src is not None:
-        clips.append((big_src, MOG2_FRAMES))
-    for path, span in clips:
-        with VideoReader(path, device="cuda") as vr:
-            frames = vr.read_sampled()[0]
-        if span:
-            frames = frames[span[0]:span[1]]
-        bgr = torch.from_numpy(np.ascontiguousarray(frames[..., ::-1]))
-        got = {dev: MotionDetector(device=dev).masks(bgr.to(dev)).cpu()
-               for dev in ("cpu", "cuda")}
-        equal = torch.equal(got["cpu"], got["cuda"])
-        masks_ok &= equal
-        log(f"  MOG2 masks card vs CPU, {len(frames)} frames of "
-            f"{frames.shape[2]}x{frames.shape[1]}: equal {equal} (foreground "
-            f"{float((got['cpu'] > 0).float().mean()):.4f})  "
-            f"{'ok' if equal else 'FAIL'}")
-    return ok and masks_ok
+    return ok
 
 
 def upload_phase(tmp) -> tuple:
@@ -3729,6 +3787,534 @@ def training_in_fresh_process() -> bool:
     return res.returncode == 0
 
 
+# ---------------------------------------------------------------------------
+# phase 10
+# ---------------------------------------------------------------------------
+# the platform: LamenessApp with its admin API and SPA on the card, spoken
+# to over HTTP with urllib (the card's machine has no httpx).  The admin's
+# password is set before the app seeds its accounts; the raters of (b) are
+# made through the API.  (d) runs APP_UPLOADS uploads of APP_FRAMES frames
+# through an app batching APP_BATCH clips an engine call.
+APP_BATCH, APP_UPLOADS, APP_FRAMES = 4, 8, 125
+ADMIN_PASSWORD = "phase-10-admin"
+UUID_RE = re.compile(r"^[0-9a-f]{8}-[0-9a-f]{4}-[0-9a-f]{4}-[0-9a-f]{4}-"
+                     r"[0-9a-f]{12}$")
+# the result files of an app's analysis beside the chain's
+APP_FILES = ("shap", "explanations")
+
+
+class Api:
+    """The admin API of an app over urllib: ``call`` gives (status,
+    payload: parsed JSON or bytes, content type); ``ok`` raises unless the
+    status is 200."""
+
+    def __init__(self, port: int):
+        self.base = f"http://127.0.0.1:{port}"
+        self.token = None
+
+    def call(self, method, path, body=None, raw=None, token=None,
+             timeout=120):
+        import urllib.error
+        import urllib.request
+        headers, data = {}, None
+        if raw is not None:
+            data = raw
+            headers["Content-Type"] = "application/octet-stream"
+        elif body is not None:
+            data = json.dumps(body).encode()
+            headers["Content-Type"] = "application/json"
+        if token or self.token:
+            headers["Authorization"] = f"Bearer {token or self.token}"
+        req = urllib.request.Request(self.base + path, data=data,
+                                     headers=headers, method=method)
+        try:
+            with urllib.request.urlopen(req, timeout=timeout) as r:
+                status, ctype, out = r.status, r.headers["Content-Type"], \
+                    r.read()
+        except urllib.error.HTTPError as e:
+            status, ctype, out = e.code, e.headers["Content-Type"], e.read()
+        if ctype and "json" in ctype:
+            out = json.loads(out)
+        return status, out, ctype
+
+    def ok(self, method, path, **kw):
+        status, out, _ = self.call(method, path, **kw)
+        if status != 200:
+            raise RuntimeError(f"{method} {path}: HTTP {status} {out!r:.300}")
+        return out
+
+    def login(self, user: str, password: str) -> str:
+        return self.ok("POST", "/api/auth/login", body={
+            "username": user, "password": password})["access_token"]
+
+
+def platform_app(root, eng, **kw):
+    """A ``LamenessApp`` on ``root`` with ``eng``; its admin seeded with
+    ADMIN_PASSWORD first (the app seeds the other accounts)."""
+    from datetime import datetime, timezone
+    from pathlib import Path
+    from lameness_tpu_torch.core.config import Config, DataDirs
+    from lameness_tpu_torch.io.db import open_database
+    from lameness_tpu_torch.serve.app import LamenessApp
+    from lameness_tpu_torch.serve.http import hash_password
+    cfg = Config(dirs=DataDirs(root=str(root)))
+    cfg.dirs.ensure()
+    open_database(Path(root) / "lameness.db").insert("users", {
+        "email": "admin@lameness.local", "username": "admin",
+        "password_hash": hash_password(ADMIN_PASSWORD), "role": "admin",
+        "is_active": 1, "created_at": datetime.now(timezone.utc).isoformat()})
+    return LamenessApp(config=cfg, engine=eng, reactive=True, **kw)
+
+
+def placeholders(obj, root, vid):
+    """``obj`` without its VOLATILE_KEYS, and in its strings the run's data
+    root, its video id and random ids (uuid4) by placeholders."""
+    if isinstance(obj, dict):
+        return {k: placeholders(v, root, vid) for k, v in obj.items()
+                if k not in VOLATILE_KEYS}
+    if isinstance(obj, list):
+        return [placeholders(v, root, vid) for v in obj]
+    if isinstance(obj, str):
+        obj = obj.replace(str(root), "ROOT").replace(vid, "VID")
+        return "UUID" if UUID_RE.match(obj) else obj
+    return obj
+
+
+def same_files(a, b, tol: float = 1e-4, kinds=CHAIN_FILES):
+    """Two runs' chain files, ``(root, video id, {kind: JSON})`` each, key
+    by key through ``json_diff`` once ``placeholders`` has named each run's
+    root and id alike: the same keys and other leaves, floats within
+    ``tol``.  Returns (ok, max |diff|, the kinds equal bit for bit)."""
+    (ra, va, fa), (rb, vb, fb) = a, b
+    ok, worst, equal = True, 0.0, []
+    for kind in kinds:
+        if fa[kind] is None or fb[kind] is None:
+            ok = False
+            continue
+        err, same = json_diff(placeholders(fb[kind], rb, vb),
+                              placeholders(fa[kind], ra, va))
+        worst = max(worst, err)
+        ok &= same and err <= tol
+        if same and err == 0:
+            equal.append(kind)
+    return ok, worst, equal
+
+
+def reset_counts():
+    import torch
+    from lameness_tpu_torch.ops._cuda import KERNELS
+    torch.cuda.synchronize()
+    for k in KERNELS.values():
+        k.launches = 0
+
+
+def read_counts() -> dict:
+    import torch
+    from lameness_tpu_torch.ops._cuda import KERNELS
+    torch.cuda.synchronize()
+    return {name: k.launches for name, k in KERNELS.items()}
+
+
+def api_upload(eng, tmp, src) -> tuple:
+    """10a: the upload through the app's API against ``process_video_file``
+    of the same upload, under the same video id, on the same engine.
+    Returns (ok, the launch counts, the app, its API, the video id)."""
+    from pathlib import Path
+    import torch
+    from lameness_tpu_torch.core.config import Config, DataDirs
+    from lameness_tpu_torch.io import schemas
+    from lameness_tpu_torch.serve import api as api_mod
+    from lameness_tpu_torch.serve.driver import PipelineDriver
+    from lameness_tpu_torch.utils.timing import TIMERS
+    app = platform_app(f"{tmp}/app", eng, serve_api=True, api_port=0)
+    api = Api(app.server.port)
+    status, page, ctype = api.call("GET", "/")
+    spa = (Path(api_mod.__file__).parent / "static" / "index.html")
+    checks = {"GET / serves the SPA's index.html": (
+        status == 200 and page == spa.read_bytes()
+        and ctype.startswith("text/html")),
+        "GET /static/app.js": api.call("GET", "/static/app.js")[0] == 200}
+    api.token = api.login("admin", ADMIN_PASSWORD)
+    data = src.read_bytes()
+    TIMERS.reset()
+    reset_counts()
+    t0 = time.perf_counter()
+    vid = api.ok("POST", "/api/videos/upload?filename=walk.y4m", raw=data,
+                 timeout=600)["video_id"]
+    job = None
+    while time.perf_counter() - t0 < 300:
+        jobs = api.ok("GET", "/api/training/queue")["jobs"]
+        job = next((j for j in jobs if j["video_id"] == vid), None)
+        if job and job["status"] != "processing":
+            break
+        time.sleep(0.2)
+    launches = read_counts()
+    wall = time.perf_counter() - t0
+    stages = {**app.driver.curator.timers.summary(), **TIMERS.summary()}
+    video = api.ok("GET", f"/api/videos/{vid}")
+    analysis = api.ok("GET", f"/api/analysis/{vid}")
+    # the reference: process_video_file of the same upload under the same
+    # id (the graph heads' MC-dropout draws are seeded from the id)
+    drv = PipelineDriver(config=Config(dirs=DataDirs(root=f"{tmp}/ref")),
+                         engine=eng)
+    drv.process_video_file(src, vid)
+    drv.bus.shutdown()
+    root = Path(app.dirs.root)
+    files = chain_files(root, vid)
+    invalid = [k for k, v in files.items()
+               if v is None or schemas.validate(k, v)]
+    shap = root / "results" / "shap" / f"{vid}_shap.json"
+    expl = root / "results" / "explanations" / f"{vid}_explanation.json"
+    same, worst, equal = same_files((f"{tmp}/ref", vid,
+                                     chain_files(f"{tmp}/ref", vid)),
+                                    (root, vid, files))
+    fusion = files["fusion"] or {}
+    cow = fusion.get("cow_id")
+    records = app.db.lameness_history(cow) if cow else []
+    checks.update({
+        "the job completed": bool(job) and job["status"] == "completed",
+        "the video has its analysis": bool(video.get("has_analysis"))
+        and "final_probability" in analysis["fusion"]
+        and set(RESULT_KINDS) <= set(analysis["pipelines"]),
+        "every result file written and valid": not invalid,
+        "the SHAP and LLM files": shap.exists() and expl.exists()
+        and json.loads(expl.read_text())["provider"] == "local_template",
+        f"Re-ID named a cow ({cow}) and the app recorded its lameness":
+        len(records) == 1
+        and abs(records[0]["fusion_score"] - fusion["fusion_result"]
+                ["final_probability"]) < 1e-12,
+        "the files equal process_video_file's (1e-4)": same,
+        "K1-K3 at the default engine's counts": expect_launches(
+            launches, BASE_LAUNCHES)})
+    log("platform upload record " + json.dumps({
+        "upload_bytes": len(data), "upload_to_fusion_s": wall,
+        "stage_s": {k: stages[k]["last_s"] if stages[k]["count"] == 1
+                    else stages[k]["mean_s"] * stages[k]["count"]
+                    for k in UPLOAD_TIMERS if k in stages},
+        "cow_named_by_reid": fusion.get("cow_id"),
+        "files_bit_for_bit": equal, "max_abs_diff_vs_driver": worst,
+        "launches": {k: v for k, v in launches.items() if v},
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9}))
+    ok = True
+    for what, good in checks.items():
+        log(f"  10a {what}  {'ok' if good else 'FAIL'}")
+        ok &= good
+    return ok, launches, app, api, vid
+
+
+def api_hitl(app, api, vid) -> bool:
+    """10b: two raters' pairwise and triplet comparisons through the API;
+    the rater-reliability and Elo/hierarchy endpoints after them; the SHAP
+    what-if of the analysed video."""
+    from datetime import datetime, timezone
+    now = datetime.now(timezone.utc).isoformat()
+    others = ["p10-b", "p10-c"]
+    for o in others:
+        app.db.insert("videos", {"id": o, "filename": f"{o}.y4m",
+                                 "file_size": 0, "status": "uploaded",
+                                 "uploaded_at": now})
+    tokens = {}
+    for name, tier in (("rater1", "gold"), ("rater2", "silver")):
+        api.ok("POST", "/api/auth/users", body={
+            "username": name, "password": name + "-pw", "role": "rater",
+            "rater_tier": tier})
+        tokens[name] = api.login(name, name + "-pw")
+    pairs = [(vid, others[0], 1), (others[0], others[1], 2),
+             (vid, others[1], 1)]
+    for name, tok in tokens.items():
+        for a, b, w in pairs:
+            api.ok("POST", "/api/elo/comparison", token=tok, body={
+                "video_id_1": a, "video_id_2": b, "winner": w, "degree": 2})
+            api.ok("POST", "/api/training/pairwise", token=tok, body={
+                "video_id_1": a, "video_id_2": b, "winner": w, "degree": 2,
+                "confidence": "confident"})
+        api.ok("POST", "/api/training/triplet/submit", token=tok, body={
+            "reference_id": vid, "comparison_a_id": others[0],
+            "comparison_b_id": others[1], "selected_answer": "A",
+            "task_type": "similarity"})
+    progress = {n: api.ok("GET", "/api/training/learn/progress", token=t)
+                for n, t in tokens.items()}
+    hierarchy = api.ok("GET", "/api/elo/hierarchy")
+    stats = api.ok("GET", "/api/elo/stats")
+    triplets = api.ok("GET", "/api/training/triplet/stats")
+    whatif = api.ok("POST", f"/api/shap/{vid}/what-if",
+                    body={"feature_index": 0, "values": [0.0, 0.5, 1.0],
+                          "modifications": {}})
+    ranked = {r["video_id"]: r for r in hierarchy["ranking"]}
+    checks = {
+        "each rater's comparisons and reliability stats": all(
+            p["comparisons"] == 2 * len(pairs)
+            and p["gold_accuracy"] is not None for p in progress.values()),
+        "the reliability service holds both raters": {
+            "rater1", "rater2"} <= set(app.reliability.rater_stats),
+        "the hierarchy ranks the three videos": set(ranked) == {vid, *others}
+        and hierarchy["total_comparisons"] == 4 * len(pairs)
+        and ranked[vid]["elo_rating"] > 1500,
+        "the Elo stats count them": stats["total_comparisons"]
+        == 4 * len(pairs),
+        "the triplets": triplets["total_triplets"] == 2,
+        "the what-if answers": {"original_prediction",
+                                "modified_prediction"} <= set(whatif)}
+    log("platform hitl record " + json.dumps({
+        "ranking": [(r["video_id"][:8], r["elo_rating"], r["rank"])
+                    for r in hierarchy["ranking"]],
+        "steepness": hierarchy["steepness"],
+        "inter_rater_reliability": hierarchy["inter_rater_reliability"],
+        "raters": {n: {k: p[k] for k in ("comparisons", "tier",
+                                         "gold_accuracy")}
+                   for n, p in progress.items()},
+        "what_if": {k: whatif[k] for k in ("original_prediction",
+                                           "modified_prediction")}}))
+    ok = True
+    for what, good in checks.items():
+        log(f"  10b {what}  {'ok' if good else 'FAIL'}")
+        ok &= good
+    return ok
+
+
+def api_annotation(app, api, vid, tmp) -> bool:
+    """10c: the render endpoint on the card; its frames against a
+    ``device="cpu"`` render of the same inputs."""
+    from pathlib import Path
+    from lameness_tpu_torch.serve.annotation import AnnotationRenderer
+    from lameness_tpu_torch.video.decode import VideoReader
+    crop = Path(app.dirs.processed) / f"{vid}_cropped.y4m"
+    with VideoReader(crop, device="cuda") as vr:
+        n = vr.info["total_frames"]
+        size = (vr.info["width"], vr.info["height"])
+    t0 = time.perf_counter()
+    st = api.ok("POST", f"/api/videos/{vid}/annotate")
+    card_s = time.perf_counter() - t0
+    out = Path(st["output"])
+    cpu = AnnotationRenderer(app.dirs, device="cpu")
+    cpu.out_dir = Path(tmp) / "annotated_cpu"
+    cpu.out_dir.mkdir()
+    t0 = time.perf_counter()
+    ref = cpu.render(vid)
+    cpu_s = time.perf_counter() - t0
+    a = np.frombuffer(out.read_bytes(), np.uint8)
+    b = np.frombuffer(ref.read_bytes(), np.uint8)
+    diff = int(np.abs(a.astype(np.int16) - b).max()) if a.shape == b.shape \
+        else None
+    status, body, ctype = api.call("GET", f"/api/videos/{vid}/annotated")
+    checks = {
+        "an annotated .y4m with the crop's frame count": (
+            out.name == f"{vid}_annotated.y4m" and st["frames"] == n),
+        "the annotated route streams it": status == 200
+        and ctype == "video/x-yuv4mpeg" and len(body) == out.stat().st_size,
+        "the card's frames within 1 of the CPU's": diff is not None
+        and diff <= 1}
+    log("platform annotation record " + json.dumps({
+        "frames": n, "size": size, "card_ms_a_frame": card_s * 1e3 / n,
+        "cpu_ms_a_frame": cpu_s * 1e3 / n, "max_abs_diff": diff,
+        "bytes": out.stat().st_size}))
+    ok = True
+    for what, good in checks.items():
+        log(f"  10c {what}  {'ok' if good else 'FAIL'}")
+        ok &= good
+    return ok
+
+
+def wait_batcher(app, clips: int, timeout_s: float = 300) -> None:
+    """Until ``app``'s batcher has run ``clips`` clips (it counts a batch
+    once its stream has returned, after the batch's fusion files)."""
+    deadline = time.perf_counter() + timeout_s
+    while app._batcher.clips_run < clips and time.perf_counter() < deadline:
+        time.sleep(0.02)
+
+
+def app_batcher(eng, tmp) -> bool:
+    """10d: APP_UPLOADS uploads of phase 6's walking cow through an app
+    batching APP_BATCH clips an engine call.  Each upload is curated and
+    cropped in the submitting thread, as in 10a; the crops then reach the
+    batcher back to back, as they do when uploads come in faster than they
+    are curated, and it must group them into APP_UPLOADS / APP_BATCH engine
+    calls.  Each clip's files against its crop run alone through a second
+    such app (the clip padded to APP_BATCH by repeats): all of them for
+    the clips in row 0 of their batch, and for the others those that read
+    no MC-dropout draw (the draws follow the row)."""
+    import torch
+    vids = [f"c{i}" for i in range(APP_UPLOADS)]
+    srcs = [upload_clip(f"{tmp}/{v}", APP_FRAMES, COW_FRAMES)[0]
+            for v in vids]
+    app = platform_app(f"{tmp}/batch", eng, clip_batch=APP_BATCH)
+    alone = platform_app(f"{tmp}/alone", eng, clip_batch=APP_BATCH)
+    try:
+        held = []
+        app._batcher.submit = lambda vid, path: held.append((vid, path))
+        t0 = time.perf_counter()
+        for vid, src in zip(vids, srcs):
+            app.submit_video(src, vid)
+        curate_s = time.perf_counter() - t0
+        del app._batcher.submit
+        reset_counts()
+        t1 = time.perf_counter()
+        for job in held:
+            app._batcher.submit(*job)
+        done = [app.wait_for_analysis(v, timeout_s=300) for v in vids]
+        wall = time.perf_counter() - t1
+        wait_batcher(app, APP_UPLOADS)
+        launches = read_counts()
+        batches, clips = app._batcher.batches_run, app._batcher.clips_run
+        jobs = app.db.query("SELECT status FROM processing_jobs")
+        for i, job in enumerate(held):
+            alone._batcher.submit(*job)
+            wait_batcher(alone, i + 1)
+        alone_batches = alone._batcher.batches_run
+    finally:
+        app.close()
+        alone.close()
+    for src in srcs:
+        src.unlink()
+    fixed = tuple(k for k in CHAIN_FILES if k not in
+                  ("tcn", "transformer", "ml", "fusion"))
+    vs_alone, worst, equal = True, 0.0, {}
+    for i, v in enumerate(vids):
+        good, err, same = same_files(
+            (f"{tmp}/alone", v, chain_files(f"{tmp}/alone", v)),
+            (f"{tmp}/batch", v, chain_files(f"{tmp}/batch", v)),
+            kinds=CHAIN_FILES if i % APP_BATCH == 0 else fixed)
+        vs_alone &= good
+        worst = max(worst, err)
+        equal[v] = len(same)
+    checks = {
+        "every upload analysed": all(done) and clips == APP_UPLOADS,
+        "every job completed": [j["status"] for j in jobs]
+        == ["completed"] * APP_UPLOADS,
+        f"the crops grouped into {APP_UPLOADS // APP_BATCH} engine calls":
+        batches == APP_UPLOADS // APP_BATCH,
+        "K1-K3 at those calls' counts": expect_launches(
+            launches, {k: v * APP_UPLOADS // APP_BATCH
+                       for k, v in BASE_LAUNCHES.items()}),
+        "each clip's files equal its run alone (1e-4)": vs_alone
+        and alone_batches == APP_UPLOADS}
+    log("platform batcher record " + json.dumps({
+        "uploads": APP_UPLOADS, "frames": APP_FRAMES, "max_batch": APP_BATCH,
+        "engine_calls": batches, "curate_s": curate_s, "wall_s": wall,
+        "app_clips_s": APP_UPLOADS / wall,
+        "upload_to_fusion_clips_s": APP_UPLOADS / (curate_s + wall),
+        "stream_clips_s_at_4": STREAM_RATES.get(4),
+        "launches": {k: v for k, v in launches.items() if v},
+        "kinds_bit_for_bit_vs_alone": equal,
+        "max_abs_diff_vs_alone": worst,
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9}))
+    ok = True
+    for what, good in checks.items():
+        log(f"  10d {what}  {'ok' if good else 'FAIL'}")
+        ok &= good
+    return ok
+
+
+def app_resume(eng, tmp, vid) -> bool:
+    """10e: 10a's job put back to 'processing', its fusion file gone and
+    its crop present, resumed by a new app as the ``resume`` subcommand
+    does."""
+    from pathlib import Path
+    from lameness_tpu_torch.core.config import Config, DataDirs
+    from lameness_tpu_torch.serve.app import LamenessApp
+    cfg = Config(dirs=DataDirs(root=f"{tmp}/app"))
+    fusion = cfg.dirs.results_for("fusion") / f"{vid}_fusion.json"
+    fusion.unlink()
+    app = LamenessApp(config=cfg, engine=eng, reactive=True)
+    try:
+        job = app.db.one("SELECT job_id FROM processing_jobs WHERE "
+                         "video_id=?", (vid,))
+        app.db.update("processing_jobs", job["job_id"],
+                      {"status": "processing"}, pk="job_id")
+        crop = Path(cfg.dirs.processed) / f"{vid}_cropped.y4m"
+        t0 = time.perf_counter()
+        n = app.resume_inflight_jobs()
+        wall = time.perf_counter() - t0
+        row = app.db.one("SELECT status FROM processing_jobs WHERE "
+                         "video_id=?", (vid,))
+    finally:
+        app.close()
+    good = (crop.exists() and n == 1 and fusion.exists()
+            and row["status"] == "completed")
+    log(f"  10e resumed {n} job from its crop in {wall:.2f} s: fusion "
+        f"written {fusion.exists()}, job {row['status']}  "
+        f"{'ok' if good else 'FAIL'}")
+    return good
+
+
+def small_app_chain(dev, root, src):
+    """The tiny engine's app on ``dev``: the upload through
+    ``submit_video`` (the motion fallback).  Returns small_chain's
+    triple."""
+    from pathlib import Path
+    from lameness_tpu_torch.core.config import Config, DataDirs
+    from lameness_tpu_torch.serve.app import LamenessApp
+    eng = tiny_engine(dev)
+    app = LamenessApp(config=Config(dirs=DataDirs(root=str(root))),
+                      engine=eng, reactive=True)
+    app.driver.graph_runner = zero_dropout(graph_runner(root, dev))
+    outs = capture_outputs(app.driver)
+    app.submit_video(src, "small")
+    app.close()
+    x1, y1, x2, y2 = app.bus.messages_on("video.preprocessed")[0]["crop_box"]
+    scale = max(1.0, (x2 - x1) / eng.spec.frame_width,
+                (y2 - y1) / eng.spec.frame_height)
+    files = {p.relative_to(root).as_posix(): json.loads(p.read_text())
+             for p in sorted(Path(root).glob("*/**/*.json"))}
+    return files, outs, scale
+
+
+def check_small_app(tmp) -> bool:
+    """10f: the tiny app card against CPU over phase 8's small upload, its
+    result files (the SHAP and LLM ones too) key by key."""
+    u = SMALL_UPLOAD
+    src, _ = upload_clip(f"{tmp}/small", u["n"], u["cow"], h=u["h"],
+                         w=u["w"], fps=u["fps"])
+    runs = {dev: small_app_chain(dev, f"{tmp}/small_app_{dev}", src)
+            for dev in ("cpu", "cuda")}
+    names = set(runs["cuda"][0])
+    ok = all(any(f"results/{k}/" in n for n in names) for k in APP_FILES)
+    return small_runs_agree(runs, tmp, "small app",
+                            loose=("prompt", "explanation")) and ok
+
+
+def platform_phase(tmp) -> tuple:
+    """Phase 10: 10a-10f.  Returns (ok, the launch counts of 10a's upload:
+    the platform's main path, one engine call)."""
+    import torch
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    eng = default_engine()
+    rng = np.random.default_rng(SEED + 6)
+    clip, cow = walking_clip(rng, eng.spec)       # phase 6's calibration
+    calibrate_yolo(eng, clip, cow)
+    del clip
+    src, _ = upload_clip(f"{tmp}/upload", UPLOAD_FRAMES, UPLOAD_COW)
+    t1 = time.perf_counter()
+    launches = {}
+    ok, launches["platform, API upload"], app, api, vid = api_upload(
+        eng, tmp, src)
+    src.unlink()
+    t2 = time.perf_counter()
+    try:
+        ok &= api_hitl(app, api, vid)
+        t3 = time.perf_counter()
+        ok &= api_annotation(app, api, vid, tmp)
+    finally:
+        app.close()
+    t4 = time.perf_counter()
+    ok &= app_batcher(eng, tmp)
+    t5 = time.perf_counter()
+    ok &= app_resume(eng, tmp, vid)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    t6 = time.perf_counter()
+    log("small engine, app:")
+    ok &= check_small_app(tmp)
+    log(f"phase 10: {time.perf_counter() - t0:.1f} s (engine, calibration "
+        f"and upload {t1 - t0:.1f}, 10a {t2 - t1:.1f}, 10b {t3 - t2:.1f}, "
+        f"10c {t4 - t3:.1f}, 10d {t5 - t4:.1f}, 10e {t6 - t5:.1f}, 10f "
+        f"{time.perf_counter() - t6:.1f}); peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return ok, launches
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -3822,6 +4408,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     ok_t = training_in_fresh_process()
+    log("== phase 10: platform")
+    with tempfile.TemporaryDirectory() as tmp, switches({}):
+        ok_p, platform_launches = platform_phase(tmp)
+    launches.update(platform_launches)
     for kid, rec in records.items():
         # each kernel's count on its own path (K1 runs on every one)
         rec["launches"] = max(counts[rec["name"]]
@@ -3833,7 +4423,7 @@ def main() -> int:
     kern = {"kernels": [{k: rec[k] for k in keys}
                         for rec in records.values()]}
     if not (ok_build and ok_k and ok_small and ok_e and ok_m and ok_c
-            and ok_s and ok_a and ok_u and ok_t):
+            and ok_s and ok_a and ok_u and ok_t and ok_p):
         log("chip_smoke: FAILED")
         return 1
     log(smi)

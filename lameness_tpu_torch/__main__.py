@@ -1,18 +1,31 @@
 """``python -m lameness_tpu_torch`` (port of ``lameness_tpu/__main__.py``).
 
-  python -m lameness_tpu_torch [--data DIR] [--cpu] process VIDEO [--small]
+  python -m lameness_tpu_torch serve [--port 8000] [--data DIR] [--async]
+                                     [--small] [--no-resume] [--batch N]
+  python -m lameness_tpu_torch process VIDEO [--data DIR] [--small]
+  python -m lameness_tpu_torch resume [--data DIR] [--small]
 
-``process`` runs one video through the whole chain on the card (with
-``--cpu``, on the CPU) and prints the fusion result, as the JAX command
-prints it.  The JAX command goes through its app (``LamenessApp``), which
-is not ported: here it calls ``PipelineDriver.process_video_file``.  The
-upload is a ``.y4m`` file, or any container the ``ffmpeg`` binary decodes.
+``serve`` boots the reactive app (``serve/app.py`` ``LamenessApp``) with the
+admin API and its SPA, resumes stranded jobs and warms the engine up in the
+background; ``process`` runs one video through the app and prints the
+fusion result; ``resume`` replays the jobs a crash left ``processing``.
+The engine runs on the card (with ``--cpu``, on the CPU), in bf16 unless
+``--f32``.  An upload is a ``.y4m`` file, or any container the ``ffmpeg``
+binary decodes.
+
+Not ported yet: the NATS bridge (``--nats-url``), the ``worker``,
+``nats-server``, ``qdrant-server`` and ``pg-server`` subcommands (ROADMAP.md
+§1 item 2(d)), and the mesh (``--dp``/``--tp``, §1 item 5).  Those
+arguments raise.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import sys
+import threading
+import time
 from pathlib import Path
 
 
@@ -54,18 +67,41 @@ def ingest_spec(cfg=None):
                       pose_pixels=pose_pixels)
 
 
+def _refuse_unported(args):
+    """The NATS bridge and the mesh are not ported: their arguments raise
+    (and ``LAMENESS_DP``/``LAMENESS_TP``, which the JAX command reads in
+    their place)."""
+    if getattr(args, "nats_url", None):
+        raise SystemExit(
+            "--nats-url: the NATS bridge is not ported to lameness_tpu_torch "
+            "yet (ROADMAP.md §1 item 2(d)); serve runs on its in-process bus")
+    dp = args.dp or os.environ.get("LAMENESS_DP")
+    tp = args.tp or os.environ.get("LAMENESS_TP")
+    if dp or (tp and int(tp) > 1):
+        raise SystemExit(
+            f"--dp {dp} --tp {tp}: multi-GPU serving is not ported to "
+            f"lameness_tpu_torch yet (ROADMAP.md §1 item 5); it runs on one "
+            f"card")
+
+
 def _build(args):
     """(config, engine) of the command line: the test-geometry engine with
-    ``--small``, else the full engine at ``ingest_spec``'s geometry."""
-    from .core.config import Config
+    ``--small``, else the full engine at ``ingest_spec``'s geometry, in
+    bf16 on the card unless ``--f32``."""
+    from .core.config import ComputeConfig, Config
     from .pipeline.engine import LamenessEngine, make_test_engine
+    _refuse_unported(args)
     device = "cpu" if args.cpu else None
     cfg = Config.load(data_root=args.data) if args.data else Config()
-    if args.small:
+    if args.f32:
+        cfg = dataclasses.replace(cfg, compute=ComputeConfig(dtype="float32"))
+    if getattr(args, "small", False):
         engine = make_test_engine(device=device)
     else:
         engine = LamenessEngine(config=cfg, spec=ingest_spec(cfg),
                                 device=device)
+        if engine.precision:
+            print("precision:", engine.precision, flush=True)
     return cfg, engine
 
 
@@ -74,22 +110,80 @@ def main(argv=None) -> int:
     ap.add_argument("--data", help="data root directory")
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (the plain PyTorch path)")
+    ap.add_argument("--f32", action="store_true",
+                    help="disable the bf16 engine policy (card default: "
+                         "encoders bf16 per config.compute.dtype)")
+    ap.add_argument("--dp", default=None,
+                    help="data-parallel serving: not ported (raises)")
+    ap.add_argument("--tp", type=int, default=None,
+                    help="tensor-parallel serving: not ported (raises)")
     sub = ap.add_subparsers(dest="cmd", required=True)
+
+    s = sub.add_parser("serve", help="reactive app + admin API")
+    s.add_argument("--port", type=int, default=8000)
+    s.add_argument("--async", dest="async_dispatch", action="store_true",
+                   help="worker-pool bus dispatch")
+    s.add_argument("--small", action="store_true",
+                   help="test-geometry engine")
+    s.add_argument("--no-resume", action="store_true")
+    s.add_argument("--batch", type=int, default=1,
+                   help="group queued clips into engine batches of N")
+    s.add_argument("--nats-url", default=None,
+                   help="NATS bridge: not ported (raises)")
+
     p = sub.add_parser("process", help="one video through the pipeline")
     p.add_argument("video", type=Path)
     p.add_argument("--small", action="store_true",
                    help="test-geometry engine")
+
+    rs = sub.add_parser("resume", help="replay stranded processing jobs")
+    rs.add_argument("--small", action="store_true",
+                    help="test-geometry engine (tiny frames; for tests only "
+                         "— production resumes use the full engine)")
     args = ap.parse_args(argv)
-    if args.cmd == "process":
-        from .serve.driver import PipelineDriver
+
+    from .serve.app import LamenessApp
+    if args.cmd == "serve":
         cfg, engine = _build(args)
-        driver = PipelineDriver(config=cfg, engine=engine)
+        app = LamenessApp(config=cfg, engine=engine, reactive=True,
+                          serve_api=True, api_port=args.port,
+                          async_dispatch=args.async_dispatch,
+                          resume_inflight=not args.no_resume,
+                          clip_batch=args.batch)
+        print(f"admin UI at http://127.0.0.1:{app.server.port}", flush=True)
+        # build the kernels and run each stage once (at the batch size the
+        # batcher pads to) off the request path
+        threading.Thread(
+            target=lambda: print("warmup:", engine.warmup(
+                batch=max(1, args.batch)), flush=True),
+            daemon=True, name="engine-warmup").start()
         try:
-            fusion = driver.process_video_file(args.video)["fusion"]
+            while True:
+                time.sleep(3600)
+        except KeyboardInterrupt:
+            app.close()
+        return 0
+    if args.cmd == "process":
+        cfg, engine = _build(args)
+        app = LamenessApp(config=cfg, engine=engine, reactive=True)
+        try:
+            vid = app.submit_video(args.video)
+            result = app.wait_for_analysis(vid, timeout_s=600)
         finally:
-            driver.bus.shutdown()
-        print(fusion and fusion.get("fusion_result"))
-        return 0 if fusion else 1
+            app.close()
+        print(result and result.get("fusion_result"))
+        return 0 if result else 1
+    if args.cmd == "resume":
+        # stranded jobs replay through the same geometry serve and process
+        # use: the tiny engine would overwrite real result files
+        cfg, engine = _build(args)
+        app = LamenessApp(config=cfg, engine=engine, reactive=True)
+        try:
+            n = app.resume_inflight_jobs()
+        finally:
+            app.close()
+        print(f"resumed {n} job(s)")
+        return 0
     return 2
 
 

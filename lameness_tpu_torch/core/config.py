@@ -1,5 +1,6 @@
 """The slice of ``lameness_tpu/core/config.py`` the clip engine, the
-serving driver, curation and the graph runner read.
+serving driver, curation, the graph runner and the platform (the app, the
+admin API, the database) read.
 
 Only the fields they use, with the JAX package's defaults, and
 ``Config.load`` (the data root and the YAML overlay).  Nothing outside the
@@ -161,6 +162,26 @@ class GraphGPSConfig:
 
 
 @dataclass(frozen=True)
+class DbConfig:
+    """The database (admin-interface/backend/app/database.py:16): None is
+    the SQLite file under the data root.  A ``postgres://`` URL raises in
+    the port (``io/db.py`` ``open_database``).  ``Config.load`` honours
+    ``DATABASE_URL`` as the reference does."""
+    url: Optional[str] = None
+
+
+@dataclass(frozen=True)
+class MLConfig:
+    """The tabular ensemble and its training (training-service/app/main.py
+    :205-219, routers/ml_config.py)."""
+    n_estimators: int = 100
+    learning_rate: float = 0.1
+    max_depth: int = 6
+    cv_folds: int = 5
+    min_new_videos: int = 10
+
+
+@dataclass(frozen=True)
 class Config:
     subjects: Subjects = field(default_factory=Subjects)
     dirs: DataDirs = field(default_factory=DataDirs)
@@ -172,6 +193,8 @@ class Config:
     graphgps: GraphGPSConfig = field(default_factory=GraphGPSConfig)
     reid: ReidConfig = field(default_factory=ReidConfig)
     compute: ComputeConfig = field(default_factory=ComputeConfig)
+    ml: MLConfig = field(default_factory=MLConfig)
+    db: DbConfig = field(default_factory=DbConfig)
 
     @staticmethod
     def load(path: Optional[str] = None,
@@ -180,11 +203,14 @@ class Config:
         ``LAMENESS_DATA_ROOT``, else "data"), and optionally a YAML file in
         the reference's shared/config/config.yaml layout overlaid: YOLO's
         ``models.yolo.confidence_threshold`` and ``data.videos_dir`` (its
-        parent is the data root).  The JAX config's database URL
-        (``DATABASE_URL``) has no counterpart: the port has no database."""
+        parent is the data root).  ``DATABASE_URL``, when set, is the
+        database URL (``DbConfig.url``)."""
         if data_root is None:
             data_root = os.environ.get("LAMENESS_DATA_ROOT", "data")
         cfg = dataclasses.replace(Config(), dirs=DataDirs(root=data_root))
+        if os.environ.get("DATABASE_URL"):
+            cfg = dataclasses.replace(
+                cfg, db=DbConfig(url=os.environ["DATABASE_URL"]))
         if path and Path(path).exists():
             import yaml
             with open(path) as f:

@@ -336,7 +336,8 @@ def test_ingest_spec_matches_jax(tmp_path, monkeypatch, env):
 def test_process_subcommand(tmp_path, capsys):
     """``python -m lameness_tpu_torch --cpu --data DIR process VIDEO
     --small``: the motion fallback, the test-geometry engine, the fusion
-    result printed."""
+    result printed; through the app, as JAX's command goes, so also the
+    SHAP and LLM outputs, the completed job row and the heartbeats."""
     from lameness_tpu_torch.__main__ import main
     src = write_video(tmp_path / "walk", list(textured_walk(n=80)), 10,
                       device="cpu")
@@ -353,3 +354,18 @@ def test_process_subcommand(tmp_path, capsys):
     quality = json.loads(next((tmp_path / "data" / "quality_reports").glob(
         "*_quality.json")).read_text())
     assert quality["status"] == "success"
+    vid = fusion[0].name[:-len("_fusion.json")]
+    shap = json.loads((tmp_path / "data" / "results" / "shap"
+                       / f"{vid}_shap.json").read_text())
+    assert shap["status"] == "no_models"       # no trained ensemble here
+    expl = json.loads((tmp_path / "data" / "results" / "explanations"
+                       / f"{vid}_explanation.json").read_text())
+    assert expl["provider"] == "local_template" and expl["explanation"]
+    from lameness_tpu_torch.io.db import Database
+    db = Database(tmp_path / "data" / "lameness.db")
+    job = db.one("SELECT * FROM processing_jobs WHERE video_id=?", (vid,))
+    assert job["status"] == "completed" and job["progress"] == 1.0
+    beats = {r["service_name"] for r in db.query(
+        "SELECT service_name FROM service_heartbeats")}
+    assert {"video-preprocessing", "fused-engine", "fusion-service",
+            "xai-services"} <= beats

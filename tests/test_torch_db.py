@@ -1,0 +1,120 @@
+"""The port's database (``lameness_tpu_torch/io/db.py``) against the JAX
+package's: the same schema, and the same sequence of inserts, updates,
+heartbeats, Elo, cows, sightings and lameness records gives equal rows in
+every table, ids and timestamps apart.  ``open_database`` opens the SQLite
+file as JAX's does, and refuses a ``postgres://`` URL (the port has no wire
+driver yet); ``Config.load`` reads ``DATABASE_URL``."""
+import re
+
+import numpy as np
+import pytest
+
+from lameness_tpu.core import config as jconfig
+from lameness_tpu.io import db as jdb
+from lameness_tpu_torch.core import config as tconfig
+from lameness_tpu_torch.io import db as tdb
+
+# the wall clock; uuids and autoincrement ids are compared as placeholders
+_STAMP = re.compile(r"(_at$|_date$|^timestamp$|^last_|^first_seen$|^updated)")
+_UUID = re.compile(r"^[0-9a-f]{8}-[0-9a-f]{4}-[0-9a-f]{4}-[0-9a-f]{4}-"
+                   r"[0-9a-f]{12}$")
+
+
+def _norm(row):
+    return {k: "<uuid>" if isinstance(v, str) and _UUID.match(v) else v
+            for k, v in row.items()
+            if not _STAMP.search(k) and k not in ("id", "job_id")}
+
+
+def _rows(db, table):
+    return sorted((_norm(r) for r in db.query(f"SELECT * FROM {table}")),
+                  key=repr)
+
+
+def _script(db, rng):
+    """One seeded sequence of everything the app and the API do."""
+    db.insert("users", {"email": "a@lameness.local", "username": "a",
+                        "password_hash": "h", "role": "admin",
+                        "is_active": 1, "created_at": "t"})
+    for i in range(4):
+        db.insert("videos", {"id": f"v{i}", "filename": f"v{i}.y4m",
+                             "file_size": int(rng.integers(1000, 9000)),
+                             "status": "uploaded", "uploaded_at": "t",
+                             "fps": 25.0, "has_analysis": False})
+    db.insert("hierarchy_snapshots", {
+        "name": "s", "total_videos": 4, "total_comparisons": 1,
+        "steepness": 0.5, "ranking_data": {"v0": 1.0, "v1": [0.5, "x"]}})
+    db.update("videos", "v1", {"status": "processed", "label": 1,
+                               "has_analysis": True})
+    for i in range(3):
+        db.insert("processing_jobs", {"video_id": f"v{i}",
+                                      "status": "processing",
+                                      "started_at": "t",
+                                      "current_pipeline": "preprocess"})
+    job = db.one("SELECT job_id FROM processing_jobs WHERE video_id='v0'")
+    db.update("processing_jobs", job["job_id"],
+              {"status": "completed", "progress": 1.0}, pk="job_id")
+    for svc in ("fused-engine", "fusion-service", "fused-engine"):
+        db.upsert_heartbeat(svc, "healthy", active_jobs=int(rng.integers(3)),
+                            success_count=int(rng.integers(5)))
+    db.upsert_heartbeat("graph-heads", "degraded", error_count=2,
+                        last_error="boom")
+    for vid in ("v0", "v1", "v2"):
+        db.get_or_create_elo(vid)
+    for _ in range(6):
+        vid = f"v{int(rng.integers(3))}"
+        db.update_elo(vid, float(rng.uniform(1400, 1600)),
+                      float(rng.uniform(100, 350)),
+                      str(rng.choice(["win", "loss", "tie"])))
+    db.insert("pairwise_comparisons", {"video_id_1": "v0",
+                                       "video_id_2": "v1", "winner": 1,
+                                       "degree": 2, "confidence": "certain"})
+    for k in range(5):
+        db.record_sighting(f"COW-{k % 2:04d}", f"v{k % 3}", k,
+                           float(rng.uniform(0.7, 1)), k * 10, k * 10 + 90,
+                           float(rng.uniform(0.5, 1)))
+    db.get_or_create_cow("COW-0007")
+    for k, cow in enumerate(("COW-0000", "COW-0001", "COW-9999")):
+        p = float(rng.uniform())
+        db.add_lameness_record(
+            cow, f"v{k}", {"final_probability": p,
+                           "final_prediction": int(p > 0.5),
+                           "confidence": float(rng.uniform())},
+            {"tcn": {"probability": float(rng.uniform())},
+             "ml": {"probability": float(rng.uniform())},
+             "gnn": {"probability": 0.4}})
+    return [db.lameness_history(c) for c in ("COW-0000", "COW-0001",
+                                             "COW-9999")]
+
+
+def test_same_rows_as_jax(tmp_path):
+    j = jdb.open_database(tmp_path / "jax.db")
+    t = tdb.open_database(tmp_path / "port.db")
+    assert tdb.TABLES == jdb.TABLES
+    jh = _script(j, np.random.default_rng(0))
+    th = _script(t, np.random.default_rng(0))
+    strip = [[[_norm(r) for r in rows] for rows in h] for h in (jh, th)]
+    assert strip[1] == strip[0]
+    assert [len(h) for h in th] == [1, 1, 0]
+    for table in tdb.TABLES:
+        assert _rows(t, table) == _rows(j, table), table
+    for table in tdb.TABLES:
+        assert t._columns(table) == j._columns(table)
+
+
+def test_open_database_paths_and_postgres(tmp_path, monkeypatch):
+    mem = tdb.open_database()
+    assert mem.one("SELECT COUNT(*) AS n FROM users")["n"] == 0
+    for url in ("postgres://u:p@127.0.0.1:5432/lameness_db",
+                "postgresql://u@host/db"):
+        with pytest.raises(NotImplementedError, match=r"2\(d\)"):
+            tdb.open_database(url)
+    monkeypatch.setenv("DATABASE_URL", "postgres://u:p@h/db")
+    tc = tconfig.Config.load(data_root=str(tmp_path))
+    assert tc.db.url == jconfig.Config.load(data_root=str(tmp_path)).db.url
+    monkeypatch.delenv("DATABASE_URL")
+    assert tconfig.Config.load(data_root=str(tmp_path)).db.url is None
+    assert tconfig.Config().ml == tconfig.MLConfig()
+    for f in ("n_estimators", "learning_rate", "max_depth", "cv_folds",
+              "min_new_videos"):
+        assert getattr(tconfig.MLConfig(), f) == getattr(jconfig.MLConfig(), f)

@@ -22,7 +22,8 @@ PORT_FILES = sorted((ROOT / "lameness_tpu_torch").rglob("*.py")) + [
 def test_import_leaves_jax_out():
     """Importing the port loads no JAX, nothing of the JAX package, no
     OpenCV, and none of the libraries the card's machine lacks (optax,
-    orbax, joblib, sklearn, the boosting libraries, lap, PyYAML)."""
+    orbax, joblib, sklearn, the boosting libraries, lap, PyYAML, httpx,
+    openai, Pillow)."""
     code = ("import sys, lameness_tpu_torch.pipeline.engine, "
             "lameness_tpu_torch.pipeline.checkpoint, "
             "lameness_tpu_torch.video.yuv, lameness_tpu_torch.weights, "
@@ -47,11 +48,24 @@ def test_import_leaves_jax_out():
             "lameness_tpu_torch.pipeline.head_training, "
             "lameness_tpu_torch.pipeline.detect_training, "
             "lameness_tpu_torch.pipeline.pose_training, "
-            "lameness_tpu_torch.pipeline.graph_training; "
+            "lameness_tpu_torch.pipeline.graph_training, "
+            "lameness_tpu_torch.hitl.dawid_skene, "
+            "lameness_tpu_torch.hitl.glad, lameness_tpu_torch.hitl.elo, "
+            "lameness_tpu_torch.hitl.reliability, "
+            "lameness_tpu_torch.xai.shapley, "
+            "lameness_tpu_torch.xai.shap_service, "
+            "lameness_tpu_torch.xai.llm, lameness_tpu_torch.io.db, "
+            "lameness_tpu_torch.serve.raster, "
+            "lameness_tpu_torch.serve.annotation, "
+            "lameness_tpu_torch.serve.http, lameness_tpu_torch.serve.api, "
+            "lameness_tpu_torch.serve.batcher, "
+            "lameness_tpu_torch.serve.app; "
+            "from lameness_tpu_torch.serve import raster; "
+            "raster.font_table(); "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'lameness_tpu', "
             "'cv2', 'joblib', 'sklearn', 'catboost', 'xgboost', 'lightgbm', "
-            "'lap', 'yaml')]; "
+            "'lap', 'yaml', 'httpx', 'openai', 'PIL')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
@@ -120,3 +134,19 @@ def test_perf_md_lists_all_nine_kernels():
                        ("K9", "sam_attention.py:688")]:
         assert re.search(rf"\|\s*{kid}\s*\|[^\n]*{re.escape(where)}", text), \
             kid
+
+
+def test_port_serves_its_own_copy_of_the_spa():
+    """The port's API serves ``lameness_tpu_torch/serve/static`` (the SPA
+    beside its module), which must equal the JAX package's byte for
+    byte."""
+    jax_static = ROOT / "lameness_tpu" / "serve" / "static"
+    port_static = ROOT / "lameness_tpu_torch" / "serve" / "static"
+    assert port_static.is_dir()
+    files = sorted(p.relative_to(jax_static) for p in jax_static.rglob("*")
+                   if p.is_file())
+    assert files == sorted(p.relative_to(port_static)
+                           for p in port_static.rglob("*") if p.is_file())
+    for rel in files:
+        assert (port_static / rel).read_bytes() == \
+            (jax_static / rel).read_bytes(), rel
