@@ -139,6 +139,38 @@ Phases, each failing loudly (no exception is swallowed):
      the tiny app card against CPU, its files key by key (check_small_
      engine's gates).  Its uploads and intermediates live in a temporary
      directory, removed at the end.
+  11. the compose topology (no kernel of its own; the worker's engine runs
+     K1-K3): (a) ``python -m lameness_tpu_torch nats-server``,
+     ``qdrant-server`` (its store on the card) and ``pg-server``, each on
+     port 0, as subprocesses; (b) a ``worker`` subprocess on the card with
+     ``--warmup``, ``DATABASE_URL`` at the pg-server and phase 10's
+     calibrated YOLO restored from its models directory (so it curates
+     with YOLO, as the engine here does), driven only over the NATS
+     socket: phase 8's upload copied into its data/videos and
+     ``video.uploaded`` published from a NatsClient here; the subscriber
+     sees the pipeline subjects and ``analysis.complete``; every result
+     file valid and equal to ``process_video_file``'s of the same upload
+     on the same weights here, TF32 off in both (1e-4; which are bit for
+     bit printed); the job row read back through the port's pg client;
+     then phase 7's files of one walking video written into its data root
+     and ``pipeline.yolo`` and ``pipeline.dinov3`` published: its fusion
+     names COW-0001 and that lameness record is read back through the
+     port's pg client (the upload's YOLO curation gives ByteTrack no
+     confirmed track, so it names no cow); the worker's launch counts,
+     printed at SIGINT, K1-K3 at the default engine's; exit 0; publish to
+     ``analysis.complete`` seconds with its stage timers; (c) an app here
+     with ``reid.vector_url`` at the qdrant-server, its database on the
+     pg-server and a NatsBridge: ``make_store`` gives the REST client,
+     phase 7's walking videos of 4 cows each named its cow by Re-ID, the
+     identities counted over the wire, the lameness records read back
+     through the port's pg client, a search over the wire equal to the
+     card store's holding the same points (ids; scores 1e-6); (d)
+     costs, not gated: NATS publish to delivery at 1 and 64 KB, Qdrant
+     searches over the wire beside the in-process store at the Re-ID
+     collection's size and at 100,000 vectors of 768, a pg round trip,
+     each process's peak GB; (e) ``device_trace`` around one
+     default-engine batch names K1, K2 and K3.  Every subprocess is
+     stopped in a ``finally`` and must exit with 0.
 The line before the last is the kernel record (JSON); the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 without a CUDA device or outside the repository.
@@ -4315,7 +4347,573 @@ def platform_phase(tmp) -> tuple:
     return ok, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 11
+# ---------------------------------------------------------------------------
+# the compose topology on the card (deploy/docker-compose.yml's shape): the
+# broker, the vector server and the Postgres-wire server, and a headless
+# worker, each a ``python -m lameness_tpu_torch`` subprocess.  Each server
+# prints its URL first (with the port it bound: they start on port 0); the
+# worker prints "worker ready" and, at SIGINT, "worker stopped {...}" (its
+# launch counts since ready, its stage timers, its peak GB); the vector
+# server "qdrant-server stopped {...}" (its peak GB).
+PG_USER, PG_PASSWORD = "lameness_user", "lameness_pass"
+COMPOSE_VIDEO = "compose-upload"
+WIRE_VECTORS = 100_000     # 11d: the large collection, 768-d (307 MB)
+WIRE_REPS = 20
+SCORE_TOL = 1e-6           # a search over the wire against the store
+# 11e: the device function of each kernel's route at the default engine's
+# shapes in bf16 (K1 dino_entry's Hopper routine, K2 the window routine, K3
+# the Hopper global routine), as the trace names them
+TRACE_KERNELS = {"K1": "dino_attention_kernel",
+                 "K2": "window_attention_kernel",
+                 "K3": "hopper_global_kernel"}
+
+
+class Service:
+    """A ``python -m lameness_tpu_torch ARGV`` subprocess whose output
+    lines (stdout and stderr) a thread collects.  ``expect`` waits for a
+    line and raises if the process exits first; ``stop`` sends SIGINT and
+    returns the exit code."""
+
+    def __init__(self, name: str, argv, env=None):
+        import queue
+        import threading
+        self.name, self.lines = name, []
+        self._q = queue.Queue()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "lameness_tpu_torch", *argv],
+            cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        threading.Thread(target=self._pump, daemon=True).start()
+
+    def _pump(self):
+        for line in self.proc.stdout:
+            self._q.put(line.rstrip("\n"))
+        self._q.put(None)
+
+    def expect(self, pred, timeout_s: float) -> str:
+        import queue
+        deadline = time.perf_counter() + timeout_s
+        while True:
+            try:
+                line = self._q.get(timeout=max(0.0, deadline
+                                               - time.perf_counter()))
+            except queue.Empty:
+                raise RuntimeError(f"{self.name}: no such line in "
+                                   f"{timeout_s} s; last {self.lines[-5:]}")
+            if line is None:
+                raise RuntimeError(f"{self.name} exited (rc "
+                                   f"{self.proc.wait()}); last "
+                                   f"{self.lines[-8:]}")
+            self.lines.append(line)
+            if pred(line):
+                return line
+
+    def stop(self, timeout_s: float = 120) -> int:
+        """SIGINT, then the exit code; the rest of its output read."""
+        import signal
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGINT)
+        try:
+            self.proc.wait(timeout=timeout_s)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+        import queue
+        try:
+            while (line := self._q.get(timeout=10)) is not None:
+                self.lines.append(line)
+        except queue.Empty:
+            pass
+        return self.proc.returncode
+
+    def line_after(self, prefix: str):
+        """The JSON after ``prefix`` on the first line that starts with it,
+        or None."""
+        return next((json.loads(line[len(prefix):]) for line in self.lines
+                     if line.startswith(prefix)), None)
+
+
+def start_servers(tmp) -> dict:
+    """11a: the three servers, started together; {name: (Service, URL)}
+    with each URL from the server's first line."""
+    argv = {"nats": ["nats-server", "--port", "0"],
+            "qdrant": ["qdrant-server", "--port", "0", "--persist",
+                       f"{tmp}/vectors.json"],
+            "pg": ["pg-server", "--port", "0", "--path", f"{tmp}/db.sqlite",
+                   "--user", PG_USER, "--password", PG_PASSWORD]}
+    services = {name: Service(f"{name} server", a) for name, a in
+                argv.items()}
+    urls = {}
+    for name, svc in services.items():
+        first = svc.expect(lambda line: "://" in line, 180)
+        urls[name] = first.split()[-1].replace("***", PG_PASSWORD)
+    return services, urls
+
+
+def worker_job(eng, tmp, src, services, urls) -> tuple:
+    """11b: the worker on the card, driven over the NATS socket only, held
+    against ``process_video_file`` of the same upload on ``eng`` (the same
+    seed-0 weights and calibrated YOLO, which the worker restored from
+    ``<data>/models/yolo``); then the back half of a walking video whose
+    cow the worker names, its lameness record read from the pg-server.
+    Returns (ok, the worker's launch counts, its peak GB)."""
+    import threading
+    from datetime import datetime, timezone
+    from pathlib import Path
+    from lameness_tpu_torch.core.config import Config, DataDirs
+    from lameness_tpu_torch.io import schemas
+    from lameness_tpu_torch.io.db import open_database
+    from lameness_tpu_torch.io.nats_wire import NatsClient
+    from lameness_tpu_torch.serve.driver import PipelineDriver
+    data, vid = Path(tmp) / "data", COMPOSE_VIDEO
+    t0 = time.perf_counter()
+    worker = services["worker"] = Service(
+        "worker", ["--data", str(data), "worker", "--nats-url",
+                   urls["nats"], "--warmup"],
+        env={**os.environ, "DATABASE_URL": urls["pg"]})
+    bridge = worker.expect(lambda line: line.startswith("NATS bridge:"), 300)
+    worker.expect(lambda line: line == "worker ready", 600)
+    ready_s = time.perf_counter() - t0
+    seen = collections.defaultdict(list)
+    analysed = collections.defaultdict(threading.Event)
+    ended = threading.Event()
+    nc = NatsClient(urls["nats"], name="chip-smoke").connect(timeout_s=30)
+    try:
+        for subject in vars(Config().subjects).values():
+            if subject.startswith("pipeline.") or \
+                    subject == "analysis.complete":
+                nc.subscribe(subject, lambda m, s=subject: seen[s].append(m))
+        nc.subscribe("analysis.complete",
+                     lambda m: analysed[m.get("video_id")].set())
+        # the bus dispatches synchronously: video.preprocessed's handler
+        # runs the engine and the back half (analysis.complete goes out
+        # from inside it), and the bridge mirrors video.preprocessed itself
+        # last, once that handler has returned
+        nc.subscribe("video.preprocessed", lambda m: ended.set())
+        nc.flush(30)
+        # what PipelineDriver.ingest does: the upload into data/videos, then
+        # video.uploaded
+        dest = data / "videos" / f"{vid}.y4m"
+        shutil.copyfile(src, dest)
+        t1 = time.perf_counter()
+        nc.publish("video.uploaded", {
+            "video_id": vid, "filename": src.name, "path": str(dest),
+            "uploaded_at": datetime.now(timezone.utc).isoformat()})
+        done = analysed[vid].wait(600)
+        to_analysis = time.perf_counter() - t1
+        done &= ended.wait(300)
+        to_end = time.perf_counter() - t1
+        # the back half over the socket for a video whose cow the worker
+        # names: phase 7's result files of one walking video written into
+        # its data root, then pipeline.yolo (tracking and Re-ID) and
+        # pipeline.dinov3 (the graph heads, ML, fusion) published, as 11c
+        # does in process.  The upload's curation (YOLO, from the restored
+        # checkpoint) gives ByteTrack no confirmed track, so it names no cow
+        (walk,) = write_cow_videos(data, cows=1, per_cow=1, tracking=False)
+        t2 = time.perf_counter()
+        nc.publish("pipeline.yolo", {"video_id": walk})
+        nc.publish("pipeline.dinov3", {"video_id": walk})
+        walked = analysed[walk].wait(300)
+        walk_s = time.perf_counter() - t2
+    finally:
+        nc.close()
+    # the reference: process_video_file of the same upload under the same
+    # id on the in-process engine (TF32 off here, as in the worker)
+    reset_counts()
+    drv = PipelineDriver(config=Config(dirs=DataDirs(root=f"{tmp}/ref")),
+                         engine=eng)
+    drv.process_video_file(src, vid)
+    ref_launches = read_counts()
+    drv.bus.shutdown()
+    ref_pipeline = {m["subject"] for m in drv.bus.history
+                    if m["subject"].startswith("pipeline.")}
+    seen_pipeline = {s for s, ms in seen.items() if s.startswith("pipeline.")
+                     and any(m.get("video_id") == vid for m in ms)}
+    files = chain_files(data, vid)
+    invalid = [k for k, v in files.items()
+               if v is None or schemas.validate(k, v)]
+    same, worst, equal = same_files(
+        (f"{tmp}/ref", vid, chain_files(f"{tmp}/ref", vid)),
+        (data, vid, files))
+    if not same:                      # the first leaves of each kind apart
+        ref = chain_files(f"{tmp}/ref", vid)
+        apart = {}
+        for k in CHAIN_FILES:
+            got = dict(json_leaves(files[k] or {}))
+            apart[k] = [(key, x, got.get(key)) for key, x in
+                        json_leaves(ref[k] or {}) if got.get(key) != x][:3]
+        log("  11b differing leaves " + json.dumps(apart, default=str))
+    cow = (files["fusion"] or {}).get("cow_id")
+    fusion = json.loads((data / "results" / "fusion"
+                         / f"{walk}_fusion.json").read_text()) if walked \
+        else {}
+    walk_cow = fusion.get("cow_id")
+    # the job row and the walking video's lameness record, read back from
+    # the pg-server through the port's client
+    t3 = time.perf_counter()
+    db = open_database(urls["pg"])
+    job = db.one("SELECT status FROM processing_jobs WHERE video_id=?",
+                 (vid,))
+    read_s = time.perf_counter() - t3
+    records = [r for r in db.lameness_history(walk_cow or "")
+               if r["video_id"] == walk]
+    record_ok = walk_cow == "COW-0001" and len(records) == 1 and abs(
+        records[0]["fusion_score"]
+        - fusion["fusion_result"]["final_probability"]) < 1e-12
+    rc = worker.stop()
+    stop = worker.line_after("worker stopped ") or {
+        "launches": {}, "timers": {}, "peak_gb": None}
+    launches, timers = stop["launches"], stop["timers"]
+    checks = {
+        f"the worker joined the broker ({bridge})": bridge.endswith(
+            "connected"),
+        "analysis.complete and the job's last message seen": done,
+        f"the subscriber saw the reference's pipeline.* "
+        f"({len(seen_pipeline)}) and analysis.complete once":
+        seen_pipeline == ref_pipeline
+        and sum(m.get("video_id") == vid
+                for m in seen["analysis.complete"]) == 1,
+        "every result file written and valid": not invalid,
+        "the SHAP and LLM files": all(any(
+            (data / "results" / k).glob(f"{vid}_*.json")) for k in APP_FILES),
+        "the files equal process_video_file's (1e-4)": same,
+        "the job row, read from the pg-server, completed": bool(job)
+        and job["status"] == "completed",
+        f"the walking video's fusion names its cow ({walk_cow}), its "
+        f"lameness record read from the pg-server ({len(records)})":
+        record_ok,
+        "the reference's K1-K3 at the default engine's counts":
+        expect_launches(ref_launches, BASE_LAUNCHES),
+        "the worker's K1-K3 at the default engine's counts":
+        expect_launches(launches, BASE_LAUNCHES),
+        "the worker exited with 0": rc == 0}
+    log("compose worker record " + json.dumps({
+        "ready_s": ready_s, "publish_to_analysis_complete_s": to_analysis,
+        "publish_to_last_message_s": to_end,
+        "stage_s": {k: timers[k]["last_s"] if timers[k]["count"] == 1
+                    else timers[k]["mean_s"] * timers[k]["count"]
+                    for k in UPLOAD_TIMERS if k in timers},
+        "messages_seen": {s: len(m) for s, m in sorted(seen.items()) if m},
+        "cow_named_by_reid": cow, "files_bit_for_bit": equal,
+        "walking_video": {"cow": walk_cow, "records": len(records),
+                          "publish_to_analysis_complete_s": walk_s},
+        "max_abs_diff_vs_driver": worst, "pg_readback_s": read_s,
+        "launches": {k: v for k, v in launches.items() if v},
+        "worker_peak_gb": stop["peak_gb"], "worker_rc": rc}))
+    ok = True
+    for what, good in checks.items():
+        log(f"  11b {what}  {'ok' if good else 'FAIL'}")
+        ok &= good
+    return ok, launches, stop["peak_gb"]
+
+
+def reid_over_wire(eng, tmp, urls) -> bool:
+    """11c: an in-process app on the card whose store is the qdrant-server
+    (``reid.vector_url``), whose database is the pg-server (``db.url``, as
+    ``DATABASE_URL`` sets it) and whose bus is bridged to the broker, over
+    phase 7's walking videos of WALK_COWS cows: Re-ID names each video's
+    cow as phase 7's in-process store does, the identities land on the
+    server, the lameness records read back from the pg-server through the
+    port's pg client, and a search over the wire equals the
+    card store's holding the same points."""
+    from lameness_tpu_torch.core.config import Config, DataDirs, DbConfig
+    from lameness_tpu_torch.io.db import open_database
+    from lameness_tpu_torch.io.bus import NatsBridge
+    from lameness_tpu_torch.io.nats_wire import NatsClient
+    from lameness_tpu_torch.io.qdrant_wire import QdrantRestStore
+    from lameness_tpu_torch.io.vecstore import VectorStore, _Collection
+    from lameness_tpu_torch.serve.app import LamenessApp
+    from lameness_tpu_torch.track.reid import COLLECTION_NAME
+    root = f"{tmp}/reid"
+    vids = write_cow_videos(root, cows=WALK_COWS, per_cow=VIDEOS_PER_COW,
+                            tracking=False)
+    base = Config()
+    cfg = Config(dirs=DataDirs(root=root), db=DbConfig(url=urls["pg"]),
+                 reid=dataclasses.replace(base.reid,
+                                          vector_url=urls["qdrant"]))
+    app = LamenessApp(config=cfg, engine=eng, reactive=True)
+    remote = isinstance(app.store, QdrantRestStore)
+    subjects = [v for v in vars(cfg.subjects).values() if isinstance(v, str)]
+    bridge = NatsBridge(app.bus, urls["nats"], subjects=subjects)
+    nc = NatsClient(urls["nats"], name="chip-smoke").connect(timeout_s=30)
+    complete = []
+    try:
+        nc.subscribe("analysis.complete", complete.append)
+        nc.flush(30)
+        joined = bridge.start()
+        t0 = time.perf_counter()
+        for vid in vids:
+            app.bus.publish_sync(cfg.subjects.pipeline_yolo,
+                                 {"video_id": vid})
+            app.bus.publish_sync(cfg.subjects.pipeline_dinov3,
+                                 {"video_id": vid})
+        wall = time.perf_counter() - t0
+        bridge.flush(30)
+        nc.flush(30)
+    finally:
+        bridge.stop()
+        nc.close()
+        app.close()
+    errors = app.bus.errors
+
+    def reid(vid):
+        path = app.dirs.results_for("tracking") / f"{vid}_tracking.json"
+        return [r["cow_id"] for r in json.loads(path.read_text())[
+            "reid_results"]] if path.exists() else []
+    named = sum(reid(v)[:1] == [f"COW-{int(v[3:5]) + 1:04d}"] for v in vids)
+    # the lameness records, read back from the pg-server: one for each
+    # video whose fusion file names a cow.  FusionService reads the video ->
+    # cow map of the tracking files once, at its first use (both packages),
+    # so in one app only the first video's fusion names its cow
+    db = open_database(urls["pg"])
+    recorded = {r["video_id"]: (f"COW-{c + 1:04d}", r["fusion_score"])
+                for c in range(WALK_COWS)
+                for r in db.lameness_history(f"COW-{c + 1:04d}")}
+    fused = {}
+    for v in vids:
+        f = json.loads((app.dirs.results_for("fusion")
+                        / f"{v}_fusion.json").read_text())
+        if f.get("cow_id"):
+            fused[v] = (f["cow_id"], f["fusion_result"]["final_probability"])
+    records_ok = bool(fused) and sorted(recorded) == sorted(fused) and all(
+        recorded[v][0] == fused[v][0]
+        and abs(recorded[v][1] - fused[v][1]) < 1e-12 for v in fused)
+    client = QdrantRestStore(urls["qdrant"], timeout_s=30)
+    n_remote = client.count(COLLECTION_NAME)
+    # the same points in a card store: a search over the wire against it
+    pts = client.export_collection(COLLECTION_NAME)
+    local = VectorStore(device="cuda")
+    local._collections[COLLECTION_NAME] = _Collection(
+        dim=pts["vectors"].shape[1], ids=pts["ids"], vectors=pts["vectors"],
+        payloads=pts["payloads"])
+    rng = np.random.default_rng(SEED + 11)
+    queries = list(pts["vectors"]) + list(rng.standard_normal(
+        (8, pts["vectors"].shape[1])))
+    same_ids, worst = True, 0.0
+    for q in queries:
+        got = client.search(COLLECTION_NAME, q, top_k=len(pts["ids"]))
+        want = local.search(COLLECTION_NAME, q, top_k=len(pts["ids"]),
+                            use_device=True)
+        same_ids &= [h.id for h in got] == [h.id for h in want]
+        worst = max(worst, max(abs(a.score - b.score)
+                               for a, b in zip(got, want)))
+    checks = {
+        "make_store gave a QdrantRestStore": remote,
+        "the bridge joined the broker": joined,
+        f"Re-ID named each video's cow ({named}/{len(vids)})":
+        named == len(vids),
+        f"the identities on the server ({n_remote}, counted over the wire)":
+        n_remote == WALK_COWS,
+        f"analysis.complete of every video on the socket "
+        f"({len(complete)})": len(complete) == len(vids),
+        f"the lameness records read back from the pg-server, one for each "
+        f"fusion file naming a cow ({len(recorded)}/{len(fused)})":
+        records_ok,
+        f"a search over the wire = the card store's (ids; scores within "
+        f"{SCORE_TOL:g}: {worst:.3g})": same_ids and worst <= SCORE_TOL,
+        "no handler failed": not errors}
+    log("compose reid record " + json.dumps({
+        "clips": len(vids), "wall_s": wall, "clips_s": len(vids) / wall,
+        "named": named, "fusion_named_a_cow": len(fused),
+        "records_on_pg_server": len(recorded),
+        "identities_on_server": n_remote,
+        "max_score_diff": worst, "bus_errors": errors[:3]}))
+    ok = True
+    for what, good in checks.items():
+        log(f"  11c {what}  {'ok' if good else 'FAIL'}")
+        ok &= good
+    return ok
+
+
+def median_ms(fn, reps: int = WIRE_REPS) -> float:
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ts))
+
+
+def wire_costs(urls) -> dict:
+    """11d (measured, not gated): NATS publish to delivery at 1 KB and 64
+    KB; a Qdrant search over the wire beside the in-process card store's,
+    at the Re-ID collection's size (the qdrant-server) and at WIRE_VECTORS
+    of 768 (a QdrantRestServer in this process over a card store filled
+    in bulk; its first search copies the collection to the card); a pg
+    query's round trip.  Host clocks, medians of WIRE_REPS."""
+    import threading
+    import torch
+    from lameness_tpu_torch.io import pg_wire
+    from lameness_tpu_torch.io.nats_wire import NatsClient
+    from lameness_tpu_torch.io.qdrant_wire import (QdrantRestServer,
+                                                   QdrantRestStore)
+    from lameness_tpu_torch.io.vecstore import (VectorStore, _Collection,
+                                                _normalize)
+    from lameness_tpu_torch.track.reid import COLLECTION_NAME
+    out = {}
+    a = NatsClient(urls["nats"], name="probe-a").connect(timeout_s=30)
+    b = NatsClient(urls["nats"], name="probe-b").connect(timeout_s=30)
+    try:
+        got = threading.Event()
+        b.subscribe("cost.probe", lambda m: got.set())
+        b.flush(30)
+        for size in (1024, 65536):
+            msg = {"p": "x" * (size - 9)}         # size bytes of JSON
+
+            def one():
+                got.clear()
+                a.publish("cost.probe", msg)
+                if not got.wait(10):
+                    raise RuntimeError("a NATS probe was not delivered")
+            out[f"nats_publish_to_delivery_ms_{size // 1024}kb"] = \
+                median_ms(one)
+    finally:
+        a.close()
+        b.close()
+    rng = np.random.default_rng(SEED + 12)
+    client = QdrantRestStore(urls["qdrant"], timeout_s=30)
+    pts = client.export_collection(COLLECTION_NAME)
+    local = VectorStore(device="cuda")
+    local._collections[COLLECTION_NAME] = _Collection(
+        dim=768, ids=pts["ids"], vectors=pts["vectors"])
+    q = rng.standard_normal(768)
+    out["qdrant_search_ms_reid"] = {
+        "points": len(pts["ids"]),
+        "wire": median_ms(lambda: client.search(COLLECTION_NAME, q, 5)),
+        "in_process_card": median_ms(lambda: local.search(
+            COLLECTION_NAME, q, 5, use_device=True))}
+    big = VectorStore(device="cuda")
+    vecs = _normalize(rng.standard_normal((WIRE_VECTORS, 768),
+                                          dtype=np.float32))
+    big._collections["big"] = _Collection(
+        dim=768, ids=[f"p{i}" for i in range(WIRE_VECTORS)], vectors=vecs)
+    srv = QdrantRestServer(store=big)
+    srv.start()
+    try:
+        wire = QdrantRestStore(f"http://127.0.0.1:{srv.port}", timeout_s=60)
+        t0 = time.perf_counter()
+        first = wire.search("big", q, 5)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        n_pad = 1 << (WIRE_VECTORS - 1).bit_length()   # as _device_topk
+        out["qdrant_search_ms_100k"] = {
+            "points": WIRE_VECTORS, "first_wire_search_ms": first_ms,
+            "copied_to_card_mb_per_search": n_pad * 768 * 4 / 1e6,
+            "wire": median_ms(lambda: wire.search("big", q, 5)),
+            "in_process_card": median_ms(lambda: big.search(
+                "big", q, 5, use_device=True)),
+            "in_process_host": median_ms(lambda: big.search("big", q, 5)),
+            "wire_equals_card": [h.id for h in first] == [
+                h.id for h in big.search("big", q, 5, use_device=True)]}
+    finally:
+        srv.stop()
+        del big, vecs
+        torch.cuda.empty_cache()
+    conn = pg_wire.connect(urls["pg"], timeout=30)
+    try:
+        out["pg_round_trip_ms"] = median_ms(
+            lambda: conn.execute("SELECT COUNT(*) AS n FROM lameness_records")
+            .fetchall())
+    finally:
+        conn.close()
+    return out
+
+
+def trace_batch(eng, clip, tmp) -> bool:
+    """11e: ``device_trace`` around one default-engine batch (the walking
+    clip): the trace file names K1, K2 and K3 (TRACE_KERNELS); its kernel
+    events of each beside the wrappers' launch counts.  A session that
+    recorded no kernel is asked again (as ``kernel_names`` does), up to
+    three."""
+    from lameness_tpu_torch.utils.timing import device_trace
+    frames = clip[None]
+    eng.process_clip_batch(frames)                       # warm
+    for _ in range(3):
+        reset_counts()
+        with device_trace(f"{tmp}/trace") as path:
+            eng.process_clip_batch(frames)
+        launches = read_counts()
+        events = json.loads(path.read_text())["traceEvents"]
+        kernels = collections.Counter(e.get("name", "") for e in events
+                                      if e.get("cat") == "kernel")
+        found = {kid: sum(n for name, n in kernels.items() if pat in name)
+                 for kid, pat in TRACE_KERNELS.items()}
+        if sum(kernels.values()):
+            break
+    counted = {kid: launches[name] for kid, name, *_ in KERNEL_TABLE
+               if kid in TRACE_KERNELS}
+    ok = all(found.values())
+    log("compose trace record " + json.dumps({
+        "trace_mb": path.stat().st_size / 1e6,
+        "kernel_events": sum(kernels.values()), "by_kernel": found,
+        "launches": counted, "events_equal_launches": found == counted}))
+    log(f"  11e the trace names K1, K2 and K3 ({found})  "
+        f"{'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def compose_phase(tmp) -> tuple:
+    """Phase 11: 11a-11e.  Returns (ok, the worker's launch counts: the
+    compose topology's main path, one engine call)."""
+    from pathlib import Path
+    import torch
+    from lameness_tpu_torch.pipeline.checkpoint import (restore_engine,
+                                                        save_params)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    eng = default_engine()
+    rng = np.random.default_rng(SEED + 6)
+    clip, cow = walking_clip(rng, eng.spec)       # phase 6's calibration
+    calibrate_yolo(eng, clip, cow)
+    # the worker restores YOLO from its models directory, as a deployment
+    # restores a trained checkpoint, and with YOLO's weights loaded curates
+    # with it (BatchedYoloDetector); the engine here restores the same file
+    models = Path(tmp) / "data" / "models"
+    save_params(models, "yolo", eng.yolo)
+    ok = restore_engine(eng, models) == {**dict.fromkeys(
+        ("yolo", "dino", "sam", "tcn", "gait"), False), "yolo": True}
+    src, _ = upload_clip(f"{tmp}/upload", UPLOAD_FRAMES, UPLOAD_COW)
+    log(f"  11 YOLO restored from {models}  {'ok' if ok else 'FAIL'}")
+    services, launches = {}, {}
+    t = [time.perf_counter()]
+    try:
+        services, urls = start_servers(tmp)
+        log("  11a " + ", ".join(f"{n} at {u.replace(PG_PASSWORD, '***')}"
+                                 for n, u in urls.items()))
+        t.append(time.perf_counter())
+        good, launches["compose, worker over NATS"], worker_gb = \
+            worker_job(eng, tmp, src, services, urls)
+        ok &= good
+        src.unlink()
+        t.append(time.perf_counter())
+        ok &= reid_over_wire(eng, tmp, urls)
+        t.append(time.perf_counter())
+        costs = wire_costs(urls)
+        t.append(time.perf_counter())
+        ok &= trace_batch(eng, clip, tmp)
+        t.append(time.perf_counter())
+    finally:
+        rcs = {name: svc.stop() for name, svc in services.items()}
+    qdrant = services["qdrant"].line_after("qdrant-server stopped ") or {}
+    costs["peak_gb"] = {
+        "worker": worker_gb, "qdrant_server": qdrant.get("peak_gb"),
+        "chip_smoke": torch.cuda.max_memory_allocated() / 1e9,
+        "nats_server": "no CUDA context", "pg_server": "no CUDA context"}
+    log("compose costs record " + json.dumps(costs))
+    servers_ok = all(rcs[n] == 0 for n in ("nats", "qdrant", "pg"))
+    log(f"  11a the servers exited with 0 ({rcs})  "
+        f"{'ok' if servers_ok else 'FAIL'}")
+    ok &= servers_ok
+    log(f"phase 11: {time.perf_counter() - t0:.1f} s (engine, calibration "
+        f"and upload {t[0] - t0:.1f}, 11a {t[1] - t[0]:.1f}, 11b "
+        f"{t[2] - t[1]:.1f}, 11c {t[3] - t[2]:.1f}, 11d {t[4] - t[3]:.1f}, "
+        f"11e {t[5] - t[4]:.1f})")
+    return ok, launches
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
     import torch
@@ -4412,6 +5010,12 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp, switches({}):
         ok_p, platform_launches = platform_phase(tmp)
     launches.update(platform_launches)
+    log("== phase 11: the compose topology")
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp, switches({}):
+        ok_w, compose_launches = compose_phase(tmp)
+    launches.update(compose_launches)
     for kid, rec in records.items():
         # each kernel's count on its own path (K1 runs on every one)
         rec["launches"] = max(counts[rec["name"]]
@@ -4422,8 +5026,9 @@ def main() -> int:
             "bound_share")
     kern = {"kernels": [{k: rec[k] for k in keys}
                         for rec in records.values()]}
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     if not (ok_build and ok_k and ok_small and ok_e and ok_m and ok_c
-            and ok_s and ok_a and ok_u and ok_t and ok_p):
+            and ok_s and ok_a and ok_u and ok_t and ok_p and ok_w):
         log("chip_smoke: FAILED")
         return 1
     log(smi)

@@ -4,8 +4,9 @@ The reference's services talk over NATS core pub/sub with JSON payloads,
 at-most-once, each callback's exceptions swallowed.  ``MessageBus`` keeps
 that contract in one process: the same subject names, JSON round-tripped
 dict payloads, per-message exception isolation, fire-and-forget publish,
-and a JSON-lines journal.  The JAX module's ``NatsBridge`` (the wire to a
-real NATS server) is not ported yet.
+and a JSON-lines journal.  ``NatsBridge`` joins it to a NATS server over
+the wire protocol of ``io/nats_wire.py`` (the broker of the ``nats-server``
+subcommand, the JAX package's, or a stock Go one).
 """
 from __future__ import annotations
 
@@ -169,3 +170,64 @@ class MessageBus:
             if m["subject"] not in seen:
                 seen.append(m["subject"])
         return seen
+
+
+class NatsBridge:
+    """Bidirectional bridge between the in-process bus and a real NATS
+    server over the wire protocol (first-party client, ``io/nats_wire.py``
+    — no nats-py needed; also speaks to a stock Go nats-server).
+
+    Outbound: every local publish on a bridged subject is mirrored to the
+    socket.  Inbound: MSGs from the socket re-enter the local bus tagged
+    ``_via_nats`` so they are not mirrored back out.  The connection uses
+    CONNECT ``echo: false`` so the bridge never hears its own publishes —
+    a mesh of bridged processes therefore delivers each message
+    at-most-once per process, like the reference deployment.
+    """
+
+    def __init__(self, bus: MessageBus, url: str = "nats://127.0.0.1:4222",
+                 subjects: Optional[List[str]] = None):
+        self.bus = bus
+        self.url = url
+        self.subjects = subjects
+        self._nc = None
+
+    def start(self) -> bool:
+        """Connect and wire both directions; False if unreachable."""
+        from .nats_wire import NatsClient
+        try:
+            self._nc = NatsClient(self.url, name="lameness-bridge",
+                                  echo=False).connect()
+        except (OSError, ConnectionError):
+            self._nc = None
+            return False
+
+        subjects = self.subjects or list(self.bus._subs)
+
+        def _outbound(subject: str):
+            def h(payload: Dict[str, Any]):
+                if self._nc is not None and self._nc.is_connected \
+                        and not payload.get("_via_nats"):
+                    self._nc.publish(subject, payload)
+            return h
+
+        def _inbound(subject: str):
+            def cb(payload: Dict[str, Any]):
+                if not payload.get("_via_nats"):
+                    payload = dict(payload)
+                    payload["_via_nats"] = True
+                    self.bus.publish_sync(subject, payload)
+            return cb
+
+        for subject in subjects:
+            self.bus.subscribe_sync(subject, _outbound(subject))
+            self._nc.subscribe(subject, _inbound(subject))
+        return True
+
+    def flush(self, timeout_s: float = 5.0) -> bool:
+        return self._nc.flush(timeout_s) if self._nc else False
+
+    def stop(self) -> None:
+        if self._nc is not None:
+            self._nc.close()
+            self._nc = None

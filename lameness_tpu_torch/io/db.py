@@ -1,6 +1,6 @@
 """Relational store with the reference's exact table contract (port of
-``lameness_tpu/io/db.py``, copied: SQLite; a ``postgres://`` URL raises, as
-the port has no wire driver yet).
+``lameness_tpu/io/db.py``, copied: SQLite, or Postgres over the port's
+wire driver ``io/pg_wire.py``).
 
 The reference runs Postgres with 14 ORM models
 (``admin-interface/backend/app/database.py:43-335`` mirrored by
@@ -13,9 +13,10 @@ object (``.connect(path)`` + ``.paramstyle``); ``?`` placeholders are
 rewritten to ``%s`` for format/pyformat drivers and column reflection
 switches from ``PRAGMA`` to ``information_schema``.  The SQL is a
 deliberately portable subset (TEXT/INTEGER/REAL columns, standard
-CHECK/REFERENCES, no sqlite-only syntax).  The JAX package's first-party
-Postgres wire driver (``io/pg_wire.py``) is not ported yet, so
-``open_database()`` refuses a ``postgres://`` URL.
+CHECK/REFERENCES, no sqlite-only syntax).  ``io/pg_wire.py`` implements
+the Postgres v3 wire protocol (client driver + SQLite-backed wire server,
+the ``pg-server`` subcommand); ``open_database()`` picks the driver from
+the URL scheme (the reference's DATABASE_URL shape, database.py:16).
 
 Tables: users, sessions, processing_jobs, videos, gold_tasks, rater_stats,
 service_heartbeats, video_elo_ratings, pairwise_comparisons, elo_history,
@@ -425,14 +426,12 @@ def _coerce(v):
 
 
 def open_database(url_or_path: "Path | str" = ":memory:") -> Database:
-    """A SQLite path.  A ``postgres://`` / ``postgresql://`` URL (the
-    reference's DATABASE_URL shape) raises: the JAX package opens it over
-    its wire driver (``io/pg_wire.py``), which the port does not have yet
-    (ROADMAP.md §1 item 2(d))."""
+    """Driver-dispatching constructor: a ``postgres://`` /
+    ``postgresql://`` URL (the reference's DATABASE_URL shape,
+    admin-interface/backend/app/database.py:16) opens the facade over the
+    wire driver (``io/pg_wire.py``); anything else is a SQLite path."""
     s = str(url_or_path)
     if s.startswith(("postgres://", "postgresql://")):
-        raise NotImplementedError(
-            f"open_database: no Postgres wire driver in lameness_tpu_torch "
-            f"yet (ROADMAP.md §1 item 2(d)); url {s!r}. Leave DATABASE_URL "
-            f"unset for the SQLite file under the data root")
+        from . import pg_wire
+        return Database(s, driver=pg_wire)
     return Database(url_or_path)

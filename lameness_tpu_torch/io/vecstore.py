@@ -7,8 +7,9 @@ The reference keeps 768-d DINO embeddings in Qdrant collections
 exact in-process store serves.  ``VectorStore`` is the JAX module's store
 (create_collection / upsert / search / retrieve / set_payload / count /
 export_collection, JSON persistence); its device top-k is one matvec and a
-stable descending sort on the store's device.  ``make_store`` gives only
-this local store: the Qdrant REST client is not ported yet.
+stable descending sort on the store's device.  ``make_store`` gives a
+``QdrantRestStore`` (``io/qdrant_wire.py``) for a URL that answers the
+Qdrant protocol, else this local store.
 """
 from __future__ import annotations
 
@@ -216,10 +217,18 @@ class VectorStore:
 
 def make_store(url: Optional[str] = None,
                persist_path: Optional[Path] = None, device=None):
-    """The local store.  A vector server ``url`` raises: the port has no
-    Qdrant REST client yet."""
+    """Prefer a vector server when configured & reachable, else local.
+
+    ``url`` speaks the Qdrant REST protocol -- a stock Qdrant server, the
+    JAX package's or the port's ``io/qdrant_wire.QdrantRestServer``.  The
+    returned client exposes the same method surface as ``VectorStore``, so
+    every caller (Re-ID, embedding upsert/search, admin views) runs
+    unchanged.  A URL that does not answer the protocol (unreachable, or
+    an HTTP server answering 404s) gives the local store on ``device``, as
+    the JAX function does."""
     if url:
-        raise NotImplementedError(
-            f"make_store: no Qdrant client in lameness_tpu_torch yet (url "
-            f"{url!r}); leave ReidConfig.vector_url unset for the local store")
+        from .qdrant_wire import QdrantRestStore
+        client = QdrantRestStore(url)
+        if client.ping():
+            return client
     return VectorStore(persist_path=persist_path, device=device)

@@ -16,8 +16,9 @@ runner's graph-head weights, and the cvtColor Y4M pair on the JAX side.
   fusion probability as JAX's batched app gives them.
 - A corrupt upload marks its job failed, on both sides.
 - Resume: a job left ``processing`` with its crop on disk completes.
-- The ``serve`` subcommand booted (the API answers) and stopped, the
-  ``resume`` subcommand, and the arguments that are not ported raising.
+- The ``serve`` subcommand booted (the API answers) and stopped, with
+  ``--nats-url`` joined to a port broker, the ``resume`` subcommand, and
+  the mesh's arguments (not ported) raising.
 """
 import itertools
 import json
@@ -272,8 +273,46 @@ def test_serve_subcommand_boots_and_stops(tmp_path):
     assert rc == 0
 
 
+def test_serve_nats_url_joins_a_port_broker(tmp_path, capsys):
+    """``serve --cpu --small --nats-url`` on a port broker: the bridge
+    connects, the app's publications reach a JAX client on the socket, and
+    the client's reach the app's bus once, tagged ``_via_nats``."""
+    from lameness_tpu.io.nats_wire import NatsClient
+    from lameness_tpu_torch.__main__ import parse_args, start_serve
+    from lameness_tpu_torch.io.nats_wire import NatsServer
+    broker = NatsServer()
+    broker.start()
+    app = bridge = client = None
+    try:
+        url = f"nats://127.0.0.1:{broker.port}"
+        app, bridge = start_serve(parse_args(
+            ["--cpu", "--data", str(tmp_path), "serve", "--small", "--port",
+             "0", "--no-resume", "--nats-url", url]))
+        assert "NATS bridge: connected" in capsys.readouterr().out
+        client = NatsClient(url).connect(timeout_s=10)
+        seen = []
+        client.subscribe("video.*", seen.append)
+        assert client.flush(10)
+        app.bus.publish_sync("video.curated", {"video_id": "v"})
+        client.publish("hitl.comparison.requested", {"pair": [1, 2]})
+        assert client.flush(10) and bridge.flush(10)
+        deadline = time.time() + 10
+        while not seen and time.time() < deadline:
+            time.sleep(0.01)
+        assert seen == [{"video_id": "v"}]
+        assert app.bus.messages_on("hitl.comparison.requested") == [
+            {"pair": [1, 2], "_via_nats": True}]
+    finally:
+        if client is not None:
+            client.close()
+        if bridge is not None:
+            bridge.stop()
+        if app is not None:
+            app.close()
+        broker.stop()
+
+
 @pytest.mark.parametrize("argv,item", [
-    (["serve", "--nats-url", "nats://127.0.0.1:4222"], r"2\(d\)"),
     (["--dp", "2", "serve"], "item 5"),
     (["--tp", "2", "process", "x.y4m"], "item 5")])
 def test_unported_arguments_raise(tmp_path, argv, item):

@@ -59,7 +59,10 @@ def test_import_leaves_jax_out():
             "lameness_tpu_torch.serve.annotation, "
             "lameness_tpu_torch.serve.http, lameness_tpu_torch.serve.api, "
             "lameness_tpu_torch.serve.batcher, "
-            "lameness_tpu_torch.serve.app; "
+            "lameness_tpu_torch.serve.app, "
+            "lameness_tpu_torch.io.nats_wire, lameness_tpu_torch.io.pg_wire, "
+            "lameness_tpu_torch.io.qdrant_wire, "
+            "lameness_tpu_torch.utils.timing; "
             "from lameness_tpu_torch.serve import raster; "
             "raster.font_table(); "
             "bad = [m for m in sys.modules if m.split('.')[0] in "

@@ -4,8 +4,9 @@ the CPU.
 
 - The copied modules on the same inputs as their JAX originals: the config
   slice, every schema builder the writer calls and ``validate``, the
-  message bus, the vector store (host and device top-k, ties, k > n) and
-  the host locomotion features: equal.
+  message bus, the vector store (host and device top-k, ties, k > n;
+  ``make_store`` of a Qdrant server, an unreachable URL and an HTTP server
+  that is not Qdrant) and the host locomotion features: equal.
 - ``_mask_features`` (numpy/scipy, ``serve/contours.py``) against the JAX
   driver's cv2 version: area and centroid exact, perimeter, circularity and
   aspect within 1e-9 relative; the contour measures against cv2 on seeded
@@ -174,12 +175,71 @@ def test_vecstore_search_matches_jax(tmp_path, use_device):
             np.testing.assert_allclose([h.score for h in got],
                                        [h.score for h in want], atol=1e-6)
             assert [h.payload for h in got] == [h.payload for h in want]
+    # an upsert after a search: a new point, and a point moved onto the
+    # query
+    q = rng.standard_normal(16)
+    for s in stores:
+        s.upsert("c", "p11", -q)
+        s.upsert("c", "p4", q)
+    got, want = (s.search("c", q, top_k=3, use_device=use_device)
+                 for s in stores)
+    assert [h.id for h in got] == [h.id for h in want]
+    assert got[0].id == "p4" and got[-1].id != "p11"
+    assert stores[0].search("c", -q, top_k=1, use_device=use_device)[0].id \
+        == "p11"
     # persistence round trip
     again = tvec.VectorStore(tmp_path / "t.json", device="cpu")
-    assert again.count("c") == 11
+    assert again.count("c") == 12
     assert again.retrieve("c", "p3").payload == {"i": 3}
-    with pytest.raises(NotImplementedError):
-        tvec.make_store(url="http://localhost:6333")
+    _make_store_cases(tmp_path, use_device)
+
+
+def _make_store_cases(tmp_path, use_device):
+    """``make_store(url)`` as JAX's: a Qdrant server gives the wire client
+    (searching as the local store does); an unreachable URL, or an HTTP
+    server that answers 404s, gives the local store on the caller's
+    device."""
+    import socket
+    from http.server import BaseHTTPRequestHandler, HTTPServer
+    from lameness_tpu_torch.io.qdrant_wire import (QdrantRestServer,
+                                                   QdrantRestStore)
+
+    class NotQdrant(BaseHTTPRequestHandler):
+        def do_GET(self):
+            self.send_error(404)
+
+        def log_message(self, *a):
+            pass
+
+    with socket.socket() as sk:                   # a port nobody listens on
+        sk.bind(("127.0.0.1", 0))
+        free = sk.getsockname()[1]
+    srv = QdrantRestServer(store=tvec.VectorStore(device="cpu"))
+    web = HTTPServer(("127.0.0.1", 0), NotQdrant)
+    t = threading.Thread(target=web.serve_forever, daemon=True)
+    try:
+        srv.start()
+        t.start()
+        remote = tvec.make_store(url=f"http://127.0.0.1:{srv.port}",
+                                 device="cpu")
+        assert isinstance(remote, QdrantRestStore)
+        remote.upsert("c", "p0", [1.0, 0.0], payload={"i": 0})
+        remote.upsert("c", "p1", [0.6, 0.8])
+        hits = remote.search("c", [1.0, 0.1], top_k=2, use_device=use_device)
+        assert [h.id for h in hits] == ["p0", "p1"]
+        assert srv.store.count("c") == 2
+        for url in (f"http://127.0.0.1:{free}",
+                    f"http://127.0.0.1:{web.server_address[1]}"):
+            local = tvec.make_store(url=url, persist_path=tmp_path / "l.json",
+                                    device="cpu")
+            assert type(local) is tvec.VectorStore, url
+            assert local.device == "cpu" and local.count("c") == 0
+            assert type(jvec.make_store(url=url)) is jvec.VectorStore
+    finally:
+        srv.stop()
+        web.shutdown()
+        web.server_close()
+        t.join(10)
 
 
 def test_locomotion_features_match_jax():
