@@ -171,6 +171,26 @@ Phases, each failing loudly (no exception is swallowed):
      each process's peak GB; (e) ``device_trace`` around one
      default-engine batch names K1, K2 and K3.  Every subprocess is
      stopped in a ``finally`` and must exit with 0.
+  12. the mesh (in a process of its own: ``chip_smoke.py --mesh``; every
+     mesh repeats cuda:0, the card's machine having one H100): (a) the
+     default engine over dp 2 at B = 4 bit for bit the unsharded engine on
+     each half alone (each shard the same MC-dropout generator state), RGB
+     and yuv420 rows transfer, K1-K3 counted over the shards (the ``mesh``
+     entry of the launches); B = 3 padded to 4 and trimmed; dp 2 x tp 2
+     (DINO's 12 heads 6 a model shard) against the replicated layout, the
+     DINO embeddings within 1e-4 on an f32 engine, the bf16 default's
+     difference reported; (b) the train step at DINOv2 ViT-B/14 width
+     (224, batch 8, f32, 3 steps) on one device, then dp 2 x tp 2 with
+     FSDP from the same weights: the losses within 1e-4 relative, every
+     shard and its AdamW moments on its position's device after each step,
+     step ms and peak GB (a ``mesh train record`` line); (c)
+     sam_encoder_pipeline (ViT-B at 1024², 4 stages x [w, w, g], 2
+     microbatches) bit for bit sequential_reference, K2 16 and K3 8;
+     sam_ring_attention over a 4-ring at (24, 4096, 64) against K3's plain
+     version (f32); mc_dropout_sharded's 8 TCN samples over 4 positions bit
+     for bit the stack on one; (d) ``python -m lameness_tpu_torch --dp auto
+     process`` (tiny engine) as a dp-1 mesh, ``--dp 2`` refused with JAX's
+     message.
 The line before the last is the kernel record (JSON); the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 without a CUDA device or outside the repository.
@@ -3226,6 +3246,14 @@ DET_FRAMES = 96
 DET_BATCH = 16
 DET_STEPS = 400
 DET_LR = 2e-3
+# ultralytics' learning-rate recipe: a linear ramp from 0 over DET_WARMUP
+# steps, then a linear fall to DET_FINAL x DET_LR at the last step.  At a
+# constant DET_LR the loss spikes (the class logits jump by orders of
+# magnitude for a step) at any point of the run, and the EMA weights that
+# 9a scores are, 400 steps in, about the last step's: a late spike left no
+# cow found in 3 of 9 whole-script runs (PERF.md, PR 20)
+DET_WARMUP = 50
+DET_FINAL = 0.01
 DET_FOUND = 0.5           # share of detect frames whose cow must be found
 DET_IOU = 0.5
 HEAD_VIDEOS = 24          # 9b: labelled tleap files, 30 pose frames each
@@ -3243,6 +3271,16 @@ GRAPH_EPOCHS = 100
 # (tests/test_torch_training.py holds the port to JAX by the same rule)
 TRAIN_RTOL = (1e-5, 2e-4)
 TRAIN_STEP_SHARE, TRAIN_SHARE = 0.02, 0.9
+
+
+def det_schedule(lr=DET_LR, warmup=DET_WARMUP, final=DET_FINAL,
+                 steps=DET_STEPS):
+    """The learning rate of update n (0 first) of 9a's DetectTrainer."""
+    def rate(n: int) -> float:
+        if n < warmup:
+            return lr * (n + 1) / warmup
+        return lr * (1 - (1 - final) * (n - warmup) / max(1, steps - warmup))
+    return rate
 
 
 def square_cows(rng, n, h=720, w=1280, size=(224, 480)):
@@ -3318,9 +3356,9 @@ def step_record(name, fn, steps, wall_s, **extra) -> dict:
 
 
 def train_detector(eng, models_dir) -> bool:
-    """9a: DetectTrainer at 640, batch 16; the loss must fall, and the EMA
-    weights, saved and restored into the default engine, must find the cow
-    on DET_FOUND of a walking clip's detect frames."""
+    """9a: DetectTrainer at 640, batch 16, on det_schedule; the loss must
+    fall, and the EMA weights, saved and restored into the default engine,
+    must find the cow on DET_FOUND of a walking clip's detect frames."""
     import torch
     from lameness_tpu_torch.models.yolo import YoloV8
     from lameness_tpu_torch.ops import preprocess as prep
@@ -3344,7 +3382,7 @@ def train_detector(eng, models_dir) -> bool:
     model.load_state_dict(seeded_state_dict(
         model, torch.Generator().manual_seed(SEED)))
     detect_bias_init(model)
-    trainer = DetectTrainer(model, lr=DET_LR)
+    trainer = DetectTrainer(model, lr=det_schedule())
 
     def step():
         idx = torch.from_numpy(rng.permutation(DET_FRAMES)[:DET_BATCH]
@@ -4911,6 +4949,389 @@ def compose_phase(tmp) -> tuple:
         f"11e {t[5] - t[4]:.1f})")
     return ok, launches
 
+# ---------------------------------------------------------------------------
+# phase 12
+# ---------------------------------------------------------------------------
+# the mesh on the one card: every mesh repeats cuda:0 (NCCL takes no two
+# ranks on one GPU; the port's single-controller mesh splits the batch, the
+# heads, the layers and the sequence there, and runs K1-K3 in each shard).
+# 12a: the default engine over dp 2 at B = MESH_BATCH, against each half
+# alone (each shard the same MC-dropout generator state as its half's run
+# alone), RGB and yuv420 transfer, bit for bit; B = 3 pads to 4; dp 2 x tp 2
+# against the replicated layout on an f32 engine, DINO embeddings within
+# JAX's atol (shard_inference's docstring), and the bf16 default's
+# difference reported.  12b: the train step at DINOv2 ViT-B/14 width, one
+# device, then dp 2 x tp 2 with FSDP against it (f32, TF32 off: the losses
+# within MESH_LOSS_RTOL, the gradients summing in another order).  12c:
+# sam_encoder_pipeline, sam_ring_attention and mc_dropout_sharded.  12d:
+# the command line's --dp.
+MESH_BATCH = 4
+MESH_TP_ATOL = 1e-4
+MESH_TRAIN_BATCH, MESH_TRAIN_STEPS = 8, 3
+MESH_LOSS_RTOL = 1e-4
+MESH_RING_BATCH = 2        # (MESH_RING_BATCH·12, 4096, 64) over a 4-ring
+
+
+def mesh_of(dp, tp=1):
+    import torch
+    from lameness_tpu_torch.parallel.mesh import make_mesh
+    return make_mesh(dp * tp, model_parallel=tp,
+                     devices=[torch.device("cuda", 0)] * (dp * tp))
+
+
+def mesh_engine(frames) -> tuple:
+    """12a.  Returns (ok, {path: launches})."""
+    import torch
+    from lameness_tpu_torch.core.config import ComputeConfig, Config
+    from lameness_tpu_torch.pipeline.engine import EngineSpec, LamenessEngine
+    eng = default_engine()
+    eng.warmup(batch=2)
+    ok, launches = True, {}
+
+    def gen():
+        return torch.Generator(device="cuda").manual_seed(SEED)
+    for transfer in ("rgb", "yuv420"):
+        halves = [dict(leaves(eng.process_clip_batch(
+            frames[i:i + 2], generator=gen(), transfer=transfer)))
+            for i in range(0, MESH_BATCH, 2)]
+        want = {k: np.concatenate([h[k] for h in halves]) for k in halves[0]}
+        m = eng.with_spec(eng.spec)
+        m.shard_inference(mesh_of(2))
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = m.process_clip_batch(frames, generator=gen(), transfer=transfer)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        good = same_leaves(got, want) and expect_launches(
+            counts, {k: 2 * v for k, v in BASE_LAUNCHES.items()})
+        ok &= good
+        if transfer == "rgb":
+            launches["mesh"] = counts
+            rgb_out = got
+        log(f"  12a dp 2, B={MESH_BATCH}, {transfer}: every output bit for "
+            f"bit the unsharded engine on each half alone; K1-K3 "
+            f"{[counts[n] for n in ('attention', 'sam_window_attention_v3', 'sam_global_attention_v4')]}"
+            f" (2 shards x 12/10/4); {wall:.3f} s  {'ok' if good else 'FAIL'}")
+    got3 = m.process_clip_batch(frames[:3], generator=gen())
+    shapes = all(v.shape[0] == 3 for _, v in leaves(got3))
+    a, b = dict(leaves(got3)), dict(leaves(rgb_out))
+    first = all(np.array_equal(a[k][:2], b[k][:2]) for k in a)
+    # the second shard runs [clip 2, zero clip]: its clip 2 is the
+    # unsharded engine's on that pair, every output bit for bit
+    pair = np.concatenate([frames[2:3], np.zeros_like(frames[:1])])
+    alone = dict(leaves(eng.process_clip_batch(pair, generator=gen())))
+    third = all(np.array_equal(a[k][2], alone[k][0]) for k in a)
+    agree = float((a["masks"][2] == b["masks"][2]).mean())
+    good = shapes and first and third
+    ok &= good
+    log(f"  12a B=3 over dp 2 (one zero clip, trimmed): every output of 3 "
+        f"clips; clips 0-1 bit for bit the B=4 run's; clip 2 bit for bit "
+        f"the unsharded engine on [clip 2, zero clip] {third} (its mask "
+        f"agreement with the B=4 run's clip 2 {agree:.5f}, not gated)  "
+        f"{'ok' if good else 'FAIL'}")
+    # dp x tp: f32 engine, the DINO embeddings against the replicated layout
+    for name, cfg in (("f32", Config(compute=ComputeConfig(dtype="float32"))),
+                      ("bf16", None)):
+        e = LamenessEngine(cfg or Config(), EngineSpec(),
+                           generator=torch.Generator().manual_seed(SEED)) \
+            if cfg is not None else eng
+        rep = e.with_spec(e.spec)
+        rep.shard_inference(mesh_of(2))
+        tp = e.with_spec(e.spec)
+        tp.shard_inference(mesh_of(2, 2))
+        want = rep.process_clip_batch(frames, generator=gen())
+        reset_counts()
+        got = tp.process_clip_batch(frames, generator=gen())
+        counts = read_counts()
+        diff = float(np.abs(got["embeddings"] - want["embeddings"]).max())
+        rel = float(np.linalg.norm(got["embeddings"] - want["embeddings"])
+                    / np.linalg.norm(want["embeddings"]))
+        good = expect_launches(counts, {"K1": 48, "K2": 20, "K3": 8})
+        if name == "f32":
+            good &= diff <= MESH_TP_ATOL
+            launches["mesh dp x tp"] = counts
+        ok &= good
+        log(f"  12a dp 2 x tp 2 ({name}), DINO 6 of 12 heads a model shard: "
+            f"embeddings max |tp - replicated| {diff:.3e}, relative L2 "
+            f"{rel:.3e}" + (f" (gate <= {MESH_TP_ATOL:g})" if name == "f32"
+                            else " (not gated)")
+            + f"; K1 {counts['attention']} (2 x 2 x 12)  "
+            f"{'ok' if good else 'FAIL'}")
+        del rep, tp
+        if cfg is not None:
+            del e
+        gc.collect()
+        torch.cuda.empty_cache()
+    return ok, launches
+
+
+def mesh_train(smi) -> bool:
+    """12b: the train step at ViT-B width, one device, then dp 2 x tp 2 with
+    FSDP from the same weights and batches."""
+    import torch
+    from lameness_tpu_torch.parallel.fsdp import (shard_train_state_fsdp,
+                                                  state_shardings)
+    from lameness_tpu_torch.parallel.mesh import DATA_AXIS, leaves as leaves_of
+    from lameness_tpu_torch.pipeline import train as T
+
+    def tp_spec(path, leaf):
+        return T._dino_param_spec(path[1:], leaf) if path[0] == "dino" \
+            else None
+
+    def block_shape(leaf, mesh):
+        """The shape of one position's block of ``leaf`` by its spec."""
+        shape = list(leaf.shape)
+        for dim, entry in enumerate(leaf.spec):
+            for axis in (entry,) if isinstance(entry, str) else entry or ():
+                shape[dim] //= mesh.shape[axis]
+        return tuple(shape)
+
+    def run(mesh, fsdp):
+        models = T.make_models(hidden=768, layers=12, heads=12)
+        state, tx = T.init_train_state(torch.Generator().manual_seed(SEED),
+                                       mesh, models, image_size=224)
+        pinned = None
+        if fsdp:
+            state = shard_train_state_fsdp(state, mesh, tp_spec=tp_spec)
+            pinned = state_shardings(state)
+        step, _ = T.make_train_step(mesh, models, tx, state_shardings=pinned)
+        rng = np.random.default_rng(SEED + 12)
+        g = torch.Generator(device="cuda").manual_seed(SEED)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms, kept = [], [], True
+        for _ in range(MESH_TRAIN_STEPS):
+            batch = T.make_batch(rng, MESH_TRAIN_BATCH, image_size=224)
+            t0 = time.perf_counter()
+            state, loss, _ = step(state, batch, g)
+            losses.append(loss.item())
+            ms.append((time.perf_counter() - t0) * 1e3)
+            for leaf in leaves_of(state.params):
+                adam = state.opt_state.adamw.state
+                for pos in mesh.positions():
+                    t = leaf.shards[pos]
+                    kept &= (t.device == mesh.devices[pos]
+                             and t.shape == block_shape(leaf, mesh)
+                             and adam[t]["exp_avg"].device == t.device
+                             and adam[t]["exp_avg"].shape == t.shape)
+                    if DATA_AXIS in leaf.spec and pos[0] > 0:
+                        # a data-split block is its own tensor, not its
+                        # neighbour's (every position is the one card)
+                        other = leaf.shards[(0,) + pos[1:]]
+                        kept &= (t is not other
+                                 and t.data_ptr() != other.data_ptr())
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        sharded = sum(DATA_AXIS in leaf.spec for leaf in leaves_of(
+            state.params))
+        n = len(leaves_of(state.params))
+        del state, models
+        gc.collect()
+        torch.cuda.empty_cache()
+        return losses, ms, peak, kept, sharded, n
+
+    one = run(mesh_of(1), False)
+    fs = run(mesh_of(2, 2), True)
+    finite = all(math.isfinite(x) for x in one[0] + fs[0])
+    rel = max(abs(a - b) / abs(b) for a, b in zip(fs[0], one[0]))
+    ok = finite and rel <= MESH_LOSS_RTOL and fs[3] and fs[4] > 0
+    log(f"  12b train step, ViT-B/14 width (768, 12 layers, 12 heads), 224, "
+        f"batch {MESH_TRAIN_BATCH}, f32: one device losses "
+        f"{[round(x, 6) for x in one[0]]}, ms a step "
+        f"{[round(x, 1) for x in one[1]]}, peak {one[2]:.2f} GB; dp 2 x tp 2 "
+        f"FSDP ({fs[4]} of {fs[5]} leaves split over data) losses "
+        f"{[round(x, 6) for x in fs[0]]}, ms a step "
+        f"{[round(x, 1) for x in fs[1]]}, peak {fs[2]:.2f} GB; largest "
+        f"relative loss difference {rel:.3e} (gate <= {MESH_LOSS_RTOL:g}); "
+        f"after each step every shard of its block's shape, each data-split "
+        f"block its own tensor, the moments with their shard (every "
+        f"position is cuda:0, so the device part holds trivially) "
+        f"{fs[3]}  {'ok' if ok else 'FAIL'}")
+    log("mesh train record " + json.dumps({
+        "card": smi, "batch": MESH_TRAIN_BATCH,
+        "one_device": {"loss": one[0], "ms": one[1], "peak_gb": one[2]},
+        "dp2_tp2_fsdp": {"loss": fs[0], "ms": fs[1], "peak_gb": fs[2],
+                         "leaves_split_over_data": fs[4], "leaves": fs[5]}}))
+    return ok
+
+
+def mesh_axes() -> bool:
+    """12c: the pipeline, ring and ensemble axes."""
+    import torch
+    from lameness_tpu_torch.models.tcn import TCN
+    from lameness_tpu_torch.ops.sam_attention import (project_rel_tables,
+                                                      sam_attention_reference)
+    from lameness_tpu_torch.parallel.ensemble_parallel import (
+        make_ensemble_mesh, mc_dropout_sharded)
+    from lameness_tpu_torch.parallel.pipeline_parallel import (
+        STAGE_AXIS, sequential_reference, stack_stage_params)
+    from lameness_tpu_torch.parallel.ring_attention import SEQ_AXIS
+    from lameness_tpu_torch.parallel.mesh import Mesh
+    from lameness_tpu_torch.parallel.sam_parallel import (
+        encoder_stages, sam_encoder_pipeline, sam_ring_attention)
+    cuda0 = torch.device("cuda", 0)
+    ok = True
+    eng = default_engine()
+    enc = eng.sam.vision_encoder
+    g = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    images = torch.randn((4, 1024, 1024, 3), generator=g, device="cuda"
+                         ).to(eng.spec.dtype)
+    stages = Mesh([cuda0] * 4, (STAGE_AXIS,))
+    with torch.no_grad():
+        sam_encoder_pipeline(enc, None, images[:2], stages, 2)   # warm
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = sam_encoder_pipeline(enc, None, images, stages, 2)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        stage_fn, per_stage = encoder_stages(enc, 4)
+        stacked = stack_stage_params(per_stage)
+
+        def stage(s, tree=stacked):
+            return {k: stage(s, v) if isinstance(v, dict) else v[s]
+                    for k, v in tree.items()}
+        ref = torch.cat([enc.neck(sequential_reference(
+            stage_fn, [stage(s) for s in range(4)], enc.embed(mb)))
+            for mb in images.chunk(2)])
+        plain = enc(images)
+    good = torch.equal(got, ref) and expect_launches(
+        counts, {"K2": 16, "K3": 8})
+    ok &= good
+    log(f"  12c sam_encoder_pipeline, ViT-B at 1024², 4 stages x [w, w, g], "
+        f"2 microbatches of 2: bit for bit sequential_reference on each "
+        f"microbatch; K2 {counts['sam_window_attention_v3']}, K3 "
+        f"{counts['sam_global_attention_v4']} (8 and 4 layers x 2); "
+        f"{wall * 1e3:.1f} ms; against the encoder on the whole batch max "
+        f"|diff| {float((got.float() - plain.float()).abs().max()):.3e}  "
+        f"{'ok' if good else 'FAIL'}")
+    del eng, enc, images, got, ref, plain, stacked
+    gc.collect()
+    torch.cuda.empty_cache()
+    # ring attention over the SAM global grid, float32
+    bh, gsz, d = MESH_RING_BATCH * 12, 64, 64
+    q, k, v = (torch.randn((bh, gsz * gsz, d), generator=g, device="cuda")
+               for _ in range(3))
+    rel_h, rel_w = (torch.randn((2 * gsz - 1, d), generator=g,
+                                device="cuda") * 0.2 for _ in range(2))
+    rh, rw = project_rel_tables(q, rel_h, rel_w, gsz)
+    ring = Mesh([cuda0] * 4, (SEQ_AXIS,))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = sam_ring_attention(q, k, v, rh, rw, ring)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    want = sam_attention_reference(q, k, v, rh, rw)
+    atol, rtol = TOL["float32"]
+    err = (got - want).abs()
+    good = bool((err <= atol + rtol * want.abs()).all())
+    ok &= good
+    log(f"  12c sam_ring_attention over a 4-ring at {tuple(q.shape)}, f32: "
+        f"max |ring - K3's plain version| {float(err.max()):.3e} (gate "
+        f"{atol:g} + {rtol:g}·|plain|); {wall * 1e3:.1f} ms  "
+        f"{'ok' if good else 'FAIL'}")
+    del q, k, v, rh, rw, got, want, err
+    torch.cuda.empty_cache()
+    # MC-dropout samples over an ensemble axis
+    tcn = TCN(input_dim=44)
+    feats = torch.randn((2, 125, 44), generator=g, device="cuda")
+
+    def one(gen):
+        with torch.no_grad():
+            return tcn(feats.to(gen.device), generator=gen)
+    sharded = mc_dropout_sharded(one, make_ensemble_mesh(4, [cuda0] * 4),
+                                 torch.Generator().manual_seed(SEED), 8)
+    alone = mc_dropout_sharded(one, make_ensemble_mesh(1, [cuda0]),
+                               torch.Generator().manual_seed(SEED), 8)
+    full = sharded.full()
+    good = torch.equal(full, alone.full()) and float(full.std(0).max()) > 0
+    ok &= good
+    log(f"  12c mc_dropout_sharded: TCN's 8 samples over 4 positions bit "
+        f"for bit the stack on one (std over samples max "
+        f"{float(full.std(0).max()):.3e})  {'ok' if good else 'FAIL'}")
+    return ok
+
+
+def mesh_cli(tmp) -> bool:
+    """12d: ``--dp auto process`` as a dp-1 mesh; ``--dp 2`` refused."""
+    u = SMALL_UPLOAD
+    src, _ = upload_clip(f"{tmp}/up", u["n"], u["cow"], h=u["h"], w=u["w"],
+                         fps=u["fps"])
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(
+        __file__)))
+    runs = {}
+    for name, dp in (("auto", "auto"), ("2", "2")):
+        runs[name] = subprocess.run(
+            [sys.executable, "-m", "lameness_tpu_torch", "--dp", dp, "--data",
+             f"{tmp}/data{name}", "process", str(src), "--small"],
+            capture_output=True, text=True, timeout=300, env=env)
+    a, b = runs["auto"], runs["2"]
+    good_a = a.returncode == 0 and ("mesh: inference sharded over 1 devices "
+                                    "(data=1, model=1)") in a.stdout
+    good_b = b.returncode != 0 and "needs 2 devices, only 1 visible" in \
+        (b.stdout + b.stderr)
+    if not good_a:
+        log(a.stdout[-2000:], a.stderr[-2000:])
+    log(f"  12d python -m lameness_tpu_torch --dp auto process (tiny "
+        f"engine): exit {a.returncode}, a (data=1, model=1) mesh; --dp 2: "
+        f"exit {b.returncode}, '{(b.stdout + b.stderr).strip().splitlines()[-1] if (b.stdout + b.stderr).strip() else ''}'"
+        f"  {'ok' if good_a and good_b else 'FAIL'}")
+    return good_a and good_b
+
+
+def mesh_phase(counts_path) -> bool:
+    """Phase 12 (in a process of its own: ``chip_smoke.py --mesh``)."""
+    import torch
+    from lameness_tpu_torch.ops import _cuda
+    _cuda.build(["attention", "sam_window_attention", "sam_global_attention"])
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    log(f"  card: {smi}")
+    t = [time.perf_counter()]
+    from lameness_tpu_torch.pipeline.engine import EngineSpec
+    s = EngineSpec()
+    rng = np.random.default_rng(SEED + 12)
+    frames = rng.integers(0, 256, (MESH_BATCH, s.clip_frames, s.frame_height,
+                                   s.frame_width, 3), dtype=np.uint8)
+    with switches({}):
+        ok, launches = mesh_engine(frames)
+    del frames
+    gc.collect()
+    torch.cuda.empty_cache()
+    t.append(time.perf_counter())
+    ok &= mesh_train(smi)
+    t.append(time.perf_counter())
+    with switches({}):
+        ok &= mesh_axes()
+    t.append(time.perf_counter())
+    with tempfile.TemporaryDirectory() as tmp:
+        ok &= mesh_cli(tmp)
+    t.append(time.perf_counter())
+    with open(counts_path, "w") as f:
+        json.dump(launches, f)
+    log(f"phase 12: {t[-1] - t[0]:.1f} s (12a {t[1] - t[0]:.1f}, 12b "
+        f"{t[2] - t[1]:.1f}, 12c {t[3] - t[2]:.1f}, 12d {t[4] - t[3]:.1f}); "
+        f"card {smi}")
+    return ok
+
+
+def mesh_in_fresh_process() -> tuple:
+    """Phase 12 in a process of its own (its engines, train states and
+    ring operands go with the process); returns (ok, its launch counts)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/launches.json"
+        res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--mesh", path], timeout=600)
+        launches = {}
+        if os.path.exists(path):
+            with open(path) as f:
+                launches = json.load(f)
+    return res.returncode == 0, launches
+
 
 def main() -> int:
     t_start = time.perf_counter()
@@ -4935,6 +5356,11 @@ def main() -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         return 0 if training_phase() else 1
+    if sys.argv[1:2] == ["--mesh"]:          # mesh_in_fresh_process
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        return 0 if mesh_phase(sys.argv[2] if len(sys.argv) > 2
+                               else os.devnull) else 1
     smi, hgmma = setup()
     ok_build = all(hgmma[name] > 0 for name in HOPPER_SOURCES)
     if not ok_build:
@@ -5016,6 +5442,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp, switches({}):
         ok_w, compose_launches = compose_phase(tmp)
     launches.update(compose_launches)
+    log("== phase 12: the mesh")
+    gc.collect()
+    torch.cuda.empty_cache()
+    ok_x, mesh_launches = mesh_in_fresh_process()
+    launches.update(mesh_launches)
     for kid, rec in records.items():
         # each kernel's count on its own path (K1 runs on every one)
         rec["launches"] = max(counts[rec["name"]]
@@ -5028,7 +5459,8 @@ def main() -> int:
                         for rec in records.values()]}
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     if not (ok_build and ok_k and ok_small and ok_e and ok_m and ok_c
-            and ok_s and ok_a and ok_u and ok_t and ok_p and ok_w):
+            and ok_s and ok_a and ok_u and ok_t and ok_p and ok_w
+            and ok_x):
         log("chip_smoke: FAILED")
         return 1
     log(smi)

@@ -29,8 +29,10 @@ the port it bound, so ``--port 0`` works.  A ``postgres://``
 
 The engine and the ``qdrant-server``'s store run on the card (with
 ``--cpu``, on the CPU), the engine in bf16 unless ``--f32``.  An upload is
-a ``.y4m`` file, or any container the ``ffmpeg`` binary decodes.  Not
-ported: the mesh (``--dp``/``--tp``, ROADMAP.md §1 item 5), which raises.
+a ``.y4m`` file, or any container the ``ffmpeg`` binary decodes.  ``--dp N``
+/ ``--tp M`` (or ``LAMENESS_DP``/``LAMENESS_TP``) shard the engine's
+inference over a (data=N, model=M) mesh of the visible cards, each once
+(``--dp auto``: all of them; with ``--cpu``, the one CPU device).
 """
 from __future__ import annotations
 
@@ -82,17 +84,29 @@ def ingest_spec(cfg=None):
                       pose_pixels=pose_pixels)
 
 
-def _refuse_unported(args):
-    """The mesh is not ported: ``--dp``/``--tp`` raise (and
-    ``LAMENESS_DP``/``LAMENESS_TP``, which the JAX command reads in their
-    place)."""
+def _shard(args, engine) -> None:
+    """``--dp``/``--tp`` (or ``LAMENESS_DP``/``LAMENESS_TP``): inference
+    over a (data, model) mesh of the visible cards, each once (with
+    ``--cpu``, the one CPU device); ``--dp auto`` takes them all."""
+    import torch
+    from .parallel.mesh import make_mesh
     dp = args.dp or os.environ.get("LAMENESS_DP")
-    tp = args.tp or os.environ.get("LAMENESS_TP")
-    if dp or (tp and int(tp) > 1):
-        raise SystemExit(
-            f"--dp {dp} --tp {tp}: multi-GPU serving is not ported to "
-            f"lameness_tpu_torch yet (ROADMAP.md §1 item 5); it runs on one "
-            f"card")
+    tp = int(args.tp or os.environ.get("LAMENESS_TP") or 1)
+    if not (dp or tp > 1):
+        return
+    visible = 1 if args.cpu else torch.cuda.device_count()
+    n = visible if str(dp) == "auto" else int(dp or 1) * tp
+    if n > visible:
+        raise SystemExit(f"--dp {dp} --tp {tp}: needs {n} devices, only "
+                         f"{visible} visible")
+    if n % tp != 0:
+        raise SystemExit(f"--dp {dp} --tp {tp}: {n} devices do not divide "
+                         f"into a (data={n // tp}, model={tp}) grid — tp "
+                         f"must divide the device count")
+    devices = [torch.device("cpu")] if args.cpu else None
+    engine.shard_inference(make_mesh(n, model_parallel=tp, devices=devices))
+    print(f"mesh: inference sharded over {n} devices (data={n // tp}, "
+          f"model={tp})", flush=True)
 
 
 def _build(args):
@@ -104,7 +118,6 @@ def _build(args):
     import torch
     from .core.config import ComputeConfig, Config
     from .pipeline.engine import LamenessEngine, make_test_engine
-    _refuse_unported(args)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = "cpu" if args.cpu else None
@@ -118,6 +131,8 @@ def _build(args):
                                 device=device)
         if engine.precision:
             print("precision:", engine.precision, flush=True)
+    # after the precision policy, so the replicas carry its dtypes
+    _shard(args, engine)
     return cfg, engine
 
 
@@ -130,9 +145,11 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="disable the bf16 engine policy (card default: "
                          "encoders bf16 per config.compute.dtype)")
     ap.add_argument("--dp", default=None,
-                    help="data-parallel serving: not ported (raises)")
+                    help="data-parallel serving over N cards ('auto': all "
+                         "visible)")
     ap.add_argument("--tp", type=int, default=None,
-                    help="tensor-parallel serving: not ported (raises)")
+                    help="tensor-parallel DINO over N cards of each data "
+                         "replica")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     s = sub.add_parser("serve", help="reactive app + admin API")

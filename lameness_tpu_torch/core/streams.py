@@ -14,7 +14,9 @@ port issues them on side streams:
 - ``fetch`` queues copies of device tensors into pinned host memory on the
   copy-out stream, after the compute queued so far and not after anything
   queued later, and returns a function that waits for those copies alone.
-On the CPU both run in place.
+On the CPU both run in place.  Over a mesh, tensors on another card than
+the lanes' (a data shard's frames or outputs) move on that card's current
+stream, and a readback from it blocks.
 """
 from __future__ import annotations
 
@@ -33,6 +35,16 @@ def host_to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
     host = torch.empty(array.shape, dtype=torch.uint8, pin_memory=True)
     np.copyto(host.numpy(), array)
     return host.to(device, non_blocking=True)
+
+
+def _tensors(out) -> List[torch.Tensor]:
+    """The tensors of a tensor, a dict of them, or a mesh's ``Sharded``
+    holders (their shards)."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if isinstance(out, dict):
+        return [t for v in out.values() for t in _tensors(v)]
+    return [t for s in out.shards.flat for t in _tensors(s)]
 
 
 class Overlap:
@@ -55,8 +67,9 @@ class Overlap:
         with torch.cuda.stream(self.copy_in):
             out = fn()
         compute.wait_stream(self.copy_in)
-        for t in out.values() if isinstance(out, dict) else [out]:
-            t.record_stream(compute)
+        for t in _tensors(out):
+            if t.device == self.device:
+                t.record_stream(compute)
         return out
 
     def fetch(self, tensors: Sequence[torch.Tensor]
@@ -70,8 +83,11 @@ class Overlap:
             hosts = []
             for t in tensors:
                 host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                host.copy_(t, non_blocking=True)
-                t.record_stream(self.copy_out)
+                if t.device == self.device:
+                    host.copy_(t, non_blocking=True)
+                    t.record_stream(self.copy_out)
+                else:          # another card's shard: a blocking copy
+                    host.copy_(t)
                 hosts.append(host)
             done = torch.cuda.Event()
             done.record(self.copy_out)

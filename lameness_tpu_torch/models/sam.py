@@ -215,11 +215,8 @@ class SamVisionEncoder(nn.Module):
         broadcast — the same per-window math (bit-exact in the JAX
         package), on fewer windows."""
         g = self.img_size // self.patch_size
-        x = self.patch_embed(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        x = self.embed(x)
         gh, gw = x.shape[1], x.shape[2]
-        pos = self.pos_embed if (gh, gw) == (g, g) \
-            else self.pos_embed[:, :gh, :gw]
-        x = x + pos
         first_global = min(self.global_attn_indexes) \
             if self.global_attn_indexes else self.depth
         for i in range(self.depth):
@@ -236,7 +233,19 @@ class SamVisionEncoder(nn.Module):
                               dim=1)
             else:
                 x = layer(x)
+        return self.neck(x)
 
+    def embed(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, 3) -> patch tokens with positions (B, gh, gw, dim)."""
+        g = self.img_size // self.patch_size
+        x = self.patch_embed(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        gh, gw = x.shape[1], x.shape[2]
+        pos = self.pos_embed if (gh, gw) == (g, g) \
+            else self.pos_embed[:, :gh, :gw]
+        return x + pos
+
+    def neck(self, x: torch.Tensor) -> torch.Tensor:
+        """The layers' output (B, gh, gw, dim) -> (B, gh, gw, out_chans)."""
         def conv(t, m: nn.Conv2d, padding: int):
             t, w = _promote(t, m.weight)
             y = F.conv2d(t.permute(0, 3, 1, 2), w, padding=padding)

@@ -20,11 +20,16 @@ from ..core.device import resolve_device
 def dropout(x: torch.Tensor, rate: float,
             generator: Optional[torch.Generator]) -> torch.Tensor:
     """flax nn.Dropout semantics: keep with prob 1-rate, scale 1/(1-rate);
-    identity when ``generator`` is None (deterministic) or rate is 0."""
+    identity when ``generator`` is None (deterministic) or rate is 0.  A
+    ``generator`` with a ``rand(shape, device)`` method draws the uniforms
+    itself (``pipeline/train.py`` ``RowDraws``: a data shard's rows of the
+    whole batch's draw)."""
     if generator is None or rate == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) \
-        >= rate
+    draw = getattr(generator, "rand", None)
+    u = draw(x.shape, x.device) if draw is not None else \
+        torch.rand(x.shape, generator=generator, device=x.device)
+    keep = u >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 

@@ -25,7 +25,7 @@ import torch.nn.functional as F
 
 from ..core.device import resolve_device
 from ..models.yolo import YoloV8, _anchors_for
-from .optim import Optimizer
+from .optim import LearningRate, Optimizer
 
 
 # ---------------------------------------------------------------------------
@@ -339,14 +339,15 @@ def detection_loss(levels, gt_labels, gt_boxes, gt_mask,
 class DetectTrainer:
     """Trainer for YoloV8 detection heads: ``model``'s parameters are
     trained in place on ``device`` (``None``: the card; raises without
-    one) with ``clip_by_global_norm(10)`` + ``adamw(lr, weight_decay)``.
+    one) with ``clip_by_global_norm(10)`` + ``adamw(lr, weight_decay)``;
+    ``lr`` may be a schedule, as optax's (``pipeline/optim.py``).
 
     Keeps an exponential moving average of the weights (ultralytics
     ramps its EMA decay as ``d * (1 - exp(-step/tau))``); evaluation
     should use ``ema_params`` (a state dict).
     """
 
-    def __init__(self, model: YoloV8, lr: float = 1e-3,
+    def __init__(self, model: YoloV8, lr: LearningRate = 1e-3,
                  weight_decay: float = 5e-4, ema_decay: float = 0.9999,
                  ema_tau: float = 2000.0, device=None):
         self.device = resolve_device(device)

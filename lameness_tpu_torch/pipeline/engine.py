@@ -25,15 +25,25 @@ checkpoint's variant, ultralytics YOLO and the trained pose model);
 ``install_pose_params`` switches the heads stage to trained pose with a
 per-frame heuristic fallback.
 
-Not in this port yet (see ROADMAP.md): the mesh, the monolith and pair
-modes and the batch-major I420 rows packing.
+The mesh (``shard_inference``, ``parallel/mesh.py``): each position of the
+data axis runs the four stages on its own clips, with its own replica of
+the weights (a replica on the engine's device shares its modules); a model
+axis over 1 also splits DINO's blocks over the model positions of each data
+row (``models/dino.py`` ``forward_tp``).  ``to_device`` then pads the batch
+to a multiple of the data axis and gives each data shard its own clips: the
+RGB rows, or its block of the batch-major I420 rows (``pack_i420_rows``).
+Every shard's stages and packed output are queued before any readback, and
+the padding is trimmed on return.
+
+Not in this port yet (see ROADMAP.md): the monolith and pair modes.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import os
 import time
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, List, Mapping, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -51,7 +61,8 @@ from ..models.yolo import YoloV8, convert_ultralytics_state_dict, detect
 from ..ops import preprocess as prep
 from ..ops.boxes import clip_boxes, pairwise_iou
 from ..video.yuv import (flat_views, i420_flat_to_rgb_device,
-                          pack_i420_flat, rgb_to_i420)
+                          i420_rows_to_rgb_device, pack_i420_flat,
+                          pack_i420_rows, rgb_to_i420)
 
 
 @dataclasses.dataclass
@@ -275,6 +286,9 @@ class LamenessEngine:
         self.pose_model: Optional[YoloV8] = None   # built when pose installs
         self.loaded_weights = {k: False for k in
                                ("yolo", "dino", "sam", "pose", "tcn", "gait")}
+        self._mesh = None          # shard_inference
+        self._replicas: List["LamenessEngine"] = []
+        self._dino_tp = None       # (DINO's shard tree, data row) of a replica
         # the config's memory governor reaches the spec also when the
         # caller installs the models (init_models=False)
         if self.config.sam.encode_chunk and not self.spec.sam_encode_chunk:
@@ -323,6 +337,7 @@ class LamenessEngine:
             model = getattr(self, name)
             model.load_state_dict(sd, strict=True)
             model.eval()
+        self._reshard()
 
     # -- the reference's torch checkpoints -----------------------------------
     def load_torch_weights(self, name: str, state_dict) -> None:
@@ -406,6 +421,12 @@ class LamenessEngine:
             else:
                 setattr(self, name, module)
         self.loaded_weights[name] = True
+        self._reshard()
+
+    def _reshard(self) -> None:
+        """New weights reach a mesh's replicas and DINO's shards."""
+        if self._mesh is not None:
+            self.shard_inference(self._mesh)
 
     # -- stage 1: detection --------------------------------------------------
     def _primary_boxes(self, boxes, scores, classes, valid, h: float,
@@ -553,7 +574,13 @@ class LamenessEngine:
         b, tdn = dino_frames.shape[:2]
         dino_in = dino_mod.preprocess_frames(dino_frames.reshape(
             b * tdn, h, w, 3)).to(s.dtype)
-        out = self.dino(dino_in)
+        if self._dino_tp is None:
+            out = self.dino(dino_in)
+        else:
+            shards, row = self._dino_tp
+            out = dino_mod.forward_tp(
+                self.dino, lambda key, m: shards[key].shards[row, m], dino_in,
+                list(shards["cls_token"].mesh.devices[row]))
         return {"embeddings": out["pooled"].reshape(b, tdn, -1)}
 
     # -- trained pose (tleap:122-197's hybrid) -------------------------------
@@ -690,7 +717,8 @@ class LamenessEngine:
         None: ``default_transfer()``) is what crosses to the device: the
         RGB rows, gathered straight into the pinned buffer (the split dict
         in one buffer and one copy), or the I420 planes of the whole batch
-        as one flat buffer that the device turns back into RGB."""
+        as one flat buffer that the device turns back into RGB.  With a
+        mesh installed, the sharded frames (``_to_device_sharded``)."""
         transfer = transfer or self.default_transfer()
         if transfer not in ("rgb", "yuv420"):
             raise ValueError(f"transfer must be 'rgb' or 'yuv420', got "
@@ -698,6 +726,8 @@ class LamenessEngine:
         s = self.spec
         if isinstance(frames, dict):
             self._check_packed(frames)
+        if self._mesh is not None:
+            return self._to_device_sharded(frames, transfer)
         if transfer == "yuv420":
             if not s.split:
                 i420 = rgb_to_i420(s.pack_frames(np.asarray(frames)))
@@ -762,11 +792,16 @@ class LamenessEngine:
                                      frames_dev))
         return out
 
-    def pack_output(self, out: Dict[str, Any]):
+    def pack_output(self, out):
         """The output tree -> (one flat uint8 device tensor, meta), for one
         copy to the host (``unpack_output``).  bool leaves travel as 0/1
         bytes, bf16 leaves as f32 (numpy has no bf16), the rest as their
-        raw bytes."""
+        raw bytes.  A list of trees (one per data shard of a mesh) -> (the
+        list of their flat tensors, each on its shard's device, meta)."""
+        if isinstance(out, list):
+            packed = [self.pack_output(o) for o in out]
+            return ([flat for flat, _ in packed],
+                    _ShardsMeta([meta for _, meta in packed]))
         paths, layout, parts = [], [], []
         for path, x in _flat_items(out):
             if x.dtype == torch.bool:
@@ -783,7 +818,11 @@ class LamenessEngine:
     @staticmethod
     def unpack_output(buf: np.ndarray, meta) -> Dict[str, Any]:
         """The inverse of ``pack_output`` on the host: one uint8 buffer ->
-        the nested numpy output dict, shapes and dtypes restored."""
+        the nested numpy output dict, shapes and dtypes restored (a mesh's
+        list of buffers -> their trees concatenated along the batch)."""
+        if isinstance(meta, _ShardsMeta):
+            return _concat_batch([LamenessEngine.unpack_output(b, m)
+                                  for b, m in zip(buf, meta.metas)])
         paths, layout = meta
         buf = np.asarray(buf)
         out: Dict[str, Any] = {}
@@ -817,7 +856,10 @@ class LamenessEngine:
         packed device tensor; ``transfer`` as in ``to_device``.  Returns the
         JAX engine's output dict as numpy (bf16 leaves read back as f32)
         through one device-to-host copy, or with ``readback=False`` the
-        device tensors."""
+        device tensors.  With a mesh installed, see ``_process_sharded``."""
+        if self._mesh is not None:
+            return self._process_sharded(frames, generator, transfer,
+                                         readback)
         leaves = frames.values() if isinstance(frames, dict) else [frames]
         # type and index, not device equality: an unindexed "cuda" does not
         # equal the "cuda:0" of a tensor on it
@@ -835,7 +877,17 @@ class LamenessEngine:
 
     def warmup(self, batch: int = 1) -> Dict[str, float]:
         """Run each stage once on zero frames (kernel builds, library
-        autotuning, allocator growth).  Returns seconds per stage."""
+        autotuning, allocator growth).  Returns seconds per stage.  With a
+        mesh installed, each data shard's replica runs the stages at the
+        batch rounded up to the data axis, its share of it (the seconds
+        summed over the shards)."""
+        if self._mesh is not None:
+            per = -(-batch // len(self._replicas))
+            timings: Dict[str, float] = {}
+            for eng in self._replicas:
+                for name, sec in eng.warmup(per).items():
+                    timings[name] = round(timings.get(name, 0.0) + sec, 3)
+            return timings
         s = self.spec
 
         def zeros(t, h, w):
@@ -867,6 +919,165 @@ class LamenessEngine:
                 timings[name] = round(time.perf_counter() - t0, 3)
         return timings
 
+    # -- the mesh ------------------------------------------------------------
+    def shard_inference(self, mesh) -> None:
+        """Inference over a (data, model) mesh (``parallel/mesh.py``).
+        Each data position gets a replica of the engine on its device (the
+        engine's own device shares the modules: nothing is copied) and runs
+        the whole staged engine on its own clips.  A model axis over 1 also
+        splits DINO's blocks over each data row's model positions
+        (``shard_params_tp``: query/key/value and fc1 by rows at head
+        boundaries, out and fc2 by columns), the row-parallel partial sums
+        added on the row's data device: equal to the replicated layout
+        within float reassociation of that sum (JAX pins atol=1e-4), not
+        bit for bit.  Install it after the precision policy, so the
+        replicas and shards carry the policy's dtypes."""
+        from ..parallel.mesh import MODEL_AXIS, shard_params_tp
+        if mesh.devices.ndim != 2:
+            raise ValueError("shard_inference needs a (data, model) mesh")
+        self._mesh = mesh
+        self._replicas = [self._replica(dev) for dev in mesh.devices[:, 0]]
+        if mesh.shape.get(MODEL_AXIS, 1) > 1:
+            shards = shard_params_tp(
+                mesh, {"dino": self.dino.state_dict()})["dino"]
+            for row, eng in enumerate(self._replicas):
+                eng._dino_tp = (shards, row)
+
+    def _replica(self, device) -> "LamenessEngine":
+        """An engine on ``device`` over this engine's spec and weights: the
+        same modules on the same device, copies moved there otherwise."""
+        eng = LamenessEngine(config=self.config, spec=self.spec,
+                             device=device, init_models=False)
+        for name in ("yolo", "dino", "sam", "tcn", "gait", "pose_model"):
+            module = getattr(self, name)
+            if module is not None and eng.device != self.device:
+                module = copy.deepcopy(module).to(eng.device)
+            setattr(eng, name, module)
+        eng.loaded_weights = self.loaded_weights
+        eng.precision = self.precision
+        return eng
+
+    def _to_device_sharded(self, frames, transfer: str):
+        """Host frames -> the batch padded with zero clips to a multiple of
+        the data axis and split over it: each data shard's clips are put on
+        its own device alone, as ``Sharded`` tensors over the data devices
+        (a dict of them for split ingest).  RGB: each shard's rows gathered
+        into its pinned buffer (``to_device`` of its replica); I420: the
+        padded batch as batch-major rows (``pack_i420_rows``), each shard
+        its block of rows, rebuilt on its device
+        (``i420_rows_to_rgb_device``)."""
+        from ..parallel.mesh import (DATA_AXIS, MODEL_AXIS, Mesh, P,
+                                     Sharded, pad_batch_to_multiple)
+        s = self.spec
+        dp = len(self._replicas)
+        b = len(frames["hi"] if isinstance(frames, dict) else frames)
+        per = -(-b // dp)
+
+        def packed(part):
+            if s.split:
+                return part if isinstance(part, dict) \
+                    else s.split_pack_host(part)
+            return s.pack_frames(np.asarray(part))
+
+        shards = []
+        if transfer == "yuv420":
+            tree, _ = pad_batch_to_multiple(packed(frames), dp)
+            i420 = {k: rgb_to_i420(v) for k, v in tree.items()} \
+                if isinstance(tree, dict) else rgb_to_i420(tree)
+            rows, layout = pack_i420_rows(i420)
+            for d, eng in enumerate(self._replicas):
+                block = rows[d * per:(d + 1) * per]
+                dev = eng._put(block.size, lambda buf, x=block: np.copyto(
+                    buf, x.reshape(-1))).view(block.shape)
+                shards.append(i420_rows_to_rgb_device(dev, layout))
+        else:
+            for d, eng in enumerate(self._replicas):
+                lo, hi = min(b, d * per), min(b, (d + 1) * per)
+                part = {k: v[lo:hi] for k, v in frames.items()} \
+                    if isinstance(frames, dict) else frames[lo:hi]
+                if hi - lo < per:
+                    part = _pad_rows(packed(part), per)
+                shards.append(eng.to_device(part, "rgb"))
+        data = Mesh(self._mesh.devices[:, :1], (DATA_AXIS, MODEL_AXIS))
+
+        def holder(parts):
+            grid = np.empty((dp, 1), object)
+            for d, t in enumerate(parts):
+                grid[d, 0] = t
+            return Sharded(data, P(DATA_AXIS), (dp * per,) + parts[0].shape[1:],
+                           grid)
+        if isinstance(shards[0], dict):
+            return {k: holder([sh[k] for sh in shards]) for k in shards[0]}
+        return holder(shards)
+
+    def _shard_generators(self, generator) -> List[torch.Generator]:
+        """One MC-dropout generator per data shard, each starting where a
+        run of the shard's clips alone would: seeded 0 (the unsharded
+        default) for None, else a copy of ``generator``'s state."""
+        gens = []
+        for eng in self._replicas:
+            g = torch.Generator(device=eng.device)
+            if generator is None:
+                g.manual_seed(0)
+            else:
+                g.set_state(generator.get_state())
+            gens.append(g)
+        return gens
+
+    @torch.no_grad()
+    def run_sharded(self, frames_dev, generator=None) -> List[Dict]:
+        """The four stages of every data shard (``to_device``'s sharded
+        frames), each on its replica, all queued before any is read back:
+        one output tree per shard, on its device."""
+        from ..parallel.mesh import Sharded
+        first = next(iter(frames_dev.values())) \
+            if isinstance(frames_dev, dict) else frames_dev
+        if not isinstance(first, Sharded):
+            raise TypeError("run_sharded takes to_device's sharded frames")
+        gens = self._shard_generators(generator)
+        outs = []
+        for d, eng in enumerate(self._replicas):
+            part = {k: v.shards[d, 0] for k, v in frames_dev.items()} \
+                if isinstance(frames_dev, dict) else frames_dev.shards[d, 0]
+            outs.append(eng.run_staged(part, gens[d]))
+        return outs
+
+    def _process_sharded(self, frames, generator, transfer, readback):
+        """``process_clip_batch`` over the mesh: host frames are padded and
+        split (``to_device``), ``to_device``'s sharded frames pass through.
+        ``generator``: see ``_shard_generators``.  Every shard's stages and
+        packed output are queued before the first readback; the padding is
+        trimmed from host frames' results.  With ``readback=False``, the
+        list of the shards' device output trees (padding included)."""
+        from ..parallel.mesh import Sharded
+        leaves = frames.values() if isinstance(frames, dict) else [frames]
+        orig_b = None
+        if all(isinstance(x, Sharded) for x in leaves):
+            frames_dev = frames
+        else:
+            orig_b = len(next(iter(leaves)))
+            frames_dev = self.to_device(frames, transfer)
+        outs = self.run_sharded(frames_dev, generator)
+        if not readback:
+            return outs
+        flats, meta = self.pack_output(outs)
+        out = self.unpack_output([eng._fetch(f) for eng, f in
+                                  zip(self._replicas, flats)], meta)
+        if orig_b is not None:
+            out = _trim_batch(out, orig_b)
+        return out
+
+    def process_clip_batch_sharded(self, frames,
+                                   generator: Optional[torch.Generator] = None,
+                                   transfer: Optional[str] = None
+                                   ) -> Dict[str, Any]:
+        """``process_clip_batch`` over the installed mesh (the same path it
+        takes once ``shard_inference`` is installed), kept as the explicit
+        API of the JAX package."""
+        if self._mesh is None:
+            raise RuntimeError("call shard_inference(mesh) first")
+        return self.process_clip_batch(frames, generator, transfer)
+
 
 def _flat_items(tree, prefix=()):
     """(key path, leaf) of a nested dict, depth first in key order."""
@@ -875,6 +1086,31 @@ def _flat_items(tree, prefix=()):
             yield from _flat_items(val, prefix + (key,))
         else:
             yield prefix + (key,), val
+
+
+class _ShardsMeta(NamedTuple):
+    """``pack_output``'s meta of a mesh's outputs: one meta per shard."""
+    metas: list
+
+
+def _concat_batch(trees: List[Dict[str, Any]]) -> Dict[str, Any]:
+    first = trees[0]
+    return {k: _concat_batch([t[k] for t in trees]) if isinstance(v, dict)
+            else np.concatenate([t[k] for t in trees]) for k, v in
+            first.items()}
+
+
+def _pad_rows(tree, n: int):
+    """Host arrays (or a dict of them) padded with zero clips to ``n``."""
+    def pad(x):
+        return np.pad(x, [(0, n - len(x))] + [(0, 0)] * (x.ndim - 1))
+    return {k: pad(v) for k, v in tree.items()} if isinstance(tree, dict) \
+        else pad(tree)
+
+
+def _trim_batch(tree: Dict[str, Any], b: int) -> Dict[str, Any]:
+    return {k: _trim_batch(v, b) if isinstance(v, dict) else v[:b]
+            for k, v in tree.items()}
 
 
 def _to_numpy(tree):

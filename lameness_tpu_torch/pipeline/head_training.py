@@ -10,10 +10,17 @@ epoch's weights where ``restore_engine`` picks them up
 
 Dropout masks come from a ``torch.Generator`` on the training device seeded
 with ``seed``; the epoch order from ``np.random.default_rng(seed)``, as in
-the JAX package.  The JAX module's data-parallel mesh is not ported.
+the JAX package.  With ``mesh=`` the heads are replicated over the data
+axis and a batch that the data axis divides is split over it, as in the JAX
+package: each data shard runs both heads on its rows (on its own device; a
+replica on the training device is the modules themselves), the loss is the
+global batch's, and each shard draws its rows of the masks the whole batch
+draws (``pipeline/train.py`` ``RowDraws``), so the run equals the
+unsharded one up to float reassociation.
 """
 from __future__ import annotations
 
+import copy
 import json
 from pathlib import Path
 from typing import Any, Dict, Optional, Tuple
@@ -82,17 +89,44 @@ def heads_loss(tcn: TCN, gait: GaitTransformer, x: torch.Tensor,
     return _bce(tp, y) + _bce(gp, y), (tp, gp)
 
 
+def sharded_heads_loss(replicas, x: torch.Tensor, m: torch.Tensor,
+                       y: torch.Tensor, generator: torch.Generator):
+    """``heads_loss`` with the batch split over the data shards:
+    ``replicas`` one (device, tcn, gait) per data shard.  Each shard takes
+    its rows of the whole batch's dropout draws; the caller's generator
+    moves on as one ``heads_loss`` call moves it."""
+    from .train import RowDraws
+    b, dp = len(y), len(replicas)
+    per = b // dp
+    first = x.device
+    tps, gps = [], []
+    for d, (dev, tcn, gait) in enumerate(replicas):
+        g = torch.Generator(device=dev)
+        g.set_state(generator.get_state())
+        draws = RowDraws(g, b, d * per, (d + 1) * per)
+        rows = slice(d * per, (d + 1) * per)
+        xd, md = x[rows].to(dev), m[rows].to(dev)
+        tps.append(tcn(xd, generator=draws)[:, 0].to(first))
+        gps.append(gait(xd, md, generator=draws)["probability"][:, 0]
+                   .to(first))
+    generator.set_state(g.get_state())
+    tp, gp = torch.cat(tps), torch.cat(gps)
+    return _bce(tp, y) + _bce(gp, y), (tp, gp)
+
+
 def _snapshot(module: torch.nn.Module) -> Dict[str, torch.Tensor]:
     return {k: v.detach().clone() for k, v in module.state_dict().items()}
 
 
 def train_heads(dirs, models_dir: Path, epochs: int = 50,
                 batch_size: int = 16, lr: float = 1e-3,
-                seed: int = 0,
+                seed: int = 0, mesh=None,
                 dataset: Optional[Dict[str, np.ndarray]] = None,
                 device=None) -> Dict[str, Any]:
     """Joint BCE training of TCN + GaitTransformer on ``device`` (``None``:
-    the card; raises without one); checkpoints the best epoch."""
+    the card; raises without one); checkpoints the best epoch.  ``mesh``: a
+    (data, model) mesh whose data axis splits the batches (the models live
+    on ``device``; the first data position should be it)."""
     data = dataset if dataset is not None else build_dataset(dirs)
     if data is None:
         return {"status": "failed",
@@ -105,8 +139,22 @@ def train_heads(dirs, models_dir: Path, epochs: int = 50,
     init = torch.Generator().manual_seed(seed)
     tcn.load_state_dict(seeded_state_dict(tcn, init))
     gait.load_state_dict(seeded_state_dict(gait, init))
-    opt = Optimizer([*tcn.parameters(), *gait.parameters()], lr,
-                    max_norm=1.0)
+    replicas, groups = [], []
+    if mesh is not None:
+        from ..parallel.mesh import DATA_AXIS
+        for rdev in mesh.devices[:, 0]:
+            if rdev == dev:
+                replicas.append((dev, tcn, gait))
+                continue
+            copies = [copy.deepcopy(m).to(rdev) for m in (tcn, gait)]
+            replicas.append((rdev, *copies))
+            for mod, cp in zip((tcn, gait), copies):
+                for p, q in zip(mod.parameters(), cp.parameters()):
+                    groups.append([p, q])
+        dp = mesh.shape[DATA_AXIS]
+    params = [*tcn.parameters(), *gait.parameters()]
+    params += [q for group in groups for q in group[1:]]
+    opt = Optimizer(params, lr, max_norm=1.0, replicas=_merge(groups))
     dropout = torch.Generator(device=dev).manual_seed(seed)
 
     x_all = torch.from_numpy(np.asarray(data["features"], np.float32)).to(dev)
@@ -123,8 +171,12 @@ def train_heads(dirs, models_dir: Path, epochs: int = 50,
         steps = 0
         for i in range(0, n, batch_size):
             idx = torch.from_numpy(order[i:i + batch_size]).to(dev)
-            loss, _ = heads_loss(tcn, gait, x_all[idx], m_all[idx],
-                                 y_all[idx], dropout)
+            if replicas and len(idx) % dp == 0:
+                loss, _ = sharded_heads_loss(replicas, x_all[idx],
+                                             m_all[idx], y_all[idx], dropout)
+            else:
+                loss, _ = heads_loss(tcn, gait, x_all[idx], m_all[idx],
+                                     y_all[idx], dropout)
             opt.step(loss)
             epoch_loss += loss.item()
             steps += 1
@@ -153,3 +205,11 @@ def train_heads(dirs, models_dir: Path, epochs: int = 50,
             "best_loss": best["loss"], "final_loss": history[-1],
             "train_accuracy": {"tcn": acc_tcn, "gait": acc_gait},
             "loss_history": history[:200]}
+
+
+def _merge(pairs):
+    """[param, copy] pairs -> one group per parameter (all its copies)."""
+    groups: Dict[int, list] = {}
+    for p, q in pairs:
+        groups.setdefault(id(p), [p]).append(q)
+    return list(groups.values())

@@ -43,8 +43,13 @@ is, as cv2 leaves it), and ``_mask_features`` measures masks with
 After the engine, ``run_tracking`` (host ByteTrack, or the device tracker,
 and Re-ID of each track's window of frame embeddings), the graph heads
 (``_ensure_graph_runner().process_video``, on ``device``), ``run_ml`` and
-``fusion.process_video``.  The mesh branch of ``process_stream`` is not
-ported.
+``fusion.process_video``.
+
+With a mesh installed on the engine (``shard_inference``), every batch of
+``process_stream`` (the trailing partial one too) is filled to a multiple
+of the data axis, with real clips where there are, so each engine call
+splits evenly over the data shards; each shard's packed output is copied
+back on its own.
 """
 from __future__ import annotations
 
@@ -367,6 +372,15 @@ class PipelineDriver:
         clip that gives no frames; it gets no result file.  The first error
         of the writer thread is raised after the stream has drained."""
         jobs = list(jobs)
+        mesh = getattr(self.engine, "_mesh", None)
+        if mesh is not None:
+            # a data-parallel engine: every batch a multiple of the data
+            # axis, filled with real clips (to_device would pad with zero
+            # clips, which the engine computes all the same)
+            from ..parallel.mesh import DATA_AXIS
+            dp = mesh.shape[DATA_AXIS]
+            pad_to = -(-max(batch_size, pad_to or 1) // dp) * dp
+            batch_size = pad_to
         q: "queue.Queue" = queue.Queue(maxsize=2)
         wq: "queue.Queue" = queue.Queue(maxsize=2)
         if decode_workers is None:
@@ -467,12 +481,13 @@ class PipelineDriver:
         lanes = Overlap(self.engine.device)
 
         def _readback(fetched):
-            wait, meta = fetched
+            wait, meta, sharded = fetched
             with TIMERS.time("readback"):
-                (flat,) = wait()
-                return self.engine.unpack_output(flat, meta)
+                bufs = wait()
+                return self.engine.unpack_output(
+                    bufs if sharded else bufs[0], meta)
 
-        pending = None                    # ((wait, meta), metas)
+        pending = None                    # ((wait, meta, sharded), metas)
         try:
             while True:
                 item = q.get()
@@ -488,7 +503,9 @@ class PipelineDriver:
                     # the packed output's copy back is queued before any
                     # later batch's stages, and waited for alone
                     flat, meta = self.engine.pack_output(out_dev)
-                    fetched = (lanes.fetch([flat]), meta)
+                    sharded = isinstance(flat, list)   # one a data shard
+                    fetched = (lanes.fetch(flat if sharded else [flat]),
+                               meta, sharded)
                 if pending is not None:
                     wq.put((_readback(pending[0]), pending[1]))
                 pending = (fetched, metas)

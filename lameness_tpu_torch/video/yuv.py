@@ -2,7 +2,9 @@
 
 The I420 planes carry 1.5 bytes a pixel where RGB carries 3: the host
 converts packed RGB frames to I420, the whole batch crosses to the device
-as one flat buffer, and the device rebuilds RGB.
+as one flat buffer, and the device rebuilds RGB.  Over a mesh the batch
+travels as rows (``pack_i420_rows``): each data shard's clips as one block
+of rows to its own device.
 
 Layout: standard I420 in one (..., H*3//2, W) uint8 plane -- Y rows
 [0, H), then the U plane (H/2 x W/2) and the V plane as one byte stream
@@ -28,7 +30,8 @@ import numpy as np
 import torch
 
 __all__ = ["i420_shape", "rgb_to_i420", "pack_i420_flat", "flat_views",
-           "i420_flat_to_rgb_device", "i420_to_rgb_device", "i420_to_rgb",
+           "i420_flat_to_rgb_device", "pack_i420_rows",
+           "i420_rows_to_rgb_device", "i420_to_rgb_device", "i420_to_rgb",
            "rgb_to_gray"]
 
 # cv2's BT.601 RGB -> YUV coefficients, fixed point with 20 fraction bits
@@ -159,6 +162,39 @@ def i420_flat_to_rgb_device(flat: torch.Tensor, layout: Tuple):
     if isinstance(tree, dict):
         return {k: i420_to_rgb_device(v) for k, v in tree.items()}
     return i420_to_rgb_device(tree)
+
+
+def pack_i420_rows(tree: Union[np.ndarray, Dict[str, np.ndarray]]):
+    """Host-side, the batch-major sibling of :func:`pack_i420_flat` for
+    sharded ingest: an I420 array (or dict) with (B, T, H*3//2, W) leaves ->
+    one (B, row_bytes) uint8 buffer whose row b holds every byte of clip b
+    (each leaf's, in sorted-key order), and its layout ((key, shape), ...).
+    A data shard's clips are then one contiguous block of rows, copied to
+    its device alone."""
+    if not isinstance(tree, dict):
+        tree = {"": np.asarray(tree)}
+    keys = sorted(tree)
+    b = next(iter(tree.values())).shape[0]
+    layout = tuple((k, tuple(tree[k].shape)) for k in keys)
+    rows = np.concatenate(
+        [np.ascontiguousarray(tree[k]).reshape(b, -1) for k in keys], axis=1)
+    return rows, layout
+
+
+def i420_rows_to_rgb_device(rows: torch.Tensor, layout: Tuple):
+    """The inverse of :func:`pack_i420_rows` on any block of its rows (on
+    any device): column slices per leaf, each rebuilt by
+    :func:`i420_to_rgb_device`; the batch is ``rows.shape[0]``."""
+    out = {}
+    off = 0
+    for key, shape in layout:
+        n = int(np.prod(shape[1:]))
+        out[key] = i420_to_rgb_device(
+            rows[:, off:off + n].reshape((rows.shape[0],) + tuple(shape[1:])))
+        off += n
+    if len(layout) == 1 and layout[0][0] == "":
+        return out[""]
+    return out
 
 
 def _fma(a: float, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:

@@ -313,9 +313,32 @@ def test_serve_nats_url_joins_a_port_broker(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--dp", "2", "serve"], "item 5"),
-    (["--tp", "2", "process", "x.y4m"], "item 5")])
+    (["--dp", "2", "serve"], "needs 2 devices, only 1 visible"),
+    (["--tp", "2", "process", "x.y4m"], "needs 2 devices, only 1 visible")])
 def test_unported_arguments_raise(tmp_path, argv, item):
+    """A mesh larger than the visible devices raises JAX's message (under
+    ``--cpu`` one device is visible)."""
     from lameness_tpu_torch.__main__ import main
     with pytest.raises(SystemExit, match=item):
         main(["--cpu", "--data", str(tmp_path)] + argv)
+
+
+def test_dp_auto_serves_on_a_dp1_mesh(tmp_path, capsys):
+    """``--cpu --dp auto serve --small``: a (data=1, model=1) mesh of the
+    CPU, the API answers, and the engine warms up over the mesh."""
+    from lameness_tpu_torch.__main__ import parse_args, start_serve
+    app, bridge = start_serve(parse_args(
+        ["--cpu", "--dp", "auto", "--data", str(tmp_path / "d"), "serve",
+         "--small", "--port", "0", "--no-resume"]))
+    try:
+        assert bridge is None
+        assert "mesh: inference sharded over 1 devices (data=1, model=1)" \
+            in capsys.readouterr().out
+        eng = app.driver.engine
+        assert eng._mesh.shape == {"data": 1, "model": 1}
+        assert set(eng.warmup()) == {"detect", "sam", "dino", "heads"}
+        url = f"http://127.0.0.1:{app.server.port}"
+        with urllib.request.urlopen(f"{url}/health", timeout=10) as r:
+            assert json.loads(r.read())["status"] == "healthy"
+    finally:
+        app.close()

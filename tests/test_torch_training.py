@@ -172,6 +172,36 @@ def test_optimizer_matches_optax(max_norm):
                                    atol=1e-6, rtol=0)
 
 
+def test_optimizer_schedule_matches_optax():
+    """A learning-rate schedule, as optax's: four steps of clip + AdamW
+    whose rate ramps up over two updates and falls over two, against
+    optax's ``join_schedules`` of two ``linear_schedule``s; within 1e-6."""
+    rng = np.random.default_rng(2)
+    shapes = [(3, 4), (5,)]
+    p0 = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    grads = [[rng.standard_normal(s).astype(np.float32) for s in shapes]
+             for _ in range(4)]
+    sched = optax.join_schedules([optax.linear_schedule(5e-3, 1e-2, 2),
+                                  optax.linear_schedule(1e-2, 2e-3, 2)], [2])
+
+    def rate(n):
+        return 5e-3 + 2.5e-3 * n if n < 2 else 1e-2 - 4e-3 * (n - 2)
+    tx = optax.chain(optax.clip_by_global_norm(1.0), optax.adamw(sched))
+    jp = [jnp.asarray(p) for p in p0]
+    state = tx.init(jp)
+    params = [torch.nn.Parameter(torch.from_numpy(p.copy())) for p in p0]
+    opt = Optimizer(params, rate, max_norm=1.0)
+    for i, g in enumerate(grads):
+        upd, state = tx.update([jnp.asarray(x) for x in g], state, jp)
+        jp = optax.apply_updates(jp, upd)
+        opt.step(sum((p * torch.from_numpy(x)).sum()
+                     for p, x in zip(params, g)))
+        assert opt.count == i + 1
+    for p, w in zip(params, jp):
+        np.testing.assert_allclose(p.detach().numpy(), np.asarray(w),
+                                   atol=1e-6, rtol=0)
+
+
 def test_clip_by_global_norm_formula():
     """g · c / norm only where norm >= c, no epsilon."""
     g = [torch.tensor([3.0, 4.0]), torch.tensor([0.0])]
