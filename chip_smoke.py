@@ -173,10 +173,17 @@ Phases, each failing loudly (no exception is swallowed):
      stopped in a ``finally`` and must exit with 0.
   12. the mesh (in a process of its own: ``chip_smoke.py --mesh``; every
      mesh repeats cuda:0, the card's machine having one H100): (a) the
-     default engine over dp 2 at B = 4 bit for bit the unsharded engine on
-     each half alone (each shard the same MC-dropout generator state), RGB
-     and yuv420 rows transfer, K1-K3 counted over the shards (the ``mesh``
-     entry of the launches); B = 3 padded to 4 and trimmed; dp 2 x tp 2
+     default engine over dp 2 at B = 4, with the heads at dropout 0 and
+     at MC dropout, every output bit for bit the unsharded engine on each
+     shard's clips alone, fed their rows of the whole batch's MC-dropout
+     draws (JAX's rule; ``parallel/same_batch.py``), the generator left
+     where the whole-batch call leaves it, and the batch-size difference
+     to the unsharded engine at the whole batch printed, not gated; each
+     shard's draws its rows of the unsharded draw bit for bit; RGB and
+     yuv420 rows transfer, K1-K3 counted over the shards (the ``mesh``
+     entry of the launches); B = 3 the same way, the batch padded with a
+     zero clip, trimmed; pair and monolith over dp 2 the same way, and
+     bit for bit the sharded staged run; dp 2 x tp 2
      (DINO's 12 heads 6 a model shard) against the replicated layout, the
      DINO embeddings within 1e-4 on an f32 engine, the bf16 default's
      difference reported; (b) the train step at DINOv2 ViT-B/14 width
@@ -191,6 +198,19 @@ Phases, each failing loudly (no exception is swallowed):
      for bit the stack on one; (d) ``python -m lameness_tpu_torch --dp auto
      process`` (tiny engine) as a dp-1 mesh, ``--dp 2`` refused with JAX's
      message.
+  13. the engine's modes (run after phase 4, on phase 3's engine, weights
+     and clips: B = 2, bf16): ``pair`` as two captured CUDA graphs,
+     ``monolith`` as one. (a) both bit for bit staged, RGB and yuv420
+     transfer; (b) K1 12, K2 10, K3 4 a call in each mode, by the
+     wrappers' counts (a replay adds the launches recorded in its capture)
+     and by the device functions a profiled call ran on the card; (c) two calls in a row with one
+     generator equal two staged calls; (d) after ``install_state_dict``
+     with other seeded DINO weights the graphs are dropped and a call
+     equals ``run_staged`` with the new weights (the weights are put back
+     after); (e) a ``readback=False`` tree held across the next call
+     unchanged; times, not gated, in the order staged pair monolith
+     monolith pair staged: wall and CUDA-event ms a call, device busy of
+     one profiled call, capture seconds (a ``modes record`` line).
 The line before the last is the kernel record (JSON); the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 without a CUDA device or outside the repository.
@@ -2469,6 +2489,29 @@ def kernel_events(fn):
     copies = sum("Memcpy" in e.name or "Memset" in e.name for e in dev)
     return len(dev) - copies, copies, sum(
         e.time_range.end - e.time_range.start for e in dev) / 1e3
+
+
+# the device function each of the default engine's kernels launches, as
+# torch.profiler names it
+DEVICE_FUNCTIONS = {"K1": "lameness::dino_attention_kernel",
+                    "K2": "lameness::window_attention_kernel",
+                    "K3": "lameness::hopper_global_kernel"}
+
+
+def device_launches(fn) -> dict:
+    """K1-K3's kernels that one call of ``fn`` ran on the card, counted by
+    device-function name in a torch.profiler trace: what the card ran,
+    a captured graph's replay included, not the wrappers' counts."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {kid: sum(fname in n for n in names)
+            for kid, fname in DEVICE_FUNCTIONS.items()}
 
 
 def busy_share(fn):
@@ -4955,9 +4998,15 @@ def compose_phase(tmp) -> tuple:
 # the mesh on the one card: every mesh repeats cuda:0 (NCCL takes no two
 # ranks on one GPU; the port's single-controller mesh splits the batch, the
 # heads, the layers and the sequence there, and runs K1-K3 in each shard).
-# 12a: the default engine over dp 2 at B = MESH_BATCH, against each half
-# alone (each shard the same MC-dropout generator state as its half's run
-# alone), RGB and yuv420 transfer, bit for bit; B = 3 pads to 4; dp 2 x tp 2
+# 12a: the default engine over dp 2 at B = MESH_BATCH, RGB and yuv420
+# transfer, at dropout 0 and at MC dropout, bit for bit the unsharded engine
+# on each shard's clips alone fed their rows of the whole batch's draws
+# (JAX's MC-dropout rule; the libraries round a clip's floats differently
+# at another batch size, so the unsharded engine at the whole batch is a
+# printed difference), each shard's draws its rows of the unsharded draw
+# bit for bit; B = 3 the same way on the batch padded with a zero clip;
+# pair and monolith over dp 2 the same way and bit for bit the sharded
+# staged run; dp 2 x tp 2
 # against the replicated layout on an f32 engine, DINO embeddings within
 # JAX's atol (shard_inference's docstring), and the bf16 default's
 # difference reported.  12b: the train step at DINOv2 ViT-B/14 width, one
@@ -4983,6 +5032,9 @@ def mesh_engine(frames) -> tuple:
     """12a.  Returns (ok, {path: launches})."""
     import torch
     from lameness_tpu_torch.core.config import ComputeConfig, Config
+    from lameness_tpu_torch.parallel.same_batch import (batch_difference,
+                                                        differing_leaves,
+                                                        same_batch)
     from lameness_tpu_torch.pipeline.engine import EngineSpec, LamenessEngine
     eng = default_engine()
     eng.warmup(batch=2)
@@ -4990,47 +5042,107 @@ def mesh_engine(frames) -> tuple:
 
     def gen():
         return torch.Generator(device="cuda").manual_seed(SEED)
-    for transfer in ("rgb", "yuv420"):
-        halves = [dict(leaves(eng.process_clip_batch(
-            frames[i:i + 2], generator=gen(), transfer=transfer)))
-            for i in range(0, MESH_BATCH, 2)]
-        want = {k: np.concatenate([h[k] for h in halves]) for k in halves[0]}
-        m = eng.with_spec(eng.spec)
-        m.shard_inference(mesh_of(2))
+
+    refs = {}
+
+    def reference(clips, transfer):
+        """``same_batch``'s references for ``clips`` with the heads at
+        dropout 0 and at MC dropout, and the generator's state after the
+        whole-batch call: computed once a (batch, transfer)."""
+        key = (len(clips), transfer)
+        if key not in refs:
+            with heads_dropout0(eng):
+                ref0 = same_batch(eng, clips, gen(), 2, transfer=transfer)
+            g_one = gen()
+            ref = same_batch(eng, clips, g_one, 2, transfer=transfer)
+            refs[key] = ref0, ref, g_one.get_state()
+        return refs[key]
+
+    def same_batch_run(name, m, clips, transfer="rgb", mode="staged"):
+        """``m`` (dp 2) against the unsharded engine on each shard's clips
+        alone, fed their rows of the whole padded batch's draws
+        (``parallel/same_batch.py``): every output bit for bit, with the
+        heads at dropout 0 (staged; the modes share staged's run) and at
+        MC dropout (``mode``), and the generator left where the
+        whole-batch call leaves it.  The batch-size difference to the
+        unsharded engine at the whole batch is printed, not gated."""
+        (whole0, alone0, _), (whole, alone, draws), g_state = \
+            reference(clips, transfer)
+        differ0 = []
+        if mode == "staged":
+            with heads_dropout0(eng):
+                got0 = m.process_clip_batch(clips, gen(), transfer=transfer)
+            differ0 = differing_leaves(got0, alone0)
+        g_shard = gen()
         reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        got = m.process_clip_batch(frames, generator=gen(), transfer=transfer)
+        got = m.process_clip_batch(clips, g_shard, transfer=transfer,
+                                   mode=mode)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = read_counts()
-        good = same_leaves(got, want) and expect_launches(
-            counts, {k: 2 * v for k, v in BASE_LAUNCHES.items()})
+        differ = differing_leaves(got, alone)
+        good = not differ0 and not differ and bool(draws) \
+            and torch.equal(g_shard.get_state(), g_state) \
+            and all(v.shape[0] == len(clips) for _, v in leaves(got))
+        log(f"  12a {name}: each shard's clips alone (fed their rows of the "
+            f"whole batch's {len(draws)} draws), leaves not bit for bit: at "
+            f"dropout 0 {differ0 if mode == 'staged' else 'as staged'}, at "
+            f"MC dropout ({mode}) {differ}; the "
+            f"generator left where the unsharded call leaves it; the "
+            f"batch-size difference to the unsharded engine at the whole "
+            f"batch ({len(clips) + len(clips) % 2} clips, not gated): at "
+            f"dropout 0 {json.dumps(batch_difference(alone0, whole0))}, at "
+            f"MC dropout {json.dumps(batch_difference(alone, whole))}; "
+            f"{wall:.3f} s  {'ok' if good else 'FAIL'}")
+        return good, counts, got
+
+    for transfer in ("rgb", "yuv420"):
+        m = eng.with_spec(eng.spec)
+        m.shard_inference(mesh_of(2))
+        good, counts, got = same_batch_run(
+            f"dp 2, B={MESH_BATCH}, {transfer}", m, frames, transfer)
+        good &= expect_launches(counts, {k: 2 * v for k, v in
+                                         BASE_LAUNCHES.items()})
         ok &= good
         if transfer == "rgb":
             launches["mesh"] = counts
             rgb_out = got
-        log(f"  12a dp 2, B={MESH_BATCH}, {transfer}: every output bit for "
-            f"bit the unsharded engine on each half alone; K1-K3 "
+        log(f"  12a dp 2, B={MESH_BATCH}, {transfer}: K1-K3 "
             f"{[counts[n] for n in ('attention', 'sam_window_attention_v3', 'sam_global_attention_v4')]}"
-            f" (2 shards x 12/10/4); {wall:.3f} s  {'ok' if good else 'FAIL'}")
-    got3 = m.process_clip_batch(frames[:3], generator=gen())
-    shapes = all(v.shape[0] == 3 for _, v in leaves(got3))
-    a, b = dict(leaves(got3)), dict(leaves(rgb_out))
-    first = all(np.array_equal(a[k][:2], b[k][:2]) for k in a)
-    # the second shard runs [clip 2, zero clip]: its clip 2 is the
-    # unsharded engine's on that pair, every output bit for bit
-    pair = np.concatenate([frames[2:3], np.zeros_like(frames[:1])])
-    alone = dict(leaves(eng.process_clip_batch(pair, generator=gen())))
-    third = all(np.array_equal(a[k][2], alone[k][0]) for k in a)
-    agree = float((a["masks"][2] == b["masks"][2]).mean())
-    good = shapes and first and third
+            f" (2 shards x 12/10/4)  {'ok' if good else 'FAIL'}")
+    good = draws_are_rows(eng, m, frames)
     ok &= good
-    log(f"  12a B=3 over dp 2 (one zero clip, trimmed): every output of 3 "
-        f"clips; clips 0-1 bit for bit the B=4 run's; clip 2 bit for bit "
-        f"the unsharded engine on [clip 2, zero clip] {third} (its mask "
-        f"agreement with the B=4 run's clip 2 {agree:.5f}, not gated)  "
-        f"{'ok' if good else 'FAIL'}")
+    log(f"  12a dp 2, B={MESH_BATCH}: each shard's MC-dropout draws, site by "
+        f"site, its clips' rows of each sample's block of the unsharded "
+        f"engine's draw, bit for bit  {'ok' if good else 'FAIL'}")
+    good, _, got3 = same_batch_run("B=3 over dp 2 (one zero clip, trimmed)",
+                                   m, frames[:3])
+    ok &= good
+    a, b = dict(leaves(got3)), dict(leaves(rgb_out))
+    agree = float((a["masks"][:3] == b["masks"][:3]).mean())
+    log(f"  12a B=3: mask agreement with the B=4 run's first 3 clips "
+        f"{agree:.5f} (not gated)")
+    for mode in ("pair", "monolith"):
+        m.warmup(batch=MESH_BATCH, mode=mode)
+        good, counts, got = same_batch_run(
+            f"{mode} over dp 2, B={MESH_BATCH}", m, frames, mode=mode)
+        good &= expect_launches(counts, {k: 2 * v for k, v in
+                                         BASE_LAUNCHES.items()})
+        staged = same_leaves(got, rgb_out)
+        good &= staged
+        ok &= good
+        launches[f"mesh {mode}"] = counts
+        log(f"  12a {mode} over dp 2: every output bit for bit the sharded "
+            f"staged run's {staged}; K1-K3 "
+            f"{[counts[n] for n in ('attention', 'sam_window_attention_v3', 'sam_global_attention_v4')]}"
+            f" (2 shards x 12/10/4, counted from the captures)  "
+            f"{'ok' if good else 'FAIL'}")
+        m.drop_graphs()
+    del m
+    gc.collect()
+    torch.cuda.empty_cache()
     # dp x tp: f32 engine, the DINO embeddings against the replicated layout
     for name, cfg in (("f32", Config(compute=ComputeConfig(dtype="float32"))),
                       ("bf16", None)):
@@ -5333,6 +5445,201 @@ def mesh_in_fresh_process() -> tuple:
     return res.returncode == 0, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 13
+# ---------------------------------------------------------------------------
+# the engine's modes on phase 3's engine (its weights, warm, and its two
+# seeded 720p clips, B = 2, bf16): pair is two captured CUDA graphs, monolith
+# one.  (a) pair and monolith bit for bit staged, RGB and yuv420 transfer;
+# (b) K1 12, K2 10, K3 4 a call in each mode, by the wrappers' counts (a
+# replay adds the launches recorded in the capture) and by the device
+# functions one profiled call ran (DEVICE_FUNCTIONS); (c) two calls in a row with one generator equal
+# two staged calls, the generator advanced alike; (d) after install_state_
+# dict with other seeded DINO weights, a call (captured anew) equals
+# run_staged with them; (e) a readback=False tree held across the next call
+# unchanged.  Then the per-call times of the three modes (not gated), in the
+# order staged pair monolith monolith pair staged: wall and CUDA-event ms,
+# device busy of one profiled call, and each graph's capture seconds.
+MODE_TURNS = ("staged", "pair", "monolith", "monolith", "pair", "staged")
+
+
+@contextlib.contextmanager
+def heads_dropout0(eng):
+    """``eng``'s sequence heads at dropout 0 (every ``rate`` attribute of
+    the TCN and the GaitTransformer, shared by its with_spec engines and
+    replicas on its device), restored afterwards."""
+    mods = [m for head in (eng.tcn, eng.gait) for m in head.modules()
+            if hasattr(m, "rate")]
+    saved = [m.rate for m in mods]
+    try:
+        for m in mods:
+            m.rate = 0.0
+        yield
+    finally:
+        for m, rate in zip(mods, saved):
+            m.rate = rate
+
+
+def draws_are_rows(eng, m, frames) -> bool:
+    """Each data shard of ``m`` (``eng`` over dp 2) consumes, site by site,
+    its clips' rows of every MC sample's block of the draw the unsharded
+    engine makes at the same batch, bit for bit."""
+    import torch
+    from lameness_tpu_torch.parallel.same_batch import (RecordedDraws,
+                                                        shard_draws_are_rows)
+    from lameness_tpu_torch.pipeline.train import RowDraws
+    whole = RecordedDraws(torch.Generator(device="cuda").manual_seed(SEED))
+    eng.process_clip_batch(frames, whole)
+    shard_draws = []
+    rand = RowDraws.rand
+
+    def spy(self, shape, device):
+        u = rand(self, shape, device)
+        shard_draws.append((self.lo, self.hi, u))
+        return u
+    RowDraws.rand = spy
+    try:
+        m.process_clip_batch(frames, torch.Generator(device="cuda"
+                                                     ).manual_seed(SEED))
+    finally:
+        RowDraws.rand = rand
+    return shard_draws_are_rows(whole.draws, shard_draws, len(frames), 2)
+
+
+def engine_modes(eng, frames, smi) -> tuple:
+    """Phase 13 on phase 3's engine.  Returns (ok, {path: launches})."""
+    import torch
+    from lameness_tpu_torch.pipeline.engine import _flat_items
+    from lameness_tpu_torch.weights import seeded_state_dict
+
+    def gen():
+        return torch.Generator(device="cuda").manual_seed(SEED)
+    ok, launches, capture = True, {}, {}
+    for mode in ("pair", "monolith"):
+        t0 = time.perf_counter()
+        eng.warmup(batch=len(frames), mode=mode)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        [cap] = [c for c in eng._graphs.values() if c.mode == mode]
+        capture[mode] = {"warmup_s": round(wall, 3), "graphs": cap.seconds,
+                         "recorded": cap.launches}
+        log(f"  13 warmup(mode={mode!r}): {wall:.2f} s, {len(cap.graphs)} "
+            f"graph(s), eager run + capture s {json.dumps(cap.seconds)}, "
+            f"launches recorded in the capture {json.dumps(cap.launches)}; "
+            f"card {smi}")
+    # (a)
+    for transfer in ("rgb", "yuv420"):
+        want = eng.process_clip_batch(frames, gen(), transfer=transfer)
+        for mode in ("pair", "monolith"):
+            got = eng.process_clip_batch(frames, gen(), mode=mode,
+                                         transfer=transfer)
+            good = same_leaves(got, want) and check_outputs(
+                got, eng.spec, len(frames))
+            ok &= good
+            log(f"  13a {mode}, {transfer}: every output bit for bit "
+                f"staged's  {'ok' if good else 'FAIL'}")
+    # (b)
+    for mode in ("staged", "pair", "monolith"):
+        reset_counts()
+        eng.process_clip_batch(frames, gen(), mode=mode)
+        counts = read_counts()
+        ran = device_launches(lambda: eng.process_clip_batch(
+            frames, gen(), mode=mode))
+        good = expect_launches(counts, BASE_LAUNCHES) \
+            and ran == BASE_LAUNCHES
+        ok &= good
+        launches[f"mode {mode}"] = counts
+        log(f"  13b {mode}: K1 {counts['attention']}, K2 "
+            f"{counts['sam_window_attention_v3']}, K3 "
+            f"{counts['sam_global_attention_v4']} in one call (12/10/4"
+            f"{'' if mode == 'staged' else ', counted from the capture'}); "
+            f"the card ran K1-K3 {json.dumps(ran)} in one profiled call, "
+            f"counted by device-function name  {'ok' if good else 'FAIL'}")
+    # (c)
+    g_ref = gen()
+    ref = [eng.process_clip_batch(frames, g_ref) for _ in range(2)]
+    for mode in ("pair", "monolith"):
+        g = gen()
+        got = [eng.process_clip_batch(frames, g, mode=mode) for _ in range(2)]
+        good = all(same_leaves(a, b) for a, b in zip(got, ref)) \
+            and torch.equal(g.get_state(), g_ref.get_state()) \
+            and not np.array_equal(got[0]["tcn_probability"],
+                                   got[1]["tcn_probability"])
+        ok &= good
+        log(f"  13c {mode}: two calls with one generator bit for bit two "
+            f"staged calls (the second's MC dropout another draw), the "
+            f"generator advanced alike  {'ok' if good else 'FAIL'}")
+    # (d)
+    orig = {k: v.detach().clone() for k, v in eng.dino.state_dict().items()}
+    dev = eng.to_device(frames)
+    before = eng.process_clip_batch(dev, gen(), mode="monolith")
+    eng.install_state_dict("dino", seeded_state_dict(
+        eng.dino, torch.Generator().manual_seed(SEED + 13)))
+    dropped = not eng._graphs
+    want = eng.process_clip_batch(dev, gen())
+    moved = not np.array_equal(want["embeddings"], before["embeddings"])
+    for mode in ("pair", "monolith"):
+        got = eng.process_clip_batch(dev, gen(), mode=mode)
+        good = dropped and moved and same_leaves(got, want)
+        ok &= good
+        log(f"  13d {mode} after install_state_dict('dino', other seeded "
+            f"weights): graphs dropped {dropped}, embeddings moved {moved}, "
+            f"every output bit for bit run_staged's with the new weights  "
+            f"{'ok' if good else 'FAIL'}")
+    eng.install_state_dict("dino", orig)
+    # (e)
+    other = eng.to_device(frames[::-1].copy())
+    for mode in ("pair", "monolith"):
+        held = eng.process_clip_batch(dev, gen(), mode=mode, readback=False)
+        snap = {k: v.clone() for k, v in _flat_items(held)}
+        eng.process_clip_batch(other, gen(), mode=mode, readback=False)
+        torch.cuda.synchronize()
+        good = all(torch.equal(v, snap[k]) for k, v in _flat_items(held))
+        ok &= good
+        log(f"  13e {mode}: a readback=False tree held across the next call "
+            f"unchanged  {'ok' if good else 'FAIL'}")
+    del held, snap, other, dev
+    # times, not gated
+    times = {mode: {"wall_ms": [], "event_ms": []} for mode in MODE_TURNS}
+    for mode in MODE_TURNS:
+        for _ in range(REPEATS):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            eng.process_clip_batch(frames, gen(), mode=mode)
+            end.record()
+            torch.cuda.synchronize()
+            times[mode]["wall_ms"].append(
+                round((time.perf_counter() - t0) * 1e3, 3))
+            times[mode]["event_ms"].append(round(start.elapsed_time(end), 3))
+    for mode in ("staged", "pair", "monolith"):
+        wall, share = busy_share(lambda: eng.process_clip_batch(
+            frames, gen(), mode=mode))
+        times[mode]["profiled_wall_ms"] = round(wall, 3)
+        times[mode]["device_busy_ms"] = None if share is None \
+            else round(wall * share, 3)
+        log(f"  13 {mode}: wall ms {times[mode]['wall_ms']}, CUDA-event ms "
+            f"{times[mode]['event_ms']} (turns {MODE_TURNS}); profiled "
+            f"call {wall:.1f} ms, device busy "
+            + ("not measured" if share is None else
+               f"{wall * share:.1f} ms ({100 * share:.1f}%)")
+            + f"; card {smi}")
+    log("modes record " + json.dumps({"card": smi, "batch": len(frames),
+                                      "order": MODE_TURNS, "times": times,
+                                      "capture": capture}))
+    eng.drop_graphs()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ok, launches
+
+
+def header(title: str, t_start: float) -> None:
+    """A phase's header line, with the seconds since the script started."""
+    log(f"== {title} [{time.perf_counter() - t_start:.1f} s in]")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     here = os.path.dirname(os.path.abspath(__file__))
@@ -5366,22 +5673,26 @@ def main() -> int:
     if not ok_build:
         log("a library of K1 or K3-K6 holds no HGMMA: its wgmma route was "
             "not built " + json.dumps({n: hgmma[n] for n in HOPPER_SOURCES}))
-    log("== phase 2: kernels against their plain versions")
+    header("phase 2: kernels against their plain versions", t_start)
     records, ok_k = check_kernels()
-    log("== phase 3: engine")
+    header("phase 3: engine", t_start)
     ok_small = True
     for sel, env, _ in SELECTIONS:
         with switches(env):
             log(f"small engine, {sel}:")
             ok_small &= check_small_engine()
     launches, ok_e, (eng, frames, *ref) = run_engine()
-    log("== phase 4: serving modes")
+    header("phase 4: serving modes", t_start)
     ok_m = run_modes(eng, frames, *ref)
     for name, _, small_kw, env, _ in MODES:
         with switches(env):
             log(f"small engine, {name}:")
             ok_m &= check_small_engine(small_kw)
-    log("== phase 5: checkpoints")
+    header("phase 13: the engine's modes (phase 3's engine)", t_start)
+    with switches({}):
+        ok_13, mode_launches = engine_modes(eng, frames, smi)
+    launches.update(mode_launches)
+    header("phase 5: checkpoints", t_start)
     with switches({}):
         ok_c = pass_through(eng, frames)
         del eng
@@ -5395,7 +5706,7 @@ def main() -> int:
         ok_c &= vit_h(frames)
         log("small engine, SAM at head dim 80:")
         ok_c &= check_small_engine(sam=HD80_SAM)
-    log("== phase 6: serving")
+    header("phase 6: serving", t_start)
     work = tempfile.TemporaryDirectory()
     with switches({}):
         torch.cuda.empty_cache()
@@ -5417,32 +5728,32 @@ def main() -> int:
         torch.cuda.empty_cache()
         log("small engine, serving stream:")
         ok_s &= check_small_stream()
-    log("== phase 7: analysis")
+    header("phase 7: analysis", t_start)
     with work:
         gc.collect()            # phase 6's engine, held by reference cycles
         torch.cuda.empty_cache()
         ok_a = analysis(work.name, f"{work.name}/stream", cow, stream)
-    log("== phase 8: upload")
+    header("phase 8: upload", t_start)
     gc.collect()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp, switches({}):
         ok_u, upload_launches = upload_phase(tmp)
     launches.update(upload_launches)
-    log("== phase 9: training")
+    header("phase 9: training", t_start)
     gc.collect()
     torch.cuda.empty_cache()
     ok_t = training_in_fresh_process()
-    log("== phase 10: platform")
+    header("phase 10: platform", t_start)
     with tempfile.TemporaryDirectory() as tmp, switches({}):
         ok_p, platform_launches = platform_phase(tmp)
     launches.update(platform_launches)
-    log("== phase 11: the compose topology")
+    header("phase 11: the compose topology", t_start)
     gc.collect()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp, switches({}):
         ok_w, compose_launches = compose_phase(tmp)
     launches.update(compose_launches)
-    log("== phase 12: the mesh")
+    header("phase 12: the mesh", t_start)
     gc.collect()
     torch.cuda.empty_cache()
     ok_x, mesh_launches = mesh_in_fresh_process()
@@ -5460,7 +5771,7 @@ def main() -> int:
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     if not (ok_build and ok_k and ok_small and ok_e and ok_m and ok_c
             and ok_s and ok_a and ok_u and ok_t and ok_p and ok_w
-            and ok_x):
+            and ok_x and ok_13):
         log("chip_smoke: FAILED")
         return 1
     log(smi)

@@ -149,8 +149,9 @@ class ReidConfig:
     embedding_dim: int = 768
     collection_embeddings: str = "cow_embeddings"
     collection_identities: str = "cow_identities"
-    # a Qdrant REST server; None = the in-process store (the port has only
-    # that one: io/vecstore.make_store)
+    # a Qdrant REST server (io/vecstore.make_store gives its client,
+    # io/qdrant_wire.QdrantRestStore, when the URL answers the protocol);
+    # None = the in-process store
     vector_url: Optional[str] = None
 
 
@@ -164,9 +165,10 @@ class GraphGPSConfig:
 @dataclass(frozen=True)
 class DbConfig:
     """The database (admin-interface/backend/app/database.py:16): None is
-    the SQLite file under the data root.  A ``postgres://`` URL raises in
-    the port (``io/db.py`` ``open_database``).  ``Config.load`` honours
-    ``DATABASE_URL`` as the reference does."""
+    the SQLite file under the data root; a ``postgres://`` or
+    ``postgresql://`` URL is a Postgres server, spoken to over the wire
+    protocol (``io/db.py`` ``open_database``, ``io/pg_wire.py``).
+    ``Config.load`` honours ``DATABASE_URL`` as the reference does."""
     url: Optional[str] = None
 
 

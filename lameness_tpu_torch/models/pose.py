@@ -4,7 +4,8 @@
 fallback (tleap:199-265) over boxes; ``map_roboflow_to_old_device`` turns a
 trained model's 20 Roboflow keypoints into the heuristic's (old animal-pose)
 order; ``locomotion_features_device`` the masked, static-shape locomotion
-features (tleap:338-436).  The host half the result writer reads (numpy):
+features (tleap:338-436), ``features_dict_from_device`` one clip's of them
+as the host dict.  The host half the result writer reads (numpy):
 ``compute_locomotion_features`` (the result JSON's authoritative
 features), ``heuristic_keypoints`` and the published skeleton tables.  The
 tables are copies of the JAX module's (this package imports nothing of it).
@@ -278,3 +279,32 @@ def locomotion_features_device(kp_xy: torch.Tensor, kp_conf: torch.Tensor,
                        out["front_asym_ok"], out["rear_asym_ok"]], dim=-1)
     out["lameness_score"] = _masked_mean(comps, oks)
     return out
+
+
+def features_dict_from_device(out: Dict[str, Any]) -> Dict[str, float]:
+    """One clip's ``locomotion_features_device`` output (0-d tensors or
+    numpy scalars) -> the host JSON dict: each group's keys only where its
+    flag holds, in the JAX function's order, and the lameness score as the
+    mean of the components present."""
+    f: Dict[str, float] = {}
+    if bool(out["back_arch_ok"]):
+        for k in ("back_arch_mean", "back_arch_std", "back_arch_score"):
+            f[k] = float(out[k])
+    if bool(out["head_bob_ok"]):
+        for k in ("head_bob_magnitude", "head_bob_frequency",
+                  "head_bob_score"):
+            f[k] = float(out[k])
+    for leg in ("fl", "fr", "rl", "rr"):
+        if bool(out[f"stride_{leg}_ok"]):
+            f[f"stride_{leg}_mean"] = float(out[f"stride_{leg}_mean"])
+            f[f"stride_{leg}_std"] = float(out[f"stride_{leg}_std"])
+    if bool(out["front_asym_ok"]):
+        f["front_leg_asymmetry"] = float(out["front_leg_asymmetry"])
+    if bool(out["rear_asym_ok"]):
+        f["rear_leg_asymmetry"] = float(out["rear_leg_asymmetry"])
+    comps = [f[k] for k in ("back_arch_score", "head_bob_score",
+                            "front_leg_asymmetry", "rear_leg_asymmetry")
+             if k in f]
+    if comps:
+        f["lameness_score"] = float(np.mean(comps))
+    return f

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 
 from ..core.device import resolve_device
 from ..ops import sam_attention as sa
+from ..ops.preprocess import resize_nhwc
 
 
 def _promote(x: torch.Tensor, w: torch.Tensor) -> Tuple[torch.Tensor,
@@ -271,7 +272,8 @@ class SamPositionalEmbedding(nn.Module):
 
 class SamPromptEncoder(nn.Module):
     """Box prompts and the no-mask dense embedding (the paths the reference
-    uses: YOLO boxes only, sam3-pipeline/app/main.py:74-92)."""
+    uses: YOLO boxes only, sam3-pipeline/app/main.py:74-92), and point
+    prompts."""
 
     def __init__(self, embed_dim: int = 256, image_embedding_size: int = 64,
                  input_image_size: int = 1024):
@@ -291,6 +293,17 @@ class SamPromptEncoder(nn.Module):
         corner = self.shared_embedding(coords)
         return torch.stack([corner[:, 0] + self.point_embed_2[0],
                             corner[:, 1] + self.point_embed_3[0]], dim=1)
+
+    def embed_points(self, points: torch.Tensor, labels: torch.Tensor
+                     ) -> torch.Tensor:
+        """points (B, N, 2) input-image pixels, labels (B, N) in {-1, 0, 1}
+        (padding, negative, positive) -> (B, N, 256)."""
+        coords = (points + 0.5) / self.input_image_size
+        pe = self.shared_embedding(coords)
+        lab = labels[..., None]
+        pe = torch.where(lab == -1, self.not_a_point_embed[0], pe)
+        pe = torch.where(lab == 0, pe + self.point_embed_1[0], pe)
+        return torch.where(lab == 1, pe + self.point_embed_0[0], pe)
 
     def dense_no_mask(self, batch: int, gh: int, gw: int) -> torch.Tensor:
         return self.no_mask_embed.reshape(1, 1, 1, -1).expand(batch, gh, gw,
@@ -509,6 +522,21 @@ class Sam(nn.Module):
         image_pe = self.prompt_encoder.image_pe(gh, gw)
         return self.mask_decoder(image_embeddings, image_pe, sparse, dense,
                                  multimask_output)
+
+
+def postprocess_mask(low_res_mask: torch.Tensor, ratio: float,
+                     orig_hw: Tuple[int, int],
+                     img_size: int = 1024) -> torch.Tensor:
+    """(256, 256) logits -> boolean mask at the original resolution, the
+    reference predictor's path: up to the (img_size)² canvas, the content
+    region cut out, resized to ``orig_hw`` (jax.image.resize "linear":
+    half-pixel centres, antialiased when it shrinks)."""
+    up = resize_nhwc(low_res_mask[None, ..., None].float(),
+                     (img_size, img_size))
+    new_h = int(round(orig_hw[0] * ratio))
+    new_w = int(round(orig_hw[1] * ratio))
+    out = resize_nhwc(up[:, :new_h, :new_w], tuple(orig_hw))[0, ..., 0]
+    return out > 0.0
 
 
 def build_sam(variant: str = "vit_b", img_size: int = 1024,

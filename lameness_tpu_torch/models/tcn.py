@@ -4,11 +4,13 @@ dilated conv1ds (64 ch, k=3, dilation 2^i), residuals, mean pool, sigmoid.
 
 Dropout draws its masks from an explicit ``torch.Generator`` (the JAX
 module takes a dropout rng); ``generator=None`` is the deterministic
-forward.  Inputs are (B, T, F) as in the JAX package.
+forward.  Inputs are (B, T, F) as in the JAX package.  ``mc_dropout`` and
+``predict_with_uncertainty`` run n MC-dropout samples as one batched
+forward of n replicas of the batch.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -106,3 +108,30 @@ class TCN(nn.Module):
         x = F.relu(self.fc1(x.mean(dim=2)))
         x = dropout(x, self.rate, generator)
         return torch.sigmoid(self.fc2(x))
+
+
+def mc_dropout(fn: Callable, x: Union[torch.Tensor, Sequence[torch.Tensor]],
+               generator: torch.Generator, n_samples: int = 10
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """MC dropout as ONE batched forward (as the engine's heads run it):
+    each input of ``x`` (batch leading) repeated ``n_samples`` times along
+    the batch, ``fn(*inputs, generator=generator) -> (n·B, 1)`` with
+    dropout on, row m·B + i sample m of clip i.  Returns (mean, std) over
+    the samples, (B, 1) each; std with ddof 1 (torch.std's unbiased
+    default, reference tcn:192)."""
+    xs = (x,) if isinstance(x, torch.Tensor) else tuple(x)
+    b = xs[0].shape[0]
+    reps = [t.repeat((n_samples,) + (1,) * (t.dim() - 1)) for t in xs]
+    preds = fn(*reps, generator=generator)
+    preds = preds.reshape((n_samples, b) + tuple(preds.shape[1:]))
+    return preds.mean(dim=0), preds.std(dim=0)
+
+
+def predict_with_uncertainty(model: nn.Module, x: torch.Tensor,
+                             generator: torch.Generator, n_samples: int = 10,
+                             **kwargs) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``mc_dropout`` of a head whose forward returns the probability (the
+    TCN): ``model(x, **kwargs, generator=...)`` over n_samples replicas."""
+    return mc_dropout(lambda xs, generator: model(xs, generator=generator,
+                                                  **kwargs),
+                      x, generator, n_samples)

@@ -21,6 +21,39 @@ def pairwise_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return inter / union.clamp(min=1e-9)
 
 
+def xywh_to_xyxy(boxes: torch.Tensor) -> torch.Tensor:
+    """(..., 4) cx,cy,w,h -> x1,y1,x2,y2."""
+    cx, cy, w, h = boxes.unbind(-1)
+    return torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2],
+                       dim=-1)
+
+
+def xyxy_to_xywh(boxes: torch.Tensor) -> torch.Tensor:
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    return torch.stack([(x1 + x2) / 2, (y1 + y2) / 2, x2 - x1, y2 - y1],
+                       dim=-1)
+
+
+def xyxy_to_zsr(boxes: torch.Tensor) -> torch.Tensor:
+    """xyxy -> (cx, cy, scale=area, aspect=w/h), the Kalman observation
+    space of the reference tracker."""
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    w = x2 - x1
+    h = y2 - y1
+    return torch.stack([(x1 + x2) / 2, (y1 + y2) / 2, w * h,
+                        w / h.clamp(min=1e-6)], dim=-1)
+
+
+def zsr_to_xyxy(z: torch.Tensor) -> torch.Tensor:
+    cx, cy, s, r = z.unbind(-1)
+    s = s.clamp(min=1e-6)
+    r = r.clamp(min=1e-6)
+    w = torch.sqrt(s * r)
+    h = s / w.clamp(min=1e-6)
+    return torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2],
+                       dim=-1)
+
+
 def clip_boxes(boxes: torch.Tensor, height: float, width: float
                ) -> torch.Tensor:
     x1 = boxes[..., 0].clamp(0.0, width)

@@ -19,6 +19,20 @@ from .boxes import pairwise_iou
 _CLASS_OFFSET = 1e4
 
 
+def nms_single(boxes: torch.Tensor, scores: torch.Tensor,
+               classes: torch.Tensor, max_out: int,
+               iou_threshold: float = 0.45, score_threshold: float = 0.0,
+               class_agnostic: bool = False
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                          torch.Tensor]:
+    """Exact greedy NMS for one image: boxes (N, 4), scores (N,), classes
+    (N,) -> boxes (K, 4), scores (K,), classes (K,), valid (K,); slots past
+    the survivors are zero (class -1) with valid False."""
+    out = nms_batched(boxes[None], scores[None], classes[None], max_out,
+                      iou_threshold, score_threshold, class_agnostic)
+    return tuple(x[0] for x in out)
+
+
 def nms_batched(boxes: torch.Tensor, scores: torch.Tensor,
                 classes: torch.Tensor, max_out: int = 32,
                 iou_threshold: float = 0.45, score_threshold: float = 0.0,

@@ -33,9 +33,20 @@ row (``models/dino.py`` ``forward_tp``).  ``to_device`` then pads the batch
 to a multiple of the data axis and gives each data shard its own clips: the
 RGB rows, or its block of the batch-major I420 rows (``pack_i420_rows``).
 Every shard's stages and packed output are queued before any readback, and
-the padding is trimmed on return.
+the padding is trimmed on return.  MC dropout follows JAX's rule over the
+data axis: every shard draws the whole padded batch's uniforms from the
+caller's generator state and keeps its clips' rows (``RowDraws``), so a
+sharded call gives what the unsharded engine gives at the same batch.
 
-Not in this port yet (see ROADMAP.md): the monolith and pair modes.
+The modes (``process_clip_batch(mode=)``): ``staged`` runs the four stages
+one after another; ``pair`` runs [detect + dino] then [sam + heads]
+(``_front_stage``, ``_back_stage``); ``monolith`` the four as one step
+(``_fused_step``).  On the CPU they run eagerly and are one computation.
+On the card ``monolith`` is one captured CUDA graph and ``pair`` two
+(``_Captured``): captured at the first call for their key (mode, input
+shapes and dtypes, the installed weights, the kernel switches) after an
+eager run on the capture stream, replayed afterwards from static input
+buffers, the MC-dropout generator registered with the graph.
 """
 from __future__ import annotations
 
@@ -59,10 +70,17 @@ from ..models.sam import Sam, build_sam
 from ..models.tcn import TCN
 from ..models.yolo import YoloV8, convert_ultralytics_state_dict, detect
 from ..ops import preprocess as prep
+from ..ops._cuda import KERNELS
 from ..ops.boxes import clip_boxes, pairwise_iou
 from ..video.yuv import (flat_views, i420_flat_to_rgb_device,
                           i420_rows_to_rgb_device, pack_i420_flat,
                           pack_i420_rows, rgb_to_i420)
+
+ENGINE_MODES = ("staged", "pair", "monolith")
+# read at each call by the stages (the kernel selections, SAM's pad-row
+# split): a captured graph holds what they chose, so they are in its key
+_CALL_SWITCHES = ("LAMENESS_WIN_KERNEL", "LAMENESS_GLB_KERNEL",
+                  "LAMENESS_SAM_PADSPLIT")
 
 
 @dataclasses.dataclass
@@ -289,6 +307,12 @@ class LamenessEngine:
         self._mesh = None          # shard_inference
         self._replicas: List["LamenessEngine"] = []
         self._dino_tp = None       # (DINO's shard tree, data row) of a replica
+        self._data_pos = None      # (data position, data axis) of a replica
+        # the captured modes by key; the weights' epoch, shared with the
+        # engines of with_spec and the replicas, moves at every install
+        self._graphs: Dict[tuple, "_Captured"] = {}
+        self._epoch = [0]
+        self._capture_stream = None
         # the config's memory governor reaches the spec also when the
         # caller installs the models (init_models=False)
         if self.config.sam.encode_chunk and not self.spec.sam_encode_chunk:
@@ -329,6 +353,7 @@ class LamenessEngine:
         eng.pose_model = self.pose_model
         eng.loaded_weights = self.loaded_weights
         eng.precision = self.precision
+        eng._epoch = self._epoch
         return eng
 
     def load_state_dicts(self, state_dicts: Mapping[str, Mapping]) -> None:
@@ -337,6 +362,7 @@ class LamenessEngine:
             model = getattr(self, name)
             model.load_state_dict(sd, strict=True)
             model.eval()
+        self.drop_graphs()
         self._reshard()
 
     # -- the reference's torch checkpoints -----------------------------------
@@ -421,12 +447,24 @@ class LamenessEngine:
             else:
                 setattr(self, name, module)
         self.loaded_weights[name] = True
+        self.drop_graphs()
         self._reshard()
 
     def _reshard(self) -> None:
         """New weights reach a mesh's replicas and DINO's shards."""
         if self._mesh is not None:
             self.shard_inference(self._mesh)
+
+    def drop_graphs(self) -> None:
+        """Free this engine's captured graphs and move the weights' epoch,
+        so that the engines sharing these modules (``with_spec``, the
+        replicas) capture theirs anew: a graph holds the addresses of the
+        tensors it read, and a replay after new tensors were installed
+        would compute with the old ones.  Every install path calls it."""
+        self._graphs.clear()
+        self._epoch[0] += 1
+        for eng in self._replicas:
+            eng._graphs.clear()
 
     # -- stage 1: detection --------------------------------------------------
     def _primary_boxes(self, boxes, scores, classes, valid, h: float,
@@ -669,8 +707,9 @@ class LamenessEngine:
         n_mc = self.config.tcn.mc_samples
         x_mc = feats_p.repeat(n_mc, 1, 1)                      # (n·B, T, F)
         m_mc = mask_p.repeat(n_mc, 1)
-        tcn_preds = self.tcn(x_mc, generator=generator).view(n_mc, b)
-        gait_preds = self.gait(x_mc, m_mc, generator=generator
+        draws = self._draws(generator, b, n_mc)
+        tcn_preds = self.tcn(x_mc, generator=draws).view(n_mc, b)
+        gait_preds = self.gait(x_mc, m_mc, generator=draws
                                )["probability"].view(n_mc, b)
         gait_det = self.gait(feats_p, mask_p)
         return {
@@ -686,6 +725,43 @@ class LamenessEngine:
             "gait_uncertainty": gait_preds.std(dim=0),
             "gait_saliency": gait_det["saliency"],
         }
+
+    def _draws(self, generator, b: int, n_mc: int):
+        """The heads' dropout draws.  A replica of data position d of dp
+        draws what the unsharded engine draws at the whole batch of dp·b
+        clips and keeps its clips' rows of each of the n_mc replicas
+        (JAX's rule: a draw is a function of the key and the global
+        shape); otherwise ``generator`` itself."""
+        if generator is None or self._data_pos is None \
+                or self._data_pos[1] == 1:
+            return generator
+        from .train import RowDraws
+        d, dp = self._data_pos
+        return RowDraws(generator, dp * b, d * b, (d + 1) * b, groups=n_mc)
+
+    # -- paired programs (mode="pair") and the monolith ----------------------
+    def _front_stage(self, frames):
+        """detect + dino: independent of each other, one program of the
+        pair."""
+        out = dict(self._detect_stage(frames))
+        out.update(self._dino_stage(frames))
+        return out
+
+    def _back_stage(self, frames, primary_bt, score_bt, generator):
+        """sam + heads: both read the primaries."""
+        out = dict(self._sam_stage(frames, primary_bt))
+        out.update(self._heads_stage(primary_bt, score_bt, generator, frames))
+        return out
+
+    def _fused_step(self, frames, generator):
+        """The four stages as one step (mode="monolith")."""
+        out = dict(self._detect_stage(frames))
+        out.update(self._sam_stage(frames, out["primary_boxes"]))
+        out.update(self._dino_stage(frames))
+        out.update(self._heads_stage(out["primary_boxes"],
+                                     out["primary_scores"], generator,
+                                     frames))
+        return out
 
     # -- public API ----------------------------------------------------------
     @staticmethod
@@ -849,16 +925,23 @@ class LamenessEngine:
 
     def process_clip_batch(self, frames,
                            generator: Optional[torch.Generator] = None,
+                           mode: str = "staged",
                            transfer: Optional[str] = None,
                            readback: bool = True) -> Dict[str, Any]:
         """frames: (B, T, H, W, 3) uint8 RGB with T == clip_frames (packed
         here) or n_packed, the split dict (host or device), or an already
-        packed device tensor; ``transfer`` as in ``to_device``.  Returns the
-        JAX engine's output dict as numpy (bf16 leaves read back as f32)
-        through one device-to-host copy, or with ``readback=False`` the
-        device tensors.  With a mesh installed, see ``_process_sharded``."""
+        packed device tensor; ``transfer`` as in ``to_device``.  ``mode``:
+        'staged', 'pair' or 'monolith' (the module docstring), each with
+        the same outputs.  Returns the JAX engine's output dict as numpy
+        (bf16 leaves read back as f32) through one device-to-host copy, or
+        with ``readback=False`` the device tensors (under a captured mode,
+        copies of the graph's outputs, which the next replay overwrites).
+        With a mesh installed, see ``_process_sharded``."""
+        if mode not in ENGINE_MODES:
+            raise ValueError(f"mode must be one of {ENGINE_MODES}, got "
+                             f"{mode!r}")
         if self._mesh is not None:
-            return self._process_sharded(frames, generator, transfer,
+            return self._process_sharded(frames, generator, mode, transfer,
                                          readback)
         leaves = frames.values() if isinstance(frames, dict) else [frames]
         # type and index, not device equality: an unindexed "cuda" does not
@@ -869,23 +952,98 @@ class LamenessEngine:
             frames_dev = frames
         else:
             frames_dev = self.to_device(frames, transfer)
-        out = self.run_staged(frames_dev, generator)
+        out, flat, meta = self._run(frames_dev, generator, mode, readback)
         if not readback:
             return out
-        flat, meta = self.pack_output(out)
         return self.unpack_output(self._fetch(flat), meta)
 
-    def warmup(self, batch: int = 1) -> Dict[str, float]:
-        """Run each stage once on zero frames (kernel builds, library
-        autotuning, allocator growth).  Returns seconds per stage.  With a
-        mesh installed, each data shard's replica runs the stages at the
-        batch rounded up to the data axis, its share of it (the seconds
-        summed over the shards)."""
+    @torch.no_grad()
+    def _run(self, frames_dev, generator, mode: str, readback: bool):
+        """(outputs, flat, meta) of ``mode`` on device frames; ``flat`` and
+        ``meta`` (``pack_output``'s) only with ``readback``.  On the card
+        pair and monolith replay their captured graphs (``_graphed``):
+        with ``readback`` the graph's own outputs and packed buffer, which
+        the caller reads before the next replay, else copies."""
+        self._check_packed(frames_dev)
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        if mode != "staged" and self.device.type == "cuda":
+            cap = self._graphed(mode, frames_dev, generator)
+            if readback:
+                return cap.out, cap.flat, cap.meta
+            return _clone_tree(cap.out), None, None
+        if mode == "pair":
+            out = self._front_stage(frames_dev)
+            out.update(self._back_stage(frames_dev, out["primary_boxes"],
+                                        out["primary_scores"], generator))
+        elif mode == "monolith":
+            out = self._fused_step(frames_dev, generator)
+        else:
+            out = self.run_staged(frames_dev, generator)
+        if not readback:
+            return out, None, None
+        return (out,) + self.pack_output(out)
+
+    def run_paired(self, frames_dev, generator: Optional[torch.Generator]
+                   = None) -> Dict[str, Any]:
+        """[detect + dino] -> [sam + heads] on packed device frames (or the
+        split dict): ``run_staged``'s outputs bit for bit, from two
+        programs (on the card two CUDA graphs, their outputs copied)."""
+        return self._run(frames_dev, generator, "pair", False)[0]
+
+    # -- the captured modes (the card) ---------------------------------------
+    def _graph_key(self, mode: str, frames_dev) -> tuple:
+        """What a captured graph holds fixed: the weights' epoch (first),
+        the mode, the inputs' shapes and dtypes, the modules and the
+        (frozen) config read at capture, the switches the stages read at
+        each call, and the TF32 settings the libraries read at each
+        call."""
+        items = sorted(frames_dev.items()) if isinstance(frames_dev, dict) \
+            else [("", frames_dev)]
+        return (self._epoch[0], mode,
+                tuple((k, tuple(v.shape), v.dtype) for k, v in items),
+                tuple(id(getattr(self, n)) for n in
+                      ("yolo", "dino", "sam", "tcn", "gait", "pose_model")),
+                id(self.config),
+                None if self._dino_tp is None else id(self._dino_tp[0]),
+                tuple(os.environ.get(k) for k in _CALL_SWITCHES),
+                torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
+
+    def _graphed(self, mode: str, frames_dev, generator) -> "_Captured":
+        """Replay ``mode``'s graphs for these frames and this generator,
+        capturing them first at a new key (a capture that fails raises:
+        nothing falls back to running eagerly).  Graphs of an older
+        weights' epoch are freed."""
+        key = self._graph_key(mode, frames_dev)
+        cap = self._graphs.get(key)
+        if cap is None:
+            for old in [k for k in self._graphs if k[0] != key[0]]:
+                del self._graphs[old]
+            cap = _Captured(self, mode, frames_dev, generator)
+            self._graphs[key] = cap
+        cap.replay(frames_dev, generator)
+        return cap
+
+    def warmup(self, batch: int = 1, mode: str = "staged"
+               ) -> Dict[str, float]:
+        """Run the stages once on zero frames (kernel builds, library
+        autotuning, allocator growth); on the card ``pair`` and
+        ``monolith`` also capture their graphs, so that later calls at this
+        batch only replay them.  Returns seconds by JAX's keys: per stage
+        ('detect', 'sam', 'dino', 'heads') for staged and monolith (whose
+        capture follows), per program ('front', 'back': its eager run and
+        capture) for pair.  With a mesh installed, each data shard's
+        replica warms at the batch rounded up to the data axis, its share
+        of it (the seconds summed over the shards)."""
+        if mode not in ENGINE_MODES:
+            raise ValueError(f"mode must be one of {ENGINE_MODES}, got "
+                             f"{mode!r}")
         if self._mesh is not None:
             per = -(-batch // len(self._replicas))
             timings: Dict[str, float] = {}
             for eng in self._replicas:
-                for name, sec in eng.warmup(per).items():
+                for name, sec in eng.warmup(per, mode).items():
                     timings[name] = round(timings.get(name, 0.0) + sec, 3)
             return timings
         s = self.spec
@@ -899,16 +1057,27 @@ class LamenessEngine:
                       "lo": zeros(len(s.lo_idx), s.lo_height, s.lo_width)}
         else:
             frames = zeros(s.n_packed, s.frame_height, s.frame_width)
-        boxes = torch.tensor([1.0, 1.0, 10.0, 10.0],
-                             device=self.device).expand(
-                                 batch, len(s.det_idx), 4).contiguous()
-        scores = torch.full((batch, len(s.det_idx)), 0.5, device=self.device)
         gen = torch.Generator(device=self.device).manual_seed(0)
-        stages = {"detect": lambda: self._detect_stage(frames),
-                  "sam": lambda: self._sam_stage(frames, boxes),
-                  "dino": lambda: self._dino_stage(frames),
-                  "heads": lambda: self._heads_stage(boxes, scores, gen,
-                                                     frames)}
+        if mode == "pair":
+            if self.device.type == "cuda":
+                return dict(self._graphed("pair", frames, gen).seconds)
+            front = {}
+            stages = {"front": lambda: front.update(
+                          self._front_stage(frames)),
+                      "back": lambda: self._back_stage(
+                          frames, front["primary_boxes"],
+                          front["primary_scores"], gen)}
+        else:
+            boxes = torch.tensor([1.0, 1.0, 10.0, 10.0],
+                                 device=self.device).expand(
+                                     batch, len(s.det_idx), 4).contiguous()
+            scores = torch.full((batch, len(s.det_idx)), 0.5,
+                                device=self.device)
+            stages = {"detect": lambda: self._detect_stage(frames),
+                      "sam": lambda: self._sam_stage(frames, boxes),
+                      "dino": lambda: self._dino_stage(frames),
+                      "heads": lambda: self._heads_stage(boxes, scores, gen,
+                                                         frames)}
         timings = {}
         with torch.no_grad():
             for name, fn in stages.items():
@@ -917,14 +1086,38 @@ class LamenessEngine:
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
                 timings[name] = round(time.perf_counter() - t0, 3)
+        if mode == "monolith" and self.device.type == "cuda":
+            self._graphed("monolith", frames, gen)
         return timings
+
+    def fused_fn(self):
+        """(core, example_args) for compile checking, as JAX's entry:
+        ``core(frames, generator)`` is the detection + heads core (SAM and
+        DINO are checked through their own stages), the example a
+        (1, n_packed, H, W, 3) uint8 zero tensor on the engine's device and
+        a generator seeded 0."""
+        s = self.spec
+
+        @torch.no_grad()
+        def core(frames, generator):
+            out = dict(self._detect_stage(frames))
+            out.update(self._heads_stage(out["primary_boxes"],
+                                         out["primary_scores"], generator,
+                                         frames))
+            return out
+        example = (torch.zeros((1, s.n_packed, s.frame_height,
+                                s.frame_width, 3), dtype=torch.uint8,
+                               device=self.device),
+                   torch.Generator(device=self.device).manual_seed(0))
+        return core, example
 
     # -- the mesh ------------------------------------------------------------
     def shard_inference(self, mesh) -> None:
         """Inference over a (data, model) mesh (``parallel/mesh.py``).
         Each data position gets a replica of the engine on its device (the
         engine's own device shares the modules: nothing is copied) and runs
-        the whole staged engine on its own clips.  A model axis over 1 also
+        the engine's mode on its own clips, its MC dropout its rows of the
+        whole batch's draw (``_draws``).  A model axis over 1 also
         splits DINO's blocks over each data row's model positions
         (``shard_params_tp``: query/key/value and fc1 by rows at head
         boundaries, out and fc2 by columns), the row-parallel partial sums
@@ -935,8 +1128,11 @@ class LamenessEngine:
         from ..parallel.mesh import MODEL_AXIS, shard_params_tp
         if mesh.devices.ndim != 2:
             raise ValueError("shard_inference needs a (data, model) mesh")
+        self.drop_graphs()
         self._mesh = mesh
         self._replicas = [self._replica(dev) for dev in mesh.devices[:, 0]]
+        for d, eng in enumerate(self._replicas):
+            eng._data_pos = (d, len(self._replicas))
         if mesh.shape.get(MODEL_AXIS, 1) > 1:
             shards = shard_params_tp(
                 mesh, {"dino": self.dino.state_dict()})["dino"]
@@ -955,6 +1151,7 @@ class LamenessEngine:
             setattr(eng, name, module)
         eng.loaded_weights = self.loaded_weights
         eng.precision = self.precision
+        eng._epoch = self._epoch
         return eng
 
     def _to_device_sharded(self, frames, transfer: str):
@@ -1011,9 +1208,11 @@ class LamenessEngine:
         return holder(shards)
 
     def _shard_generators(self, generator) -> List[torch.Generator]:
-        """One MC-dropout generator per data shard, each starting where a
-        run of the shard's clips alone would: seeded 0 (the unsharded
-        default) for None, else a copy of ``generator``'s state."""
+        """One MC-dropout generator per data shard, each at the state the
+        unsharded call would start from: seeded 0 (the unsharded default)
+        for None, else a copy of ``generator``'s state.  Each shard draws
+        the whole batch's uniforms from it and keeps its rows (``_draws``),
+        so every shard consumes as much as the unsharded call does."""
         gens = []
         for eng in self._replicas:
             g = torch.Generator(device=eng.device)
@@ -1025,10 +1224,13 @@ class LamenessEngine:
         return gens
 
     @torch.no_grad()
-    def run_sharded(self, frames_dev, generator=None) -> List[Dict]:
-        """The four stages of every data shard (``to_device``'s sharded
-        frames), each on its replica, all queued before any is read back:
-        one output tree per shard, on its device."""
+    def run_sharded(self, frames_dev, generator=None,
+                    mode: str = "staged") -> List[Dict]:
+        """``mode`` on every data shard (``to_device``'s sharded frames),
+        each on its replica, all queued before any is read back: one output
+        tree per shard, on its device.  The shards' MC dropout is the
+        unsharded engine's at the same batch (``_shard_generators``), and
+        ``generator`` is left where the unsharded call would leave it."""
         from ..parallel.mesh import Sharded
         first = next(iter(frames_dev.values())) \
             if isinstance(frames_dev, dict) else frames_dev
@@ -1039,16 +1241,21 @@ class LamenessEngine:
         for d, eng in enumerate(self._replicas):
             part = {k: v.shards[d, 0] for k, v in frames_dev.items()} \
                 if isinstance(frames_dev, dict) else frames_dev.shards[d, 0]
-            outs.append(eng.run_staged(part, gens[d]))
+            outs.append(eng._run(part, gens[d], mode, False)[0])
+        if generator is not None:
+            generator.set_state(gens[-1].get_state())
         return outs
 
-    def _process_sharded(self, frames, generator, transfer, readback):
+    def _process_sharded(self, frames, generator, mode, transfer, readback):
         """``process_clip_batch`` over the mesh: host frames are padded and
         split (``to_device``), ``to_device``'s sharded frames pass through.
-        ``generator``: see ``_shard_generators``.  Every shard's stages and
-        packed output are queued before the first readback; the padding is
-        trimmed from host frames' results.  With ``readback=False``, the
-        list of the shards' device output trees (padding included)."""
+        ``generator``: see ``_shard_generators``; ``mode``: each replica
+        runs it on its shard (under pair and monolith, the shards' outputs
+        are copies of their graphs', packed as the staged ones).  Every
+        shard's stages and packed output are queued before the first
+        readback; the padding is trimmed from host frames' results.  With
+        ``readback=False``, the list of the shards' device output trees
+        (padding included)."""
         from ..parallel.mesh import Sharded
         leaves = frames.values() if isinstance(frames, dict) else [frames]
         orig_b = None
@@ -1057,7 +1264,7 @@ class LamenessEngine:
         else:
             orig_b = len(next(iter(leaves)))
             frames_dev = self.to_device(frames, transfer)
-        outs = self.run_sharded(frames_dev, generator)
+        outs = self.run_sharded(frames_dev, generator, mode)
         if not readback:
             return outs
         flats, meta = self.pack_output(outs)
@@ -1076,7 +1283,7 @@ class LamenessEngine:
         API of the JAX package."""
         if self._mesh is None:
             raise RuntimeError("call shard_inference(mesh) first")
-        return self.process_clip_batch(frames, generator, transfer)
+        return self.process_clip_batch(frames, generator, transfer=transfer)
 
 
 def _flat_items(tree, prefix=()):
@@ -1091,6 +1298,109 @@ def _flat_items(tree, prefix=()):
 class _ShardsMeta(NamedTuple):
     """``pack_output``'s meta of a mesh's outputs: one meta per shard."""
     metas: list
+
+
+def _clone_tree(tree):
+    """A nested dict of tensors copied (on their device)."""
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    return tree.clone()
+
+
+class _Captured:
+    """One mode's CUDA graphs at one key of ``LamenessEngine._graphed``:
+    ``monolith`` one graph of the four stages, ``pair`` two (front, then
+    back, in one memory pool, replayed in that order); the last ends with
+    ``pack_output``, so a replay leaves the outputs and their packed buffer
+    in static tensors.
+
+    Built in three steps on the engine's capture stream: an eager run of
+    the mode (kernel builds, library handles and workspaces, the engine's
+    device constants: nothing may be made for the first time, or copied
+    from the host, inside a capture), then the capture, which launches
+    nothing.  The kernel wrappers count in Python: the launches a capture
+    recorded are taken off their counts and added again at each replay.
+    Inputs are static buffers: the frames (each call copies its own in)
+    and a generator of the graph's own, registered with the graphs that
+    draw (``register_generator_state``), which takes the caller's state
+    before a replay and gives back its state after it, advanced as an
+    eager run would advance it."""
+
+    def __init__(self, eng: "LamenessEngine", mode: str, frames_dev,
+                 generator: torch.Generator):
+        dev = eng.device
+        self.mode = mode
+        self.static_in = _clone_tree(frames_dev)
+        self.gen = torch.Generator(device=dev)
+        self.gen.set_state(generator.get_state())
+        if eng._capture_stream is None:
+            eng._capture_stream = torch.cuda.Stream(device=dev)
+        stream = eng._capture_stream
+        parts = ("front", "back") if mode == "pair" else ("monolith",)
+        self.seconds: Dict[str, float] = {}
+        front: Dict[str, Any] = {}
+
+        def run(part):
+            if part == "front":
+                front.clear()
+                front.update(eng._front_stage(self.static_in))
+                return None
+            if part == "back":
+                out = dict(front)
+                out.update(eng._back_stage(
+                    self.static_in, front["primary_boxes"],
+                    front["primary_scores"], self.gen))
+                return out
+            return eng._fused_step(self.static_in, self.gen)
+
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        eager = {}
+        with torch.no_grad(), torch.cuda.stream(stream):
+            for part in parts:
+                t0 = time.perf_counter()
+                run(part)
+                stream.synchronize()
+                eager[part] = time.perf_counter() - t0
+        before = {name: k.launches for name, k in KERNELS.items()}
+        self.graphs: List[torch.cuda.CUDAGraph] = []
+        pool = None
+        try:
+            for part in parts:
+                t0 = time.perf_counter()
+                graph = torch.cuda.CUDAGraph()
+                if part != "front":
+                    graph.register_generator_state(self.gen)
+                with torch.no_grad(), torch.cuda.graph(
+                        graph, pool=pool, stream=stream,
+                        capture_error_mode="thread_local"):
+                    out = run(part)
+                    if out is not None:
+                        self.out = out
+                        self.flat, self.meta = eng.pack_output(out)
+                pool = graph.pool()
+                self.graphs.append(graph)
+                self.seconds[part] = round(
+                    eager[part] + time.perf_counter() - t0, 3)
+        finally:
+            self.launches = {name: k.launches - before[name]
+                             for name, k in KERNELS.items()
+                             if k.launches != before[name]}
+            for name, k in KERNELS.items():
+                k.launches = before[name]
+        torch.cuda.current_stream(dev).wait_stream(stream)
+
+    def replay(self, frames_dev, generator: torch.Generator) -> None:
+        if isinstance(frames_dev, dict):
+            for k, v in frames_dev.items():
+                self.static_in[k].copy_(v)
+        else:
+            self.static_in.copy_(frames_dev)
+        self.gen.set_state(generator.get_state())
+        for graph in self.graphs:
+            graph.replay()
+        generator.set_state(self.gen.get_state())
+        for name, n in self.launches.items():
+            KERNELS[name].launches += n
 
 
 def _concat_batch(trees: List[Dict[str, Any]]) -> Dict[str, Any]:

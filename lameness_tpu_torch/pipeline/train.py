@@ -108,19 +108,27 @@ class RowDraws:
     """A data shard's dropout draws: rows ``lo:hi`` of the uniforms the
     whole batch of ``batch`` clips draws from ``generator`` (``models/
     tcn.py`` ``dropout`` calls ``rand``).  Every dropout site's tensor has
-    the batch leading."""
+    the batch leading, in ``groups`` blocks of the batch one after another
+    (the engine's MC-dropout heads run ``groups`` = n_mc replicas of the
+    batch as rows ``m·batch + i``): the shard's rows are ``lo:hi`` of
+    each block."""
 
     def __init__(self, generator: torch.Generator, batch: int, lo: int,
-                 hi: int):
+                 hi: int, groups: int = 1):
         self.generator, self.batch, self.lo, self.hi = generator, batch, lo, hi
+        self.groups = groups
 
     def rand(self, shape, device) -> torch.Tensor:
-        if shape[0] != self.hi - self.lo:
+        rest = tuple(shape[1:])
+        if shape[0] != self.groups * (self.hi - self.lo):
             raise ValueError(f"RowDraws: a draw of {tuple(shape)} for rows "
-                             f"{self.lo}:{self.hi}")
-        full = torch.rand((self.batch,) + tuple(shape[1:]),
+                             f"{self.lo}:{self.hi} of {self.groups} blocks")
+        full = torch.rand((self.groups * self.batch,) + rest,
                           generator=self.generator, device=device)
-        return full[self.lo:self.hi]
+        if self.groups == 1:
+            return full[self.lo:self.hi]
+        return full.view((self.groups, self.batch) + rest)[
+            :, self.lo:self.hi].reshape(tuple(shape))
 
 
 def _buffers(module: torch.nn.Module, device) -> Dict[str, torch.Tensor]:

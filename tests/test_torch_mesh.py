@@ -12,17 +12,30 @@ tests/test_torch_engine.py's gates (masks >= 99.5%, mask_iou_pred 1e-3,
 integers equal, the rest 1e-4):
 
 - dp 2 and dp 2 x tp 2 (DINO's blocks split over the model axis) on 2
-  clips; dp 2 also bit for bit the unsharded port engine run on each clip
-  alone, with the same generator state; dp 2 also over ``cpu`` and
-  ``cpu:0``, which compare unequal, so the second replica holds copies of
-  the modules as on a second card;
+  clips; dp 2 also over ``cpu`` and ``cpu:0``, which compare unequal, so
+  the second replica holds copies of the modules as on a second card;
 - padding: 1 clip over dp 2 (a zero clip fills the second shard and is
-  trimmed), and 3 clips over dp 2, whose third clip is bit for bit the
-  unsharded engine's on [that clip, a zero clip], what its shard runs;
+  trimmed), and 3 clips over dp 2;
 - the ``yuv420`` transfer (the batch as I420 rows, each shard its block)
-  against JAX on the frames round-tripped through I420, and bit for bit
-  the unsharded port's ``yuv420`` run on each clip alone;
+  against JAX on the frames round-tripped through I420;
 - split ingest (a host dict) against JAX's split engine.
+
+MC dropout over the data axis follows JAX's rule: a draw is a function of
+the key and the global shape, so each data shard consumes its clips' rows
+of the draws the unsharded engine makes at the same (padded) batch.  The
+CPU's libraries round a clip's floats differently at another batch size,
+so the reference (``parallel/same_batch.py`` ``same_batch``) is the
+unsharded port engine run on each shard's clips alone and fed that
+shard's rows of the whole batch's recorded draws.  Each dp-2 case above
+(but dp x tp, whose DINO sums in another order) equals it bit for bit, at
+dropout 0 and with the heads at dropout 0.2 and 0.1 (``mc``: the same
+weights, so the masks count), and leaves the generator where the
+whole-batch call leaves it; so do two identical clips (shard 1 must not
+reuse shard 0's masks) over two calls in a row.  The shards' draws are
+their rows of the whole batch's bit for bit
+(``test_sharded_draws_are_the_unsharded_rows``).  The difference between
+the reference and the unsharded engine at the whole batch is printed and
+gates nothing.
 
 Also: ``pack_i420_rows`` / ``i420_rows_to_rgb_device`` equal to JAX's
 (bytes, layout, RGB); the layout helpers (``device_put``, ``Sharded.full``
@@ -52,6 +65,11 @@ from lameness_tpu_torch.parallel.mesh import (DATA_AXIS, MODEL_AXIS,
                                               replica_groups,
                                               replicate_params,
                                               shard_params_tp)
+from lameness_tpu_torch.parallel.same_batch import (RecordedDraws,
+                                                    batch_difference,
+                                                    differing_leaves,
+                                                    same_batch,
+                                                    shard_draws_are_rows)
 from lameness_tpu_torch.pipeline.engine import EngineSpec
 from lameness_tpu_torch.video import yuv as tyuv
 from tests.test_torch_engine import (_assert_gates, _jax_engine, _leaves,
@@ -115,12 +133,45 @@ def _equal_trees(a, b):
         np.testing.assert_array_equal(a[key], b[key], err_msg=key)
 
 
-def _halves(teng, frames, **kw):
-    """The unsharded port engine on each clip alone, concatenated."""
-    outs = [dict(_leaves(teng.process_clip_batch(frames[i:i + 1], _gen(),
-                                                 **kw)))
-            for i in range(len(frames))]
-    return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
+@pytest.fixture(scope="module")
+def mc(engines):
+    """The port engine with MC dropout on: the heads at rates 0.2 (TCN) and
+    0.1 (GaitTransformer), the same weights."""
+    from lameness_tpu_torch.models.gait_transformer import GaitTransformer
+    from lameness_tpu_torch.models.tcn import TCN
+    teng = engines[1]
+    eng = teng.with_spec(teng.spec)
+    eng.tcn = TCN(input_dim=44, dropout=0.2, device="cpu")
+    eng.gait = GaitTransformer(input_dim=44, dropout=0.1, device="cpu")
+    eng.load_state_dicts({"tcn": teng.tcn.state_dict(),
+                          "gait": teng.gait.state_dict()})
+    return eng
+
+
+def _sharded_mc(mc, frames, generator, devices=(CPU, CPU), **kw):
+    eng = mc.with_spec(mc.spec)
+    eng.shard_inference(make_mesh(len(devices), devices=list(devices)))
+    return eng.process_clip_batch(frames, generator, **kw)
+
+
+def _same_batch_gate(teng, mc, frames, got0, devices=(CPU, CPU),
+                     **kw) -> None:
+    """``got0``, the sharded dropout-0 engine's outputs, bit for bit the
+    unsharded ``teng`` on each shard's clips alone; the sharded ``mc``
+    engine bit for bit the unsharded ``mc`` on each shard's clips alone
+    fed their rows of the whole batch's draws, leaving the generator where
+    the whole-batch call leaves it.  Prints the batch-size difference."""
+    whole0, halves0, _ = same_batch(teng, frames, _gen(), 2, **kw)
+    assert differing_leaves(got0, halves0) == []
+    g_shard, g_one = _gen(), _gen()
+    got = _sharded_mc(mc, frames, g_shard, devices, **kw)
+    whole, halves, draws = same_batch(mc, frames, g_one, 2, **kw)
+    assert draws
+    assert differing_leaves(got, halves) == []
+    assert torch.equal(g_shard.get_state(), g_one.get_state())
+    print("batch-size difference, each shard's clips alone against the "
+          f"whole batch: at dropout 0 {batch_difference(halves0, whole0)}, "
+          f"at MC dropout {batch_difference(halves, whole)}")
 
 
 # ---------------------------------------------------------------------------
@@ -213,28 +264,31 @@ def test_dino_tp_spec_is_jax_transposed(engines):
 # the sharded engine
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("dp,tp", [(2, 1), (2, 2)])
-def test_sharded_engine_matches_jax(engines, frames, want, dp, tp):
+def test_sharded_engine_matches_jax(engines, mc, frames, want, dp, tp):
     eng = _sharded(engines[1], dp, tp)
     got = eng.process_clip_batch_sharded(frames, _gen())
     _assert_gates(got, want)
     if tp == 1:
-        _equal_trees(got, _halves(engines[1], frames))
+        _same_batch_gate(engines[1], mc, frames, got)
 
 
-def test_sharded_engine_copies_match_jax(engines, frames, want):
+def test_sharded_engine_copies_match_jax(engines, mc, frames, want):
     """dp 2 over ``cpu`` and ``cpu:0``, devices that compare unequal: the
     second replica deep-copies the modules, as onto a second card, and
-    still equals JAX by the gates and the port's halves bit for bit."""
+    still equals JAX by the gates and the unsharded port on each shard's
+    clips alone bit for bit (MC dropout on, too, fed the whole batch's
+    rows)."""
     eng = engines[1].with_spec(engines[1].spec)
     eng.shard_inference(make_mesh(2, devices=[CPU, torch.device("cpu", 0)]))
     second = eng._replicas[1]
     assert second.dino is not eng.dino and second.sam is not eng.sam
     got = eng.process_clip_batch_sharded(frames, _gen())
     _assert_gates(got, want)
-    _equal_trees(got, _halves(engines[1], frames))
+    _same_batch_gate(engines[1], mc, frames, got,
+                     (CPU, torch.device("cpu", 0)))
 
 
-def test_sharded_engine_pads_and_trims(engines, frames, want):
+def test_sharded_engine_pads_and_trims(engines, mc, frames, want):
     eng = _sharded(engines[1], 2)
     got = eng.process_clip_batch(frames[:1], _gen())
     assert got["tcn_probability"].shape == (1,)
@@ -252,18 +306,21 @@ def test_sharded_engine_pads_and_trims(engines, frames, want):
     for key, v in got3.items():
         assert v.shape[0] == 3, key
         np.testing.assert_array_equal(v[2], alone[key][0], err_msg=key)
+    # and with MC dropout, the batch padded to 4 with that zero clip
+    _same_batch_gate(engines[1], mc, three, got3)
 
 
-def test_sharded_yuv420_matches_jax(engines, frames, monkeypatch):
+def test_sharded_yuv420_matches_jax(engines, mc, frames, monkeypatch):
     """The yuv420 transfer over the mesh: JAX on the round-tripped frames,
-    and the unsharded port's yuv420 run of each clip alone bit for bit."""
+    and the unsharded port's yuv420 run on each shard's clips alone bit
+    for bit (MC dropout on, too, fed the whole batch's rows)."""
     jeng, teng = engines
     trip = tyuv.i420_to_rgb_device(torch.from_numpy(
         tyuv.rgb_to_i420(frames))).numpy()
     monkeypatch.setenv("LAMENESS_YUV_INGEST", "1")
     got = _sharded(teng, 2).process_clip_batch(frames, _gen())
     _assert_gates(got, jeng.process_clip_batch(trip, transfer="rgb"))
-    _equal_trees(got, _halves(teng, frames, transfer="yuv420"))
+    _same_batch_gate(teng, mc, frames, got, transfer="yuv420")
 
 
 def test_sharded_split_ingest_matches_jax(engines, frames):
@@ -279,6 +336,47 @@ def test_sharded_split_ingest_matches_jax(engines, frames):
     # the I420 rows of a split dict: hi and lo in each clip's row
     dev = eng.to_device(host, transfer="yuv420")
     assert set(dev) == {"hi", "lo"} and dev["lo"].shape[0] == 2
+
+
+def test_sharded_mc_dropout_is_the_unsharded_batch(mc, frames):
+    """Two identical clips over dp 2 with MC dropout on: the unsharded
+    engine gives them different masks (rows 0 and 1 of each sample's
+    draw), and so must the shards, each its clip's rows of the whole
+    batch's draws, bit for bit, over two calls in a row with one generator,
+    which ends where the unsharded calls leave it."""
+    twins = np.concatenate([frames[:1], frames[:1]])
+    eng = mc.with_spec(mc.spec)
+    eng.shard_inference(make_mesh(2, devices=[CPU] * 2))
+    g_shard, g_one = _gen(), _gen()
+    for _ in range(2):
+        got = eng.process_clip_batch(twins, g_shard)
+        whole, halves, _ = same_batch(mc, twins, g_one, 2)
+        for ref in (whole, halves):
+            assert np.abs(ref["tcn_uncertainty"][0]
+                          - ref["tcn_uncertainty"][1]).max() > 1e-4
+        assert differing_leaves(got, halves) == []
+        assert torch.equal(g_shard.get_state(), g_one.get_state())
+
+
+def test_sharded_draws_are_the_unsharded_rows(mc, frames, monkeypatch):
+    """Each shard's dropout draws, site by site, are its clips' rows of
+    every MC sample's block of the unsharded engine's draw at the same
+    batch (4 clips over dp 2, 2 samples), bit for bit."""
+    from lameness_tpu_torch.pipeline.train import RowDraws
+    four = np.concatenate([frames, frames[::-1]])
+    whole = RecordedDraws(_gen())
+    mc.process_clip_batch(four, whole)
+    shard_draws = []
+    rand = RowDraws.rand
+
+    def spy(self, shape, device):
+        u = rand(self, shape, device)
+        assert self.groups == MC
+        shard_draws.append((self.lo, self.hi, u))
+        return u
+    monkeypatch.setattr(RowDraws, "rand", spy)
+    _sharded_mc(mc, four, _gen())
+    assert shard_draws_are_rows(whole.draws, shard_draws, 4, 2)
 
 
 def test_sharded_warmup(engines):
@@ -303,9 +401,9 @@ def test_process_stream_fills_batches_to_the_data_axis(engines, tmp_path):
     sizes = []
     run = sharded.run_sharded
 
-    def spy(frames_dev, generator=None):
+    def spy(frames_dev, *args, **kw):
         sizes.append(frames_dev.shape[0])
-        return run(frames_dev, generator)
+        return run(frames_dev, *args, **kw)
     sharded.run_sharded = spy
     drivers = []
     for name, eng, bs in (("mesh", sharded, 1), ("one", teng, 2)):
