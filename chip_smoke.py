@@ -211,6 +211,26 @@ Phases, each failing loudly (no exception is swallowed):
      unchanged; times, not gated, in the order staged pair monolith
      monolith pair staged: wall and CUDA-event ms a call, device busy of
      one profiled call, capture seconds (a ``modes record`` line).
+  14. the tools and the image codec (no kernel of their own; the engines
+     the tools drive run K1-K3): (a) seeded 1280x720 and 640x480 frames
+     encoded by the port (``video/image.py``) at 4:4:4, 4:2:0 and gray on
+     the card and on the CPU: the same quantised blocks and bytes; decoded
+     on both: the same pixels (integer arithmetic); ms an image of the
+     device half (CUDA events, host clock) and of the host's Huffman coding
+     (host clock), each alone; a PNG through the card and back bit for
+     bit (a ``codec record`` line); (b) ``lameness_tpu_torch/tools/``, each
+     a subprocess with ``--device cuda`` gated on its exit code and its
+     files: a seeded 32-image COCO-keypoints set written by ``imwrite``;
+     ``prepare_pose_dataset coco --flip-augment``,
+     ``analyze_training_orientation``, ``train_pose_model`` (2 epochs at
+     320) and ``compare_pose_models`` on its checkpoint,
+     ``train_detector --synthetic`` and ``--data`` (1 epoch); the seeded
+     default engine's YOLO, SAM and DINO written as ultralytics,
+     segment-anything and HF files, converted by ``convert_weights`` and
+     installed by ``restore_engine`` into an engine of other seeds: every
+     output bit for bit the seeded engine's, K1-K3 at the default's counts;
+     ``profile_stages --runs 2 --trace``; ``run_pipeline_example`` on a
+     written 720p ``.y4m`` upload.  The phase's seconds are printed.
 The line before the last is the kernel record (JSON); the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 without a CUDA device or outside the repository.
@@ -359,11 +379,18 @@ def setup():
     torch.backends.cudnn.allow_tf32 = False
     log(f"tf32: matmul {torch.backends.cuda.matmul.allow_tf32}  cudnn "
         f"{torch.backends.cudnn.allow_tf32}")
-    from lameness_tpu_torch.ops import _cuda
+    import concurrent.futures
+    from lameness_tpu_torch.ops import _cuda, _host
     t0 = time.perf_counter()
-    secs = _cuda.build()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        # the image codec's host library (g++) while nvcc builds the kernels
+        host = pool.submit(lambda: (_host.build("image_codec"),
+                                    time.perf_counter() - t0))
+        secs = _cuda.build()
+        host_path, host_s = host.result()
     log(f"kernel build: {time.perf_counter() - t0:.2f} s wall "
         + json.dumps({k: round(v, 2) for k, v in secs.items()}))
+    log(f"host library build: {host_path.name} in {host_s:.2f} s")
     hgmma = {}
     for name in _cuda.SOURCES:
         hgmma[name] = sass_count(_cuda.library_path(name), "HGMMA")
@@ -5635,6 +5662,378 @@ def engine_modes(eng, frames, smi) -> tuple:
     return ok, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 14
+# ---------------------------------------------------------------------------
+# the tools (no kernel of their own; the engines they drive run K1-K3).
+# (a) the image codec: seeded frames at 1280x720 and 640x480 encoded by the
+# port at 4:4:4, 4:2:0 and gray on the card and on the CPU (the same
+# quantised blocks, the same bytes), decoded on both (the same pixels: the
+# arithmetic is integer); ms an image of each half alone (the device half
+# by CUDA events and the host clock, the host's Huffman coding by the host
+# clock); a PNG round trip through the card bit for bit.  (b) the tools of
+# lameness_tpu_torch/tools/, each a subprocess with --device cuda, gated on
+# its exit code and its files: a seeded 32-image COCO-keypoints set written
+# by imwrite; prepare_pose_dataset coco --flip-augment, then
+# analyze_training_orientation; train_pose_model (2 epochs) and
+# compare_pose_models on its checkpoint beside the heuristic;
+# train_detector --synthetic and --data on the set (1 epoch); the seeded
+# default engine's YOLO, SAM and DINO written as ultralytics,
+# segment-anything and HF files and converted by convert_weights, then
+# installed by restore_engine into an engine of other seeds, whose outputs
+# must equal the seeded engine's bit for bit; profile_stages --runs 2 with a
+# trace; run_pipeline_example on a .y4m upload.
+CODEC_SIZES = ((720, 1280), (480, 640))
+CODEC_MODES = ("4:4:4", "4:2:0", "gray")
+CODEC_REPS = 5
+TOOL_IMAGES = 32                # the COCO-keypoints set of 14b
+TOOL_IMAGE_SIZE = (480, 640)
+TOOL_TIMEOUT = 300
+
+
+def codec_frame(rng, h, w):
+    """A seeded picture: smooth colour waves, edges and noise."""
+    y, x = np.mgrid[0:h, 0:w]
+    base = np.stack([128 + 100 * np.sin(x / 17.0 + c) * np.cos(y / 23.0 - c)
+                     for c in range(3)], -1)
+    return np.clip(base + rng.normal(0, 12, base.shape), 0, 255).astype(
+        np.uint8)
+
+
+def host_ms(fn, reps: int = CODEC_REPS) -> float:
+    """Host-clock ms per call of ``fn`` (ending in a synchronise)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def codec_phase(smi) -> bool:
+    """14a.  Returns ok."""
+    import torch
+    from lameness_tpu_torch.video import image as im
+    ok = True
+    rng = np.random.default_rng(SEED + 14)
+    records = []
+    for h, w in CODEC_SIZES:
+        rgb = codec_frame(rng, h, w)
+        for mode in CODEC_MODES:
+            src = rgb[..., 0] if mode == "gray" else rgb
+            sub = "4:2:0" if mode == "gray" else mode
+            card = im.jpeg_forward(src, 95, sub, device="cuda")
+            cpu = im.jpeg_forward(src, 95, sub, device="cpu")
+            same_blocks = all(np.array_equal(a.coefs, b.coefs)
+                              for a, b in zip(card.components,
+                                              cpu.components))
+            data = im.jpeg_bytes(card)
+            same_bytes = data == im.jpeg_bytes(cpu)
+            jf = im.parse_jpeg(data, "frame.jpg")
+            px = im.jpeg_pixels(jf, "cuda")
+            same_px = torch.equal(px.cpu(), im.jpeg_pixels(jf, "cpu"))
+            rec = {
+                "size": f"{w}x{h}", "mode": mode, "bytes": len(data),
+                "encode_device_ms": round(cuda_ms(
+                    lambda: im.jpeg_forward(src, 95, sub, device="cuda"),
+                    CODEC_REPS), 3),
+                "encode_device_host_ms": round(host_ms(
+                    lambda: im.jpeg_forward(src, 95, sub, device="cuda")), 3),
+                "encode_entropy_host_ms": round(host_ms(
+                    lambda: im.jpeg_bytes(card)), 3),
+                "decode_entropy_host_ms": round(host_ms(
+                    lambda: im.parse_jpeg(data, "frame.jpg")), 3),
+                "decode_device_ms": round(cuda_ms(
+                    lambda: im.jpeg_pixels(jf, "cuda"), CODEC_REPS), 3),
+                "decode_device_host_ms": round(host_ms(
+                    lambda: im.jpeg_pixels(jf, "cuda")), 3)}
+            good = same_blocks and same_bytes and same_px \
+                and tuple(px.shape) == (h, w, 3)
+            ok &= good
+            records.append(rec)
+            log(f"  14a {w}x{h} {mode}: card blocks = CPU's {same_blocks}, "
+                f"bytes {same_bytes}, pixels {same_px}; "
+                + json.dumps({k: v for k, v in rec.items()
+                              if k not in ("size", "mode")})
+                + f"  {'ok' if good else 'FAIL'}")
+    with tempfile.TemporaryDirectory() as tmp:
+        frame = torch.from_numpy(codec_frame(rng, 480, 640)).cuda()
+        im.imwrite(f"{tmp}/f.png", frame)
+        back = im.imread(f"{tmp}/f.png", "cuda")
+        good = torch.equal(back, frame)
+    ok &= good
+    log(f"  14a PNG 640x480 through the card and back bit for bit {good}  "
+        f"{'ok' if good else 'FAIL'}")
+    log("codec record " + json.dumps({"card": smi, "reps": CODEC_REPS,
+                                      "images": records}))
+    return ok
+
+
+def start_tool(name, *args, argv=None):
+    """Start ``python -m lameness_tpu_torch.tools.<name> args --device
+    cuda`` (or ``python argv``); returns its handle for ``finish_tool``.  A
+    thread reads its output and notes when it exits (killed after
+    TOOL_TIMEOUT s), so its seconds are its own however late it is waited
+    for."""
+    import threading
+    here = os.path.dirname(os.path.abspath(__file__))
+    if argv is None:
+        argv = ["-m", f"lameness_tpu_torch.tools.{name}", *map(str, args),
+                "--device", "cuda"]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, *argv], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, cwd=here,
+        env=dict(os.environ, PYTHONPATH=here))
+    done = {}
+
+    def wait():
+        try:
+            done["out"] = proc.communicate(timeout=TOOL_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            done["out"] = proc.communicate()
+            done["killed"] = True
+        done["s"] = time.perf_counter() - t0
+    waiter = threading.Thread(target=wait, daemon=True)
+    waiter.start()
+    return proc, name, args, waiter, done
+
+
+def finish_tool(handle):
+    """Wait for a started tool; returns (exit code, stdout)."""
+    proc, name, args, waiter, done = handle
+    waiter.join()
+    out, err = done["out"]
+    if done.get("killed"):
+        log(f"  14b {name}: killed after {TOOL_TIMEOUT} s")
+    tail = out.strip().splitlines()[-1:] or [""]
+    log(f"  14b {name} {' '.join(map(str, args[:2]))}: exit "
+        f"{proc.returncode} in {done['s']:.1f} s; {tail[0][:160]}")
+    if proc.returncode != 0:
+        log(err[-3000:])
+    return proc.returncode, out
+
+
+def tool(name, *args):
+    return finish_tool(start_tool(name, *args))
+
+
+def coco_keypoint_set(root, n: int = TOOL_IMAGES):
+    """A seeded COCO-keypoints set (AP-10K names) of n JPEGs written by the
+    port's imwrite on the card: a textured cow block on a seeded picture,
+    17 keypoints in the block, three of four facing right."""
+    from pathlib import Path
+    from lameness_tpu_torch.tools.prepare_pose_dataset import AP10K_NAMES
+    from lameness_tpu_torch.video.image import imwrite
+    root = Path(root)
+    (root / "images").mkdir(parents=True)
+    rng = np.random.default_rng(SEED + 141)
+    h, w = TOOL_IMAGE_SIZE
+    images, anns = [], []
+    for i in range(1, n + 1):
+        im = codec_frame(rng, h, w)
+        bw, bh = rng.integers(160, 320), rng.integers(100, 200)
+        x, y = rng.integers(0, w - bw), rng.integers(0, h - bh)
+        im[y:y + bh, x:x + bw] = rng.integers(170, 256, (bh, bw, 3))
+        imwrite(root / "images" / f"c{i:03d}.jpg", im, device="cuda")
+        images.append({"id": i, "file_name": f"c{i:03d}.jpg", "width": w,
+                       "height": h})
+        k = np.zeros((17, 3), np.float32)
+        k[:, 0] = rng.uniform(x, x + bw, 17)
+        k[:, 1] = rng.uniform(y, y + bh, 17)
+        k[:, 2] = 2
+        right = i % 4 != 0
+        k[2, 0] = x + (bw - 2 if right else 2)           # nose
+        k[4, 0] = x + (2 if right else bw - 2)           # tail root
+        anns.append({"id": i, "image_id": i, "category_id": 1,
+                     "bbox": [float(x), float(y), float(bw), float(bh)],
+                     "keypoints": [float(v) for v in k.ravel()],
+                     "num_keypoints": 17})
+    json.dump({"images": images, "annotations": anns,
+               "categories": [{"id": 1, "name": "cow",
+                               "keypoints": AP10K_NAMES}]},
+              open(root / "ann.json", "w"))
+    return root / "ann.json", root / "images"
+
+
+def hf_layout(convert, name, state_dict):
+    """``state_dict`` (the port's, of sub-model ``name``) under the key
+    names ``convert`` (an HF converter of the port) reads.  The converters
+    only rename and transpose (the way back through the flax tree leaves
+    every tensor as it was), so each key's source is found by converting a
+    state dict of numbered one-element arrays, its keys taken from the
+    converter's KeyErrors."""
+    from lameness_tpu_torch.weights import from_jax_params
+    keys = []
+    while True:
+        probe = {k: np.full((1, 1, 1, 1), i, np.float64)
+                 for i, k in enumerate(keys)}
+        try:
+            tree = convert(probe)
+            break
+        except KeyError as exc:
+            keys.append(exc.args[0])
+    numbered = from_jax_params({name: tree})[name]
+    source = {k: keys[int(v.reshape(-1)[0])] for k, v in numbered.items()}
+    return {source[k]: v for k, v in state_dict.items()}
+
+
+def reference_files(root) -> tuple:
+    """The seeded default engine's YOLO, SAM and DINO (fp32, before the
+    bf16 policy) written in the reference's layouts: an ultralytics ``.pt``,
+    a segment-anything ``.pth`` and an HF directory.  Returns ({kind:
+    path}, the seeded state dicts, whether the segment-anything file reads
+    back as the HF names)."""
+    import functools
+    from pathlib import Path
+    import torch
+    from lameness_tpu_torch.core.config import Config
+    from lameness_tpu_torch.models import dino as dino_mod
+    from lameness_tpu_torch.models import sam as sam_mod
+    from lameness_tpu_torch.models.yolo import export_ultralytics_state_dict
+    from lameness_tpu_torch.pipeline.engine import EngineSpec
+    from lameness_tpu_torch.weights import (conv_tree_from_state_dict,
+                                            init_params)
+    root = Path(root)
+    seeded = init_params(EngineSpec(), Config(),
+                         torch.Generator().manual_seed(SEED))
+    files = {"yolo": root / "yolov8n.pt",
+             "sam": root / "sam_vit_b_01ec64.pth",
+             "dino": root / "dinov2-base"}
+    files["dino"].mkdir(parents=True)
+    torch.save({k: torch.as_tensor(v) for k, v in export_ultralytics_state_dict(
+        conv_tree_from_state_dict(seeded["yolo"])).items()}, files["yolo"])
+    hf_sam = hf_layout(functools.partial(sam_mod.convert_hf_state_dict,
+                                         depth=12), "sam", seeded["sam"])
+    sa = sam_mod.hf_to_sa_state_dict(hf_sam)
+    torch.save(sa, files["sam"])
+    torch.save(hf_layout(dino_mod.convert_hf_state_dict, "dino",
+                         seeded["dino"]),
+               files["dino"] / "pytorch_model.bin")
+    sa_ok = set(sam_mod.sa_to_hf_state_dict(sa)) == set(hf_sam) \
+        and sam_mod.detect_sam_layout(sa) == "sa"
+    log(f"  14b reference files: ultralytics ({len(seeded['yolo'])} "
+        f"tensors), segment-anything ({len(sa)} keys, renamed back to the HF "
+        f"names {sa_ok}), HF DINOv2 ({len(seeded['dino'])} keys)")
+    return files, seeded, sa_ok
+
+
+def converted_engine(models, seeded) -> tuple:
+    """An engine of other seeds with the converted checkpoints (and the
+    seeded TCN and GaitTransformer through save_params) installed by
+    restore_engine, against the seeded default engine: every output bit for
+    bit.  Returns (ok, launches)."""
+    import torch
+    from lameness_tpu_torch.core.config import Config
+    from lameness_tpu_torch.pipeline.checkpoint import (restore_engine,
+                                                        save_params)
+    from lameness_tpu_torch.pipeline.engine import EngineSpec, LamenessEngine
+    for name in ("tcn", "gait"):
+        save_params(models, name, seeded[name])
+    ref = LamenessEngine(Config(), EngineSpec(),
+                         generator=torch.Generator().manual_seed(SEED))
+    eng = LamenessEngine(Config(), EngineSpec(),
+                         generator=torch.Generator().manual_seed(SEED + 14))
+    loaded = restore_engine(eng, models)
+    ok = loaded == {n: True for n in ("yolo", "dino", "sam", "tcn", "gait")}
+    s = ref.spec
+    frames = np.random.default_rng(SEED + 142).integers(
+        0, 256, (1, s.clip_frames, s.frame_height, s.frame_width, 3),
+        dtype=np.uint8)
+    _, want, _ = counted_run(ref, frames)
+    launches, got, _ = counted_run(eng, frames)
+    same = same_leaves(got, want)
+    ok &= same and expect_launches(launches, BASE_LAUNCHES)
+    log(f"  14b restore_engine {json.dumps(loaded)}; every output of the "
+        f"converted engine bit for bit the seeded engine's {same}  "
+        f"{'ok' if ok else 'FAIL'}")
+    del ref, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ok, launches
+
+
+def tools_phase(tmp, smi) -> tuple:
+    """14b.  The tools that depend on nothing else start at once and run
+    beside the pose chain (prepare, then analyze, train_pose_model and
+    train_detector --data together, then compare).  Beside them a process
+    that only imports a tool and touches the card reads what a tool's
+    start costs.  Returns (ok, launches of the converted engine's run)."""
+    from pathlib import Path
+    tmp = Path(tmp)
+    ann, images = coco_keypoint_set(tmp / "src")
+    files, seeded, ok = reference_files(tmp / "ref")
+    src, _ = upload_clip(tmp / "upload", UPLOAD_FRAMES, UPLOAD_COW)
+    models, ds, pose_models = tmp / "models", tmp / "ds", tmp / "models_pose"
+    side = {kind: start_tool("convert_weights", kind, path, "--out", models)
+            for kind, path in files.items()}
+    side["synthetic"] = start_tool("train_detector", "--synthetic",
+                                   "--epochs", 1, "--out",
+                                   tmp / "detector_synthetic")
+    side["profile"] = start_tool("profile_stages", "--runs", 2, "--trace",
+                                 tmp / "trace")
+    side["example"] = start_tool("run_pipeline_example", src, "--data",
+                                 tmp / "data")
+    side["start"] = start_tool("process start", argv=[
+        "-c", "import torch, lameness_tpu_torch.tools.train_detector; "
+        "torch.zeros(1, device='cuda'); torch.cuda.synchronize()"])
+    rc, _ = tool("prepare_pose_dataset", "coco", ann, images, "--out", ds,
+                 "--flip-augment")
+    doc = json.load(open(ds / "annotations.json")) if rc == 0 else {}
+    ok &= rc == 0 and len(doc.get("images", [])) == 2 * TOOL_IMAGES \
+        and len(list((ds / "images").glob("flip_*.jpg"))) == TOOL_IMAGES
+    chain = {"analyze": start_tool("analyze_training_orientation", ds),
+             "pose": start_tool("train_pose_model", ds, "--epochs", 2,
+                                "--img-size", 320, "--models-dir",
+                                pose_models),
+             "data": start_tool("train_detector", "--data", ds, "--epochs",
+                                1, "--out", tmp / "detector_data")}
+    rc, out = finish_tool(chain["pose"])
+    ok &= rc == 0 and "completed: final loss" in out \
+        and (pose_models / "pose" / "params.torch").exists()
+    rc, out = tool("compare_pose_models", ds, "--model", pose_models,
+                   "--img-size", 320)
+    ok &= rc == 0 and "heuristic" in out and str(pose_models) in out
+    rc, out = finish_tool(chain["analyze"])
+    ok &= rc == 0 and f"over {2 * TOOL_IMAGES} annotations" in out
+    for name, handle in (("data", chain["data"]),
+                         ("synthetic", side["synthetic"])):
+        rc, out = finish_tool(handle)
+        last = out.strip().splitlines()[-1:] or ["{}"]
+        ok &= rc == 0 and "best_mAP50_95" in json.loads(last[0]) \
+            and (tmp / f"detector_{name}" / "detector_best"
+                 / "params.torch").exists()
+    for kind in files:
+        rc, _ = finish_tool(side[kind])
+        ok &= rc == 0 and (models / kind / "params.torch").exists()
+    rc, out = finish_tool(side["profile"])
+    ok &= rc == 0 and "run_staged" in out \
+        and len(list((tmp / "trace").glob("trace_*.json"))) == 1
+    log("\n".join("    " + ln for ln in out.splitlines()[-7:]))
+    rc, _ = finish_tool(side["start"])
+    ok &= rc == 0
+    rc, out = finish_tool(side["example"])
+    ok &= rc == 0 and "final probability:" in out and "MISSING" not in out
+    log("\n".join("    " + ln for ln in out.splitlines()[:16]))
+    good, launches = converted_engine(models, seeded)
+    ok &= good
+    log(f"  14b tools on {smi}  {'ok' if ok else 'FAIL'}")
+    return ok, launches
+
+
+def tools_and_codec(smi) -> tuple:
+    """Phase 14.  Returns (ok, {path: launches})."""
+    t0 = time.perf_counter()
+    ok = codec_phase(smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        good, launches = tools_phase(tmp, smi)
+    log(f"  phase 14: {time.perf_counter() - t0:.1f} s; card {smi}")
+    return ok and good, {"tools": launches}
+
+
 def header(title: str, t_start: float) -> None:
     """A phase's header line, with the seconds since the script started."""
     log(f"== {title} [{time.perf_counter() - t_start:.1f} s in]")
@@ -5758,6 +6157,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     ok_x, mesh_launches = mesh_in_fresh_process()
     launches.update(mesh_launches)
+    header("phase 14: the tools and the image codec", t_start)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with switches({}):
+        ok_14, tool_launches = tools_and_codec(smi)
+    launches.update(tool_launches)
     for kid, rec in records.items():
         # each kernel's count on its own path (K1 runs on every one)
         rec["launches"] = max(counts[rec["name"]]
@@ -5771,7 +6176,7 @@ def main() -> int:
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     if not (ok_build and ok_k and ok_small and ok_e and ok_m and ok_c
             and ok_s and ok_a and ok_u and ok_t and ok_p and ok_w
-            and ok_x and ok_13):
+            and ok_x and ok_13 and ok_14):
         log("chip_smoke: FAILED")
         return 1
     log(smi)

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import math
 import os
+import re
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -583,6 +584,111 @@ def _ffn(sd, prefix, num_layers=3):
     return out
 
 
+# segment-anything -> HF SamModel names (first match wins)
+_SA_TO_HF = [
+    (r"^image_encoder\.patch_embed\.proj\.",
+     "vision_encoder.patch_embed.projection."),
+    (r"^image_encoder\.blocks\.(\d+)\.norm1\.",
+     r"vision_encoder.layers.\1.layer_norm1."),
+    (r"^image_encoder\.blocks\.(\d+)\.norm2\.",
+     r"vision_encoder.layers.\1.layer_norm2."),
+    (r"^image_encoder\.blocks\.(\d+)\.", r"vision_encoder.layers.\1."),
+    (r"^image_encoder\.neck\.0\.", "vision_encoder.neck.conv1."),
+    (r"^image_encoder\.neck\.1\.", "vision_encoder.neck.layer_norm1."),
+    (r"^image_encoder\.neck\.2\.", "vision_encoder.neck.conv2."),
+    (r"^image_encoder\.neck\.3\.", "vision_encoder.neck.layer_norm2."),
+    (r"^image_encoder\.", "vision_encoder."),
+    (r"^prompt_encoder\.pe_layer\.positional_encoding_gaussian_matrix$",
+     "prompt_encoder.shared_embedding.positional_embedding"),
+    (r"^prompt_encoder\.point_embeddings\.",
+     "prompt_encoder.point_embed."),
+    # mask_downscaling is unused on the box-prompt path but mapped so
+    # a torch-side SamModel.load_state_dict can be key-complete
+    (r"^prompt_encoder\.mask_downscaling\.0\.",
+     "prompt_encoder.mask_embed.conv1."),
+    (r"^prompt_encoder\.mask_downscaling\.1\.",
+     "prompt_encoder.mask_embed.layer_norm1."),
+    (r"^prompt_encoder\.mask_downscaling\.3\.",
+     "prompt_encoder.mask_embed.conv2."),
+    (r"^prompt_encoder\.mask_downscaling\.4\.",
+     "prompt_encoder.mask_embed.layer_norm2."),
+    (r"^prompt_encoder\.mask_downscaling\.6\.",
+     "prompt_encoder.mask_embed.conv3."),
+    (r"^mask_decoder\.transformer\.norm_final_attn\.",
+     "mask_decoder.transformer.layer_norm_final_attn."),
+    (r"^mask_decoder\.transformer\.layers\.(\d+)\.norm([1-4])\.",
+     r"mask_decoder.transformer.layers.\1.layer_norm\2."),
+    (r"^mask_decoder\.output_upscaling\.0\.",
+     "mask_decoder.upscale_conv1."),
+    (r"^mask_decoder\.output_upscaling\.1\.",
+     "mask_decoder.upscale_layer_norm."),
+    (r"^mask_decoder\.output_upscaling\.3\.",
+     "mask_decoder.upscale_conv2."),
+    # 3-layer MLPs: SA uses layers.{0,1,2}; HF names them
+    # proj_in / layers.0 / proj_out
+    (r"^(mask_decoder\.(?:output_hypernetworks_mlps\.\d+|"
+     r"iou_prediction_head))\.layers\.0\.", r"\1.proj_in."),
+    (r"^(mask_decoder\.(?:output_hypernetworks_mlps\.\d+|"
+     r"iou_prediction_head))\.layers\.1\.", r"\1.layers.0."),
+    (r"^(mask_decoder\.(?:output_hypernetworks_mlps\.\d+|"
+     r"iou_prediction_head))\.layers\.2\.", r"\1.proj_out."),
+]
+
+# HF SamModel -> segment-anything names: the inverse of _SA_TO_HF (first
+# match wins, as there)
+_HF_TO_SA = [
+    (r"^vision_encoder\.patch_embed\.projection\.",
+     "image_encoder.patch_embed.proj."),
+    (r"^vision_encoder\.layers\.(\d+)\.layer_norm([12])\.",
+     r"image_encoder.blocks.\1.norm\2."),
+    (r"^vision_encoder\.layers\.(\d+)\.", r"image_encoder.blocks.\1."),
+    (r"^vision_encoder\.neck\.conv1\.", "image_encoder.neck.0."),
+    (r"^vision_encoder\.neck\.layer_norm1\.", "image_encoder.neck.1."),
+    (r"^vision_encoder\.neck\.conv2\.", "image_encoder.neck.2."),
+    (r"^vision_encoder\.neck\.layer_norm2\.", "image_encoder.neck.3."),
+    (r"^vision_encoder\.", "image_encoder."),
+    (r"^prompt_encoder\.shared_embedding\.positional_embedding$",
+     "prompt_encoder.pe_layer.positional_encoding_gaussian_matrix"),
+    (r"^prompt_encoder\.point_embed\.", "prompt_encoder.point_embeddings."),
+    (r"^prompt_encoder\.mask_embed\.conv1\.",
+     "prompt_encoder.mask_downscaling.0."),
+    (r"^prompt_encoder\.mask_embed\.layer_norm1\.",
+     "prompt_encoder.mask_downscaling.1."),
+    (r"^prompt_encoder\.mask_embed\.conv2\.",
+     "prompt_encoder.mask_downscaling.3."),
+    (r"^prompt_encoder\.mask_embed\.layer_norm2\.",
+     "prompt_encoder.mask_downscaling.4."),
+    (r"^prompt_encoder\.mask_embed\.conv3\.",
+     "prompt_encoder.mask_downscaling.6."),
+    (r"^mask_decoder\.transformer\.layer_norm_final_attn\.",
+     "mask_decoder.transformer.norm_final_attn."),
+    (r"^mask_decoder\.transformer\.layers\.(\d+)\.layer_norm([1-4])\.",
+     r"mask_decoder.transformer.layers.\1.norm\2."),
+    (r"^mask_decoder\.upscale_conv1\.", "mask_decoder.output_upscaling.0."),
+    (r"^mask_decoder\.upscale_layer_norm\.",
+     "mask_decoder.output_upscaling.1."),
+    (r"^mask_decoder\.upscale_conv2\.", "mask_decoder.output_upscaling.3."),
+    (r"^(mask_decoder\.(?:output_hypernetworks_mlps\.\d+|"
+     r"iou_prediction_head))\.proj_in\.", r"\1.layers.0."),
+    (r"^(mask_decoder\.(?:output_hypernetworks_mlps\.\d+|"
+     r"iou_prediction_head))\.layers\.0\.", r"\1.layers.1."),
+    (r"^(mask_decoder\.(?:output_hypernetworks_mlps\.\d+|"
+     r"iou_prediction_head))\.proj_out\.", r"\1.layers.2."),
+]
+
+
+def _rename(sd: Dict[str, Any], rules) -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for k, v in sd.items():
+        for pat, rep in rules:
+            nk = re.sub(pat, rep, k)
+            if nk != k:
+                k = nk
+                break
+        out[k] = v
+    return out
+
+
 def sa_to_hf_state_dict(sd: Dict[str, Any]) -> Dict[str, Any]:
     """Rename an original ``segment-anything`` checkpoint (the
     ``sam_vit_{b,l,h}_*.pth`` files the reference registry loads,
@@ -594,65 +700,13 @@ def sa_to_hf_state_dict(sd: Dict[str, Any]) -> Dict[str, Any]:
     so a dropped reference checkpoint converts without the
     segment-anything package installed.
     """
-    import re
-    rules = [
-        (r"^image_encoder\.patch_embed\.proj\.",
-         "vision_encoder.patch_embed.projection."),
-        (r"^image_encoder\.blocks\.(\d+)\.norm1\.",
-         r"vision_encoder.layers.\1.layer_norm1."),
-        (r"^image_encoder\.blocks\.(\d+)\.norm2\.",
-         r"vision_encoder.layers.\1.layer_norm2."),
-        (r"^image_encoder\.blocks\.(\d+)\.", r"vision_encoder.layers.\1."),
-        (r"^image_encoder\.neck\.0\.", "vision_encoder.neck.conv1."),
-        (r"^image_encoder\.neck\.1\.", "vision_encoder.neck.layer_norm1."),
-        (r"^image_encoder\.neck\.2\.", "vision_encoder.neck.conv2."),
-        (r"^image_encoder\.neck\.3\.", "vision_encoder.neck.layer_norm2."),
-        (r"^image_encoder\.", "vision_encoder."),
-        (r"^prompt_encoder\.pe_layer\.positional_encoding_gaussian_matrix$",
-         "prompt_encoder.shared_embedding.positional_embedding"),
-        (r"^prompt_encoder\.point_embeddings\.",
-         "prompt_encoder.point_embed."),
-        # mask_downscaling is unused on the box-prompt path but mapped so
-        # a torch-side SamModel.load_state_dict can be key-complete
-        (r"^prompt_encoder\.mask_downscaling\.0\.",
-         "prompt_encoder.mask_embed.conv1."),
-        (r"^prompt_encoder\.mask_downscaling\.1\.",
-         "prompt_encoder.mask_embed.layer_norm1."),
-        (r"^prompt_encoder\.mask_downscaling\.3\.",
-         "prompt_encoder.mask_embed.conv2."),
-        (r"^prompt_encoder\.mask_downscaling\.4\.",
-         "prompt_encoder.mask_embed.layer_norm2."),
-        (r"^prompt_encoder\.mask_downscaling\.6\.",
-         "prompt_encoder.mask_embed.conv3."),
-        (r"^mask_decoder\.transformer\.norm_final_attn\.",
-         "mask_decoder.transformer.layer_norm_final_attn."),
-        (r"^mask_decoder\.transformer\.layers\.(\d+)\.norm([1-4])\.",
-         r"mask_decoder.transformer.layers.\1.layer_norm\2."),
-        (r"^mask_decoder\.output_upscaling\.0\.",
-         "mask_decoder.upscale_conv1."),
-        (r"^mask_decoder\.output_upscaling\.1\.",
-         "mask_decoder.upscale_layer_norm."),
-        (r"^mask_decoder\.output_upscaling\.3\.",
-         "mask_decoder.upscale_conv2."),
-        # 3-layer MLPs: SA uses layers.{0,1,2}; HF names them
-        # proj_in / layers.0 / proj_out
-        (r"^(mask_decoder\.(?:output_hypernetworks_mlps\.\d+|"
-         r"iou_prediction_head))\.layers\.0\.", r"\1.proj_in."),
-        (r"^(mask_decoder\.(?:output_hypernetworks_mlps\.\d+|"
-         r"iou_prediction_head))\.layers\.1\.", r"\1.layers.0."),
-        (r"^(mask_decoder\.(?:output_hypernetworks_mlps\.\d+|"
-         r"iou_prediction_head))\.layers\.2\.", r"\1.proj_out."),
-    ]
-    out: Dict[str, Any] = {}
-    for k, v in sd.items():
-        nk = k
-        for pat, rep in rules:
-            nk2 = re.sub(pat, rep, nk)
-            if nk2 != nk:
-                nk = nk2
-                break
-        out[nk] = v
-    return out
+    return _rename(sd, _SA_TO_HF)
+
+
+def hf_to_sa_state_dict(sd: Dict[str, Any]) -> Dict[str, Any]:
+    """The inverse of :func:`sa_to_hf_state_dict`: HF ``SamModel`` names ->
+    the original ``segment-anything`` checkpoint's (values untouched)."""
+    return _rename(sd, _HF_TO_SA)
 
 
 def detect_sam_layout(sd: Dict[str, Any]) -> str:

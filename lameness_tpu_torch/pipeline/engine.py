@@ -72,6 +72,7 @@ from ..models.yolo import YoloV8, convert_ultralytics_state_dict, detect
 from ..ops import preprocess as prep
 from ..ops._cuda import KERNELS
 from ..ops.boxes import clip_boxes, pairwise_iou
+from ..video.image import rows_at
 from ..video.yuv import (flat_views, i420_flat_to_rgb_device,
                           i420_rows_to_rgb_device, pack_i420_flat,
                           pack_i420_rows, rgb_to_i420)
@@ -209,10 +210,10 @@ class EngineSpec:
             raise ValueError(f"expected {self.clip_frames} (full) or "
                              f"{self.n_packed} (packed) frames, got {t}")
         out = out or {}
-        return {"hi": _rows_at(frames, hi_rows, self.frame_height,
-                               self.frame_width, out.get("hi")),
-                "lo": _rows_at(frames, lo_rows, self.lo_height,
-                               self.lo_width, out.get("lo"))}
+        return {"hi": rows_at(frames, hi_rows, self.frame_height,
+                              self.frame_width, out.get("hi")),
+                "lo": rows_at(frames, lo_rows, self.lo_height,
+                              self.lo_width, out.get("lo"))}
 
     def pack_frames(self, frames, out=None):
         """(B, T, H, W, 3) with T == clip_frames -> (B, P, H, W, 3); a
@@ -231,28 +232,6 @@ class EngineSpec:
             # second copy); the indices are in range
             np.take(frames, self.packed_idx, axis=1, out=out, mode="clip")
         return out
-
-
-def _rows_at(frames: np.ndarray, rows, h: int, w: int,
-             out: Optional[np.ndarray] = None) -> np.ndarray:
-    """Host (B, T, H, W, 3) uint8, rows ``rows`` of axis 1 at (h, w), into
-    ``out`` if given: gathered when the size already matches, else resized
-    bilinearly on half-pixel centres without antialiasing, in uint8 on the
-    CPU, as cv2.INTER_LINEAR (within 1)."""
-    b, _, fh, fw, c = frames.shape
-    shape = (b, len(rows), h, w, c)
-    if out is None:
-        out = np.empty(shape, np.uint8)
-    if (fh, fw) == (h, w):
-        # mode="clip": with mode="raise" numpy buffers ``out`` (a second
-        # copy); the rows are in range
-        return np.take(frames, rows, axis=1, out=out, mode="clip")
-    x = torch.from_numpy(np.ascontiguousarray(frames[:, rows]))
-    y = torch.nn.functional.interpolate(
-        x.view((-1,) + x.shape[2:]).permute(0, 3, 1, 2), size=(h, w),
-        mode="bilinear", align_corners=False, antialias=False)
-    np.copyto(out, y.permute(0, 2, 3, 1).numpy().reshape(shape))
-    return out
 
 
 def unpad_mask_logits(masks: torch.Tensor, mh: int, mw: int,

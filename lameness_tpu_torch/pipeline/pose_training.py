@@ -9,11 +9,13 @@ DFL box loss and an OKS-style keypoint loss, with ``adamw(lr)``.  The
 checkpoint lands under ``<models_dir>/pose``, where ``restore_engine``
 installs it into an engine with ``pose_pixels``.
 
-The JAX module's COCO-keypoints loader decodes images with OpenCV, which
-the card's machine lacks; callers pass arrays.
+``load_coco_pose_dataset`` reads a COCO-keypoints directory with the
+port's own image codec (``video/image.py``) where the JAX module uses
+OpenCV, which the card's machine lacks.
 """
 from __future__ import annotations
 
+import json
 from pathlib import Path
 from typing import Any, Dict, Optional, Tuple
 
@@ -22,6 +24,7 @@ import torch
 
 from ..core.device import resolve_device
 from ..models.yolo import YoloV8
+from ..video.image import imread, resize
 from ..weights import seeded_state_dict
 from .checkpoint import save_params
 from .detect_training import sigmoid_bce
@@ -118,6 +121,41 @@ def pose_loss(model: YoloV8, images: torch.Tensor,
             kpt_raw[..., 2], vis * obj_t[..., None]).mean()
     loss = total_cls + 0.5 * total_box + 2.0 * total_kpt
     return loss, {"cls": total_cls, "box": total_box, "kpt": total_kpt}
+
+
+def load_coco_pose_dataset(root: Path, img_size: int = 320,
+                           limit: Optional[int] = None, device=None):
+    """Minimal COCO-keypoints loader: root/annotations.json + root/images.
+    Keeps the first annotation per image (single-cow assumption).  Images
+    are decoded on ``device`` (the card unless ``"cpu"``) and resized to
+    ``img_size``² on the host as cv2.resize does (within 1); returns
+    (N, S, S, 3) uint8 RGB, (N, 4) xyxy boxes and (N, K, 3) keypoints with
+    visibility 0/1, all scaled to the resized image."""
+    ann = json.load(open(Path(root) / "annotations.json"))
+    imgs = {im["id"]: im for im in ann["images"]}
+    by_img = {}
+    for a in ann["annotations"]:
+        by_img.setdefault(a["image_id"], a)
+    images, boxes, kpts = [], [], []
+    for img_id, a in list(by_img.items())[:limit]:
+        meta = imgs[img_id]
+        f = Path(root) / "images" / meta["file_name"]
+        if not f.exists():
+            continue
+        im = imread(f, device).cpu().numpy()
+        sy = img_size / im.shape[0]
+        sx = img_size / im.shape[1]
+        im = resize(im, (img_size, img_size))
+        x, y, w, h = a["bbox"]
+        k = np.asarray(a["keypoints"], np.float32).reshape(-1, 3)
+        k[:, 0] *= sx
+        k[:, 1] *= sy
+        k[:, 2] = (k[:, 2] > 0).astype(np.float32)
+        images.append(im)
+        boxes.append([x * sx, y * sy, (x + w) * sx, (y + h) * sy])
+        kpts.append(k)
+    return (np.stack(images).astype(np.uint8), np.asarray(boxes, np.float32),
+            np.stack(kpts))
 
 
 def train_pose_model(images: np.ndarray, boxes: np.ndarray, kpts: np.ndarray,

@@ -39,6 +39,7 @@ import numpy as np
 from ..core.config import Config
 from ..hitl import elo as elo_mod
 from ..io.db import Database
+from ..video.image import encode_png
 from .http import (AdminHTTPServer, HTTPError, Request, Router, TokenCodec,
                    WebSocketManager, hash_password, verify_password)
 
@@ -274,24 +275,6 @@ class AdminContext:
 
 def _now():
     return datetime.now(timezone.utc).isoformat()
-
-
-def encode_png(rgb: np.ndarray) -> bytes:
-    """(H, W, 3) uint8 RGB -> PNG bytes (8-bit truecolour, filter 0, zlib):
-    the frame endpoint's image, with the standard library only."""
-    import struct
-    import zlib
-    h, w = rgb.shape[:2]
-    raw = np.concatenate([np.zeros((h, 1), np.uint8),
-                          np.ascontiguousarray(rgb, np.uint8).reshape(h, -1)],
-                         axis=1).tobytes()
-
-    def chunk(kind: bytes, data: bytes) -> bytes:
-        return (struct.pack(">I", len(data)) + kind + data
-                + struct.pack(">I", zlib.crc32(kind + data) & 0xffffffff))
-    return (b"\x89PNG\r\n\x1a\n"
-            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-            + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
 
 
 def _qint(req: Request, key: str, default: int) -> int:

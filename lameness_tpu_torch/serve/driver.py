@@ -78,7 +78,6 @@ from ..io.vecstore import VectorStore, make_store
 from ..ml.ensemble import GBDTEnsemble
 from ..ml.features import extract_features
 from ..models import pose as pose_mod
-from ..pipeline.engine import _rows_at
 from ..track.bytetrack import ByteTracker, Detection
 from ..track.device_tracker import track_detection_frames
 from ..track.reid import CowReIDMatcher
@@ -86,6 +85,7 @@ from ..utils.logging import get_logger
 from ..utils.timing import TIMERS
 from ..video.curation import BatchedYoloDetector, ClipCurator
 from ..video.decode import VideoReader, write_video
+from ..video.image import resize
 from .contours import first_moments, largest_external_contour, \
     resize_nearest
 from .graph_runner import GraphHeadRunner
@@ -292,10 +292,6 @@ class PipelineDriver:
             return None, None, info
         sx = info["width"] / s.frame_width
         sy = info["height"] / s.frame_height
-
-        def resize(f, size):
-            w, h = size
-            return _rows_at(f[None, None], [0], h, w)[0, 0]
         if s.split:
             # split-resolution ingest: det/SAM rows at hi geometry,
             # dino/pose rows at lo — each decoded frame is resized once

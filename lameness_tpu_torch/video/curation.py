@@ -28,8 +28,8 @@ What runs where:
   in the JAX package.  ``detect_stream`` issues chunk k+1's copy to the
   device before it reads chunk k back, on the side streams of
   ``core/streams.py``;
-- the canonical clip is resized to 1280x720 on the host by the engine's
-  bilinear ``_rows_at`` (cv2's INTER_LINEAR within 1), flipped when the
+- the canonical clip is resized to 1280x720 on the host by
+  ``video/image.py``'s bilinear ``rows_at`` (cv2's INTER_LINEAR within 1), flipped when the
   cow walks right to left, and written as ``<id>_canonical.y4m``.
 
 Frames handed to a detector are BGR by the reference's convention
@@ -54,10 +54,10 @@ from ..core.streams import Overlap, host_to_device
 from ..io import schemas
 from ..models.yolo import detect as yolo_detect
 from ..ops.preprocess import letterbox, unletterbox_boxes
-from ..pipeline.engine import _rows_at
 from ..serve.contours import largest_external_contour
 from ..utils.timing import StageTimers
 from .decode import VideoReader, write_video
+from .image import rows_at
 from .yuv import i420_to_rgb, i420_to_rgb_device, rgb_to_gray, rgb_to_i420
 
 TARGET_FPS = 25
@@ -898,7 +898,7 @@ class ClipCurator:
         if not picked:
             return None
         w, h = TARGET_RESOLUTION
-        out = _rows_at(np.stack(picked)[None], np.arange(len(picked)),
+        out = rows_at(np.stack(picked)[None], np.arange(len(picked)),
                        h, w)[0]
         if cand.needs_flip:
             out = out[:, :, ::-1]

@@ -14,7 +14,6 @@
 - a tiny engine at ViT-H's head dim 80 against the JAX engine.
 """
 import dataclasses
-import re
 
 import numpy as np
 import pytest
@@ -71,61 +70,6 @@ def hf_sam():
         return SamModel(HfSamConfig()).eval().state_dict()
 
 
-# HF SamModel -> segment-anything names: the inverse of
-# sa_to_hf_state_dict's rules (first match wins, as there)
-_TO_SA = [
-    (r"^vision_encoder\.patch_embed\.projection\.",
-     "image_encoder.patch_embed.proj."),
-    (r"^vision_encoder\.layers\.(\d+)\.layer_norm([12])\.",
-     r"image_encoder.blocks.\1.norm\2."),
-    (r"^vision_encoder\.layers\.(\d+)\.", r"image_encoder.blocks.\1."),
-    (r"^vision_encoder\.neck\.conv1\.", "image_encoder.neck.0."),
-    (r"^vision_encoder\.neck\.layer_norm1\.", "image_encoder.neck.1."),
-    (r"^vision_encoder\.neck\.conv2\.", "image_encoder.neck.2."),
-    (r"^vision_encoder\.neck\.layer_norm2\.", "image_encoder.neck.3."),
-    (r"^vision_encoder\.", "image_encoder."),
-    (r"^prompt_encoder\.shared_embedding\.positional_embedding$",
-     "prompt_encoder.pe_layer.positional_encoding_gaussian_matrix"),
-    (r"^prompt_encoder\.point_embed\.", "prompt_encoder.point_embeddings."),
-    (r"^prompt_encoder\.mask_embed\.conv1\.",
-     "prompt_encoder.mask_downscaling.0."),
-    (r"^prompt_encoder\.mask_embed\.layer_norm1\.",
-     "prompt_encoder.mask_downscaling.1."),
-    (r"^prompt_encoder\.mask_embed\.conv2\.",
-     "prompt_encoder.mask_downscaling.3."),
-    (r"^prompt_encoder\.mask_embed\.layer_norm2\.",
-     "prompt_encoder.mask_downscaling.4."),
-    (r"^prompt_encoder\.mask_embed\.conv3\.",
-     "prompt_encoder.mask_downscaling.6."),
-    (r"^mask_decoder\.transformer\.layer_norm_final_attn\.",
-     "mask_decoder.transformer.norm_final_attn."),
-    (r"^mask_decoder\.transformer\.layers\.(\d+)\.layer_norm([1-4])\.",
-     r"mask_decoder.transformer.layers.\1.norm\2."),
-    (r"^mask_decoder\.upscale_conv1\.", "mask_decoder.output_upscaling.0."),
-    (r"^mask_decoder\.upscale_layer_norm\.",
-     "mask_decoder.output_upscaling.1."),
-    (r"^mask_decoder\.upscale_conv2\.", "mask_decoder.output_upscaling.3."),
-    (r"^(mask_decoder\.(?:output_hypernetworks_mlps\.\d+|"
-     r"iou_prediction_head))\.proj_in\.", r"\1.layers.0."),
-    (r"^(mask_decoder\.(?:output_hypernetworks_mlps\.\d+|"
-     r"iou_prediction_head))\.layers\.0\.", r"\1.layers.1."),
-    (r"^(mask_decoder\.(?:output_hypernetworks_mlps\.\d+|"
-     r"iou_prediction_head))\.proj_out\.", r"\1.layers.2."),
-]
-
-
-def _to_sa(sd):
-    out = {}
-    for key, val in sd.items():
-        for pat, rep in _TO_SA:
-            new = re.sub(pat, rep, key)
-            if new != key:
-                key = new
-                break
-        out[key] = val
-    return out
-
-
 def test_dino_converter_matches_jax():
     from transformers import Dinov2Config, Dinov2Model
     torch.manual_seed(1)
@@ -146,7 +90,7 @@ def test_dino_converter_matches_jax():
 
 @pytest.mark.parametrize("layout", ["hf", "sa"])
 def test_sam_converter_matches_jax(hf_sam, layout):
-    sd = hf_sam if layout == "hf" else _to_sa(hf_sam)
+    sd = hf_sam if layout == "hf" else tsam.hf_to_sa_state_dict(hf_sam)
     assert tsam.detect_sam_layout(sd) == jsam.detect_sam_layout(sd) == layout
     if layout == "sa":
         renamed = tsam.sa_to_hf_state_dict(sd)
