@@ -63,7 +63,7 @@ Phases, each failing loudly (no exception is swallowed):
      clip at chunks 16 and 48 in bf16 (frames/s, copy in a chunk,
      dispatches), and in f32 on the card against the CPU (the None
      pattern; every anchor's box and score before NMS); (b)
-     ``PipelineDriver.process_stream`` over 32 jobs of 8 in-memory 720p
+     ``PipelineDriver.process_stream`` over 16 jobs of 8 in-memory 720p
      clips at B = 4, 2 and 8 (clips/s, the stage timers, launches = the
      batches times phase 3's, six valid result files a clip, peak GB),
      the serial path at B = 2 (its files byte for byte the stream's) and 4,
@@ -128,7 +128,7 @@ Phases, each failing loudly (no exception is swallowed):
      stage timers; (b) two raters' pairwise and triplet comparisons through
      the API, the rater-reliability and Elo/hierarchy endpoints reflecting
      them, the SHAP what-if of the video; (c) the render endpoint's
-     annotated ``.y4m`` (the crop's frame count, streamed by the annotated
+     annotated ``.mp4`` (the crop's frame count, streamed by the annotated
      route) against a ``device="cpu"`` render, within 1, ms a frame; (d)
      eight 125-frame uploads of phase 6's cow, each curated and cropped,
      their crops handed back to back to an app batching 4 clips an engine
@@ -231,6 +231,17 @@ Phases, each failing loudly (no exception is swallowed):
      output bit for bit the seeded engine's, K1-K3 at the default's counts;
      ``profile_stages --runs 2 --trace``; ``run_pipeline_example`` on a
      written 720p ``.y4m`` upload.  The phase's seconds are printed.
+  15. mp4 (no kernel of its own): the first 50 of phase 8's 720p frames
+     written as intra-only mp4v (``video/mpeg4.py`` over
+     ``csrc/host/mpeg4_codec.cpp``) on the card and on the CPU: the same
+     bytes; that file and ``tests/torch_fixtures/mp4v_gop12.mp4`` (cv2's
+     writer, I+P) decoded on both: the same planes; the fixture's luma
+     cv2's hashes beside it; the written file's planes the encoder's
+     reconstruction; ms a frame of each half at 1280x720 and 640x480
+     (device half by CUDA events, host bitstream half by the host clock)
+     and bytes a frame against ``.y4m``'s (an ``mp4 record`` line).  The
+     curation's canonical clip, the driver's crop and the annotated clip
+     of phases 8, 10 and 11 are mp4v ``.mp4`` files, as in JAX.
 The line before the last is the kernel record (JSON); the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 without a CUDA device or outside the repository.
@@ -241,6 +252,7 @@ import collections
 import contextlib
 import dataclasses
 import gc
+import hashlib
 import json
 import math
 import os
@@ -1627,7 +1639,7 @@ def hd80_in_fresh_process(launches) -> bool:
 # memory, at each batch size (the serving batcher's max_batch of 4 first);
 # the curation detector's chunks
 STREAM_CLIPS = 8
-STREAM_JOBS = 32
+STREAM_JOBS = 16
 STREAM_BATCHES = (4, 2, 8)
 # clips/s of each batch size's stream, for phase 10's batcher record
 STREAM_RATES = {}
@@ -2419,7 +2431,7 @@ def write_cow_videos(root, cows: int = COWS, per_cow: int = VIDEOS_PER_COW,
 
 GRAPH_TOL = 1e-4          # card against CPU, f32 with TF32 off
 BOX_TOL = 1e-4            # the device tracker's boxes, card against CPU
-GRAPH_REPS = 3            # timed process_video calls a target
+GRAPH_REPS = 2            # timed process_video calls a target
 ANALYSIS_TS = "2026-01-01T00:00:00+00:00"
 
 
@@ -2901,20 +2913,18 @@ def decoder_probe() -> dict:
     return out
 
 
-def upload_clip(path, n: int, cow_frames, reverse: bool = False,
-                h: int = 720, w: int = 1280, fps: int = UPLOAD_FPS,
-                travel: float = 1.0):
-    """Write an upload with the port's ``write_video`` (generated and
-    converted to I420 on the card): a fixed frame of uniform noise with
-    +-2 LSB of noise a frame, and the phase-6 cow block (its 6-pixel
-    cells; COW_SIZE at 1280x720, scaled with the frame) walking over the
-    frames ``cow_frames``, from one side across ``travel`` of the frame's
-    free width.  MOG2 keeps a cow in view while its pixels change colour
-    about every frame or two: cells of 6 pixels (the 5x5 opening erases
-    smaller ones) at about 3.8 pixels a frame.
-    Returns (the .y4m path, the cow's box in each frame or None)."""
+def upload_frames(n: int, cow_frames, reverse: bool = False,
+                  h: int = 720, w: int = 1280, travel: float = 1.0):
+    """An upload's frames, generated on the card: a fixed frame of uniform
+    noise with +-2 LSB of noise a frame, and the phase-6 cow block (its
+    6-pixel cells; COW_SIZE at 1280x720, scaled with the frame) walking
+    over the frames ``cow_frames``, from one side across ``travel`` of the
+    frame's free width.  MOG2 keeps a cow in view while its pixels change
+    colour about every frame or two: cells of 6 pixels (the 5x5 opening
+    erases smaller ones) at about 3.8 pixels a frame.  Frame i does not
+    depend on ``n``.  Returns ((n, h, w, 3) uint8 on the card, the cow's
+    box in each frame or None)."""
     import torch
-    from lameness_tpu_torch.video.decode import write_video
     gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
     bg = torch.randint(0, 256, (h, w, 3), generator=gen, device="cuda",
                        dtype=torch.int16)
@@ -2937,6 +2947,18 @@ def upload_clip(path, n: int, cow_frames, reverse: bool = False,
                       * (w - cw))
             frames[i, y:y + ch, x:x + cw] = cow
             boxes[i] = (x, y, x + cw, y + ch)
+    return frames, boxes
+
+
+def upload_clip(path, n: int, cow_frames, reverse: bool = False,
+                h: int = 720, w: int = 1280, fps: int = UPLOAD_FPS,
+                travel: float = 1.0):
+    """Write ``upload_frames`` as an upload with the port's ``write_video``
+    (converted to I420 on the card; a ``path`` with no suffix is a
+    ``.y4m``).  Returns (the path written, the cow's box in each frame or
+    None)."""
+    from lameness_tpu_torch.video.decode import write_video
+    frames, boxes = upload_frames(n, cow_frames, reverse, h, w, travel)
     out = write_video(path, frames, fps)
     del frames
     return out, boxes
@@ -2985,7 +3007,7 @@ def upload_chain(eng, root, src, boxes, name: str, curator=None):
     pre = drv.bus.messages_on("video.preprocessed")[0]
     stages = {**drv.curator.timers.summary(), **TIMERS.summary()}
     sizes = {p.name: p.stat().st_size for p in sorted(
-        Path(root).glob("*/up*.y4m"))}
+        Path(root).glob("*/up*.*")) if p.suffix in (".y4m", ".mp4")}
     dets = drv.curator.last_detections["detections"]
     hit = [d["detection"] is not None for d in dets]
     on_cow = [h for h, b in zip(hit, boxes) if b is not None]
@@ -3936,6 +3958,8 @@ def training_in_fresh_process() -> bool:
 # made through the API.  (d) runs APP_UPLOADS uploads of APP_FRAMES frames
 # through an app batching APP_BATCH clips an engine call.
 APP_BATCH, APP_UPLOADS, APP_FRAMES = 4, 8, 125
+# the seconds 10d's batched and alone runs take together, with room
+APP_MTIME_S = 45
 ADMIN_PASSWORD = "phase-10-admin"
 UUID_RE = re.compile(r"^[0-9a-f]{8}-[0-9a-f]{4}-[0-9a-f]{4}-[0-9a-f]{4}-"
                      r"[0-9a-f]{12}$")
@@ -4214,34 +4238,50 @@ def api_hitl(app, api, vid) -> bool:
 
 def api_annotation(app, api, vid, tmp) -> bool:
     """10c: the render endpoint on the card; its frames against a
-    ``device="cpu"`` render of the same inputs."""
+    ``device="cpu"`` render of the same inputs (as each render hands them
+    to its writer: the annotated clip is mp4v, lossy), and the annotated
+    ``.mp4`` the route streams."""
     from pathlib import Path
+    import torch
+    from lameness_tpu_torch.serve import annotation
     from lameness_tpu_torch.serve.annotation import AnnotationRenderer
     from lameness_tpu_torch.video.decode import VideoReader
-    crop = Path(app.dirs.processed) / f"{vid}_cropped.y4m"
+    crop = Path(app.dirs.processed) / f"{vid}_cropped.mp4"
     with VideoReader(crop, device="cuda") as vr:
         n = vr.info["total_frames"]
         size = (vr.info["width"], vr.info["height"])
-    t0 = time.perf_counter()
-    st = api.ok("POST", f"/api/videos/{vid}/annotate")
-    card_s = time.perf_counter() - t0
+    written = []
+    real_write = annotation.write_video
+
+    def keep(path, frames, *args, **kwargs):
+        written.append(frames.cpu() if isinstance(frames, torch.Tensor)
+                       else torch.from_numpy(np.stack(frames)))
+        return real_write(path, frames, *args, **kwargs)
+    annotation.write_video = keep
+    try:
+        t0 = time.perf_counter()
+        st = api.ok("POST", f"/api/videos/{vid}/annotate")
+        card_s = time.perf_counter() - t0
+        cpu = AnnotationRenderer(app.dirs, device="cpu")
+        cpu.out_dir = Path(tmp) / "annotated_cpu"
+        cpu.out_dir.mkdir()
+        t0 = time.perf_counter()
+        cpu.render(vid)
+        cpu_s = time.perf_counter() - t0
+    finally:
+        annotation.write_video = real_write
     out = Path(st["output"])
-    cpu = AnnotationRenderer(app.dirs, device="cpu")
-    cpu.out_dir = Path(tmp) / "annotated_cpu"
-    cpu.out_dir.mkdir()
-    t0 = time.perf_counter()
-    ref = cpu.render(vid)
-    cpu_s = time.perf_counter() - t0
-    a = np.frombuffer(out.read_bytes(), np.uint8)
-    b = np.frombuffer(ref.read_bytes(), np.uint8)
-    diff = int(np.abs(a.astype(np.int16) - b).max()) if a.shape == b.shape \
-        else None
+    a, b = (w.to(torch.int16) for w in written)
+    diff = int((a - b).abs().max()) if a.shape == b.shape else None
+    with VideoReader(out, device="cuda") as vr:
+        back = vr.info["total_frames"]
     status, body, ctype = api.call("GET", f"/api/videos/{vid}/annotated")
     checks = {
-        "an annotated .y4m with the crop's frame count": (
-            out.name == f"{vid}_annotated.y4m" and st["frames"] == n),
-        "the annotated route streams it": status == 200
-        and ctype == "video/x-yuv4mpeg" and len(body) == out.stat().st_size,
+        "an annotated .mp4 with the crop's frame count": (
+            out.name == f"{vid}_annotated.mp4" and st["frames"] == n
+            and back == n),
+        "the annotated route streams it as video/mp4": status == 200
+        and ctype == "video/mp4" and len(body) == out.stat().st_size,
         "the card's frames within 1 of the CPU's": diff is not None
         and diff <= 1}
     log("platform annotation record " + json.dumps({
@@ -4261,6 +4301,21 @@ def wait_batcher(app, clips: int, timeout_s: float = 300) -> None:
     deadline = time.perf_counter() + timeout_s
     while app._batcher.clips_run < clips and time.perf_counter() < deadline:
         time.sleep(0.02)
+
+
+def one_mtime_bucket(need_s: float) -> float:
+    """Sleep until float32 keeps one value of the file clock for the next
+    ``need_s`` seconds; returns the seconds slept.  The graph runner reads
+    each herd video's ``_dinov3.json`` mtime as float32 (128 s apart at
+    today's epoch seconds) into the Graphormer's temporal encoding, so two
+    runs of the same clips agree only when neither straddles a step."""
+    now = time.time()
+    step = float(np.spacing(np.float32(now)))
+    left = (np.floor(now / step + 0.5) + 0.5) * step - now
+    if left >= need_s:
+        return 0.0
+    time.sleep(left + 0.5)
+    return left + 0.5
 
 
 def app_batcher(eng, tmp) -> bool:
@@ -4287,6 +4342,7 @@ def app_batcher(eng, tmp) -> bool:
             app.submit_video(src, vid)
         curate_s = time.perf_counter() - t0
         del app._batcher.submit
+        waited = one_mtime_bucket(APP_MTIME_S)
         reset_counts()
         t1 = time.perf_counter()
         for job in held:
@@ -4331,6 +4387,7 @@ def app_batcher(eng, tmp) -> bool:
     log("platform batcher record " + json.dumps({
         "uploads": APP_UPLOADS, "frames": APP_FRAMES, "max_batch": APP_BATCH,
         "engine_calls": batches, "curate_s": curate_s, "wall_s": wall,
+        "mtime_step_wait_s": waited,
         "app_clips_s": APP_UPLOADS / wall,
         "upload_to_fusion_clips_s": APP_UPLOADS / (curate_s + wall),
         "stream_clips_s_at_4": STREAM_RATES.get(4),
@@ -4361,7 +4418,7 @@ def app_resume(eng, tmp, vid) -> bool:
                          "video_id=?", (vid,))
         app.db.update("processing_jobs", job["job_id"],
                       {"status": "processing"}, pk="job_id")
-        crop = Path(cfg.dirs.processed) / f"{vid}_cropped.y4m"
+        crop = Path(cfg.dirs.processed) / f"{vid}_cropped.mp4"
         t0 = time.perf_counter()
         n = app.resume_inflight_jobs()
         wall = time.perf_counter() - t0
@@ -4468,7 +4525,7 @@ def platform_phase(tmp) -> tuple:
 PG_USER, PG_PASSWORD = "lameness_user", "lameness_pass"
 COMPOSE_VIDEO = "compose-upload"
 WIRE_VECTORS = 100_000     # 11d: the large collection, 768-d (307 MB)
-WIRE_REPS = 20
+WIRE_REPS = 10
 SCORE_TOL = 1e-6           # a search over the wire against the store
 # 11e: the device function of each kernel's route at the default engine's
 # shapes in bf16 (K1 dino_entry's Hopper routine, K2 the window routine, K3
@@ -6034,6 +6091,112 @@ def tools_and_codec(smi) -> tuple:
     return ok and good, {"tools": launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 15
+# ---------------------------------------------------------------------------
+# mp4 (no kernel of its own): the first MP4_FRAMES of phase 8's 720p upload
+# encoded as intra-only mp4v by write_video on the card and on the CPU (the
+# same bytes: the transforms are integer), that file and the committed
+# fixture tests/torch_fixtures/mp4v_gop12.mp4 (cv2's mp4v writer, I+P,
+# GOP 12) decoded on both (the same planes), the fixture's luma equal to
+# cv2's hashes beside it, and the card's reconstruction the encoder's own.
+# Then ms a frame of each half at 1280x720 and 640x480 (the device half by
+# CUDA events, the host bitstream half by the host clock, one thread), on
+# MP4_TIMED of phase 8's frames and on 8 of phase 14's codec frames, and
+# bytes a frame against a .y4m frame's.
+MP4_FRAMES = 50
+MP4_TIMED = 10                  # of them timed, each half alone
+MP4_REPS = 2
+MP4_FIXTURE = "tests/torch_fixtures/mp4v_gop12.mp4"
+
+
+def mp4_timing(frames, label: str) -> dict:
+    """ms a frame of the mp4 codec's halves on ``frames`` ((n, h, w, 3) on
+    the card), and its bytes a frame."""
+    import torch
+    from lameness_tpu_torch.video import mpeg4
+    from lameness_tpu_torch.video.yuv import rgb_to_i420
+    n, h, w = frames.shape[:3]
+    i420 = rgb_to_i420(frames)
+    enc = mpeg4.encode_forward(i420)
+    coefs, acpred = enc.coefs.cpu().numpy(), enc.acpred.cpu().numpy()
+    samples = [mpeg4.encode_ivop(w, h, 25, 0, 0, c, a)
+               for c, a in zip(coefs, acpred)]
+    layer = mpeg4.read_config(mpeg4.write_config(w, h, 25))
+    vops = [mpeg4.decode_vop(layer, x) for x in samples]
+    dec = mpeg4.Mpeg4Decoder(layer, "cuda", batch=n)
+    return {
+        "frames": label, "size": f"{w}x{h}", "n": n,
+        "bytes_a_frame": sum(map(len, samples)) / n,
+        "y4m_bytes_a_frame": h * w * 3 // 2,
+        "encode_device_ms": cuda_ms(lambda: mpeg4.encode_forward(i420),
+                                    MP4_REPS) / n,
+        "encode_host_ms": host_ms(lambda: [
+            mpeg4.encode_ivop(w, h, 25, 0, 0, c, a)
+            for c, a in zip(coefs, acpred)], MP4_REPS) / n,
+        "decode_host_ms": host_ms(lambda: [
+            mpeg4.decode_vop(layer, x) for x in samples], MP4_REPS) / n,
+        "decode_device_ms": cuda_ms(lambda: dec.reconstruct(vops),
+                                    MP4_REPS) / n}
+
+
+def mp4_phase(smi) -> bool:
+    """Phase 15.  Returns ok."""
+    import torch
+    from lameness_tpu_torch.video import mpeg4
+    from lameness_tpu_torch.video.decode import VideoReader, write_video
+    from lameness_tpu_torch.video.yuv import rgb_to_i420
+    t0 = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    frames, _ = upload_frames(MP4_FRAMES, UPLOAD_COW)
+    checks = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        card = write_video(f"{tmp}/card.mp4", frames, UPLOAD_FPS)
+        card_s = time.perf_counter() - t
+        t = time.perf_counter()
+        cpu = write_video(f"{tmp}/cpu.mp4", frames.cpu(), UPLOAD_FPS)
+        cpu_s = time.perf_counter() - t
+        checks["the card's bytes equal the CPU's"] = \
+            card.read_bytes() == cpu.read_bytes()
+        fixture = os.path.join(here, MP4_FIXTURE)
+        planes = {}
+        for name, path in (("written", card), ("fixture", fixture)):
+            for dev in ("cuda", "cpu"):
+                with VideoReader(path, device=dev) as vr:
+                    planes[name, dev] = np.concatenate(
+                        [c for _, c in vr.i420_chunks(16)])
+            checks[f"the {name} file's planes: card = CPU"] = np.array_equal(
+                planes[name, "cuda"], planes[name, "cpu"])
+        recon = mpeg4.encode_forward(rgb_to_i420(frames)).recon
+        recon = recon.cpu().numpy()
+        checks["the written file decodes to the encoder's reconstruction"] \
+            = np.array_equal(planes["written", "cuda"], recon)
+        meta = json.loads(open(os.path.splitext(fixture)[0] + ".json").read())
+        hashes = [hashlib.sha256(np.ascontiguousarray(f[:meta["height"]])
+                                 .tobytes()).hexdigest()
+                  for f in planes["fixture", "cuda"]]
+        checks["the fixture's luma = cv2's hashes"] = \
+            hashes == meta["luma_sha256"]
+        size = card.stat().st_size
+    records = [mp4_timing(frames[:MP4_TIMED], "phase 8 upload")]
+    rng = np.random.default_rng(SEED + 15)
+    for h, w in CODEC_SIZES:
+        wave = torch.from_numpy(np.stack([codec_frame(rng, h, w)
+                                          for _ in range(8)])).cuda()
+        records.append(mp4_timing(wave, "codec waves"))
+    log("mp4 record " + json.dumps({
+        "card": smi, "qp": mpeg4.QP, "reps": MP4_REPS,
+        "write_card_s": card_s, "write_cpu_s": cpu_s,
+        "file_bytes_a_frame": size / MP4_FRAMES, "timing": records}))
+    ok = True
+    for what, good in checks.items():
+        log(f"  15 {what}  {'ok' if good else 'FAIL'}")
+        ok &= good
+    log(f"  phase 15: {time.perf_counter() - t0:.1f} s; card {smi}")
+    return ok
+
+
 def header(title: str, t_start: float) -> None:
     """A phase's header line, with the seconds since the script started."""
     log(f"== {title} [{time.perf_counter() - t_start:.1f} s in]")
@@ -6163,6 +6326,10 @@ def main() -> int:
     with switches({}):
         ok_14, tool_launches = tools_and_codec(smi)
     launches.update(tool_launches)
+    header("phase 15: mp4", t_start)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ok_15 = mp4_phase(smi)
     for kid, rec in records.items():
         # each kernel's count on its own path (K1 runs on every one)
         rec["launches"] = max(counts[rec["name"]]
@@ -6176,7 +6343,7 @@ def main() -> int:
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     if not (ok_build and ok_k and ok_small and ok_e and ok_m and ok_c
             and ok_s and ok_a and ok_u and ok_t and ok_p and ok_w
-            and ok_x and ok_13 and ok_14):
+            and ok_x and ok_13 and ok_14 and ok_15):
         log("chip_smoke: FAILED")
         return 1
     log(smi)

@@ -29,7 +29,9 @@ the port it bound, so ``--port 0`` works.  A ``postgres://``
 
 The engine and the ``qdrant-server``'s store run on the card (with
 ``--cpu``, on the CPU), the engine in bf16 unless ``--f32``.  An upload is
-a ``.y4m`` file, or any container the ``ffmpeg`` binary decodes.  ``--dp N``
+an ``.mp4`` (``.m4v``, ``.mov``) whose video is mp4v, or a ``.y4m`` file,
+which the port decodes itself, or any other file the ``ffmpeg`` binary
+decodes.  ``--dp N``
 / ``--tp M`` (or ``LAMENESS_DP``/``LAMENESS_TP``) shard the engine's
 inference over a (data=N, model=M) mesh of the visible cards, each once
 (``--dp auto``: all of them; with ``--cpu``, the one CPU device).

@@ -5,8 +5,8 @@ Behavioral rebuild of ``services/annotation-renderer/app/main.py``: the
 corrected Roboflow skeleton chains/edges (main.py:67-95), robust keypoint
 reindexing by id/name with synonym normalisation (108-223),
 walking-direction detection (252), per-body-part edge colouring, YOLO box
-drawing, and the info overlay — producing the ``{video_id}_annotated.y4m``
-the admin UI streams (the port writes ``.y4m``: ``video/decode.py``).
+drawing, and the info overlay — producing the ``{video_id}_annotated.mp4``
+the admin UI streams (mp4v, by the port's own encoder: ``video/decode.py``).
 
 The JAX module draws with OpenCV, which the machine with the card lacks.
 Here every primitive is ``serve/raster.py``'s: the same pixels as
@@ -242,7 +242,7 @@ class AnnotationRenderer:
         processed video (renderer:626-860)."""
         if video_path is None:
             candidates = (list(self.dirs.processed.glob(
-                f"{video_id}_cropped.y4m"))
+                f"{video_id}_cropped.mp4"))
                 + list(self.dirs.videos.glob(f"{video_id}.*")))
             if not candidates:
                 self.status[video_id] = {"status": "failed",
@@ -308,7 +308,8 @@ class AnnotationRenderer:
                 blend_overlays(frames, boxes)
                 _apply(frames, post)
                 chunks.append(frames)
-        out_path = write_video(Path(self.out_dir) / f"{video_id}_annotated",
+        out_path = write_video(Path(self.out_dir)
+                               / f"{video_id}_annotated.mp4",
                                torch.cat(chunks) if chunks else [], fps)
         n = sum(len(c) for c in chunks)
         self.status[video_id] = {"status": "completed",

@@ -2,13 +2,14 @@
 ``lameness_tpu/serve/api.py``, copied; it serves its own copy of the SPA,
 ``serve/static/``, byte for byte JAX's).
 
-The port's intermediates are ``.y4m`` (``video/decode.py``), so: uploads
-may also be ``.y4m``; the stream, frame, re-trigger and annotation routes
-look for ``<id>_cropped.y4m``, ``<id>_canonical.y4m`` and
-``<id>_annotated.y4m``; a ``.y4m`` file streams as ``video/x-yuv4mpeg``;
-and the frame endpoint answers a PNG (the port has no JPEG encoder: no
-OpenCV), decoded by the port's ``VideoReader`` on the context's device (the
-driver's; the card without a driver).  Every other route, status code and response key is
+The port writes JAX's intermediates, ``<id>_cropped.mp4``,
+``<id>_canonical.mp4`` and ``<id>_annotated.mp4`` (mp4v, by the port's own
+encoder: ``video/decode.py``), and the stream, frame, re-trigger and
+annotation routes look for those names and serve them as ``video/mp4``.
+Uploads may also be ``.y4m`` (YUV4MPEG2), which streams as
+``video/x-yuv4mpeg``.  The frame endpoint answers a PNG, decoded by the
+port's ``VideoReader`` on the context's device (the driver's; the card
+without a driver).  Every other route, status code and response key is
 JAX's.
 
 Rebuilds ``services/admin-interface/backend`` (SURVEY.md §2.2) over the
@@ -454,7 +455,7 @@ def build_admin_api(ctx: AdminContext) -> Router:
         out = _video_item(row)
         fusion = dirs.results_for("fusion") / f"{vid}_fusion.json"
         out["has_analysis"] = out["has_analysis"] or fusion.exists()
-        annotated = Path(dirs.root) / "annotated" / f"{vid}_annotated.y4m"
+        annotated = Path(dirs.root) / "annotated" / f"{vid}_annotated.mp4"
         out["has_annotated"] = out["has_annotated"] or annotated.exists()
         out["stream_url"] = f"/api/videos/{vid}/stream" \
             if row.get("file_path") else None
@@ -497,8 +498,8 @@ def build_admin_api(ctx: AdminContext) -> Router:
     def stream_video(req: Request):
         vid = req.params["video_id"]
         matches = list(dirs.videos.glob(f"{vid}.*")) + \
-            list(dirs.processed.glob(f"{vid}_cropped.y4m")) + \
-            list(dirs.canonical.glob(f"{vid}_canonical.y4m"))
+            list(dirs.processed.glob(f"{vid}_cropped.mp4")) + \
+            list(dirs.canonical.glob(f"{vid}_canonical.mp4"))
         if not matches:
             raise HTTPError(404, "video file not found")
         return _stream_file(req, matches[0])
@@ -525,7 +526,7 @@ def build_admin_api(ctx: AdminContext) -> Router:
         from ..video.decode import VideoReader
         vid = req.params["video_id"]
         frame_idx = _qint(req, "frame", 0)
-        matches = (list(dirs.processed.glob(f"{vid}_cropped.y4m"))
+        matches = (list(dirs.processed.glob(f"{vid}_cropped.mp4"))
                    + list(dirs.videos.glob(f"{vid}.*")))
         if not matches:
             raise HTTPError(404, "video file not found")
@@ -559,7 +560,7 @@ def build_admin_api(ctx: AdminContext) -> Router:
     @r.get("/api/videos/{video_id}/annotated")
     def stream_annotated(req: Request):
         f = Path(dirs.root) / "annotated" / \
-            f"{req.params['video_id']}_annotated.y4m"
+            f"{req.params['video_id']}_annotated.mp4"
         if not f.exists():
             raise HTTPError(404, "not rendered yet")
         return _stream_file(req, f)
@@ -1320,7 +1321,7 @@ def build_admin_api(ctx: AdminContext) -> Router:
         ctx.bus.publish_sync(
             subject or ctx.config.subjects.video_preprocessed,
             {"video_id": vid,
-             "processed_path": str(dirs.processed / f"{vid}_cropped.y4m"),
+             "processed_path": str(dirs.processed / f"{vid}_cropped.mp4"),
              "retriggered": True})
 
     @r.post("/api/pipeline/retrigger/{service}/{video_id}",
@@ -2573,7 +2574,7 @@ def build_admin_api(ctx: AdminContext) -> Router:
         renderer = getattr(ctx, "_renderer", None)
         vid = req.params["video_id"]
         st = renderer.status.get(vid) if renderer else None
-        f = Path(dirs.root) / "annotated" / f"{vid}_annotated.y4m"
+        f = Path(dirs.root) / "annotated" / f"{vid}_annotated.mp4"
         st = dict(st) if st else \
             {"status": "completed" if f.exists() else "not_started"}
         st.setdefault("video_id", vid)    # routers/videos.py shape
@@ -2582,7 +2583,7 @@ def build_admin_api(ctx: AdminContext) -> Router:
     @r.delete("/api/videos/{video_id}/annotation", auth=True)
     def delete_annotation(req: Request):
         vid = req.params["video_id"]
-        f = Path(dirs.root) / "annotated" / f"{vid}_annotated.y4m"
+        f = Path(dirs.root) / "annotated" / f"{vid}_annotated.mp4"
         existed = f.exists()
         if existed:
             f.unlink()

@@ -19,7 +19,7 @@ Subject wiring (mirrors SURVEY.md §2.3's subscription sites):
 
 The engine, the driver's decoding and curation, and the annotation renderer
 run on the engine's device (without an engine, on the card).  A job stranded with its crop on disk is resumed
-from the port's ``<id>_cropped.y4m``.
+from its ``<id>_cropped.mp4``, as in JAX.
 """
 from __future__ import annotations
 
@@ -182,7 +182,7 @@ class LamenessApp:
                     f"{vid}_fusion.json").exists():
                 self.db_mark_job(vid, "completed")
                 continue
-            processed = self.dirs.processed / f"{vid}_cropped.y4m"
+            processed = self.dirs.processed / f"{vid}_cropped.mp4"
             raw = next(iter(self.dirs.videos.glob(f"{vid}.*")), None)
             if processed.exists():
                 _LOG.info("job.resume", video_id=vid, stage="preprocessed")

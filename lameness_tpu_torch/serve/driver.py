@@ -8,7 +8,7 @@ in the JAX driver's order:
   quality report, and keeps the raw upload's decoded frames;
 - ``preprocess`` crops the raw upload from that frame cache: the median
   box of the first 10 detections curation found, plus 50 px
-  (``video.preprocessed``), written as ``<id>_cropped.y4m``;
+  (``video.preprocessed``), written as ``<id>_cropped.mp4``;
 - ``run_feature_stages`` runs the engine on the crop and writes the six
   stage result files; then ``run_tracking``, the graph heads, ``run_ml``
   and fusion.
@@ -33,8 +33,8 @@ messages, as the JAX driver does:
 Decoding: ``reader`` is a callable ``path -> reader`` with ``info``
 ({"width", "height", "fps", "total_frames"}) and ``read_selected(indices)
 -> {index: (H, W, 3) uint8 RGB frame}``; by default the port's
-``video/decode.py`` ``VideoReader`` on the driver's device (``.y4m``, or
-other containers through the ``ffmpeg`` binary).  The port has no
+``video/decode.py`` ``VideoReader`` on the driver's device (mp4v in
+``.mp4``, ``.y4m``, or other codecs through the ``ffmpeg`` binary).  The port has no
 OpenCV: frames are resized to the engine's geometry by its bilinear resize
 (cv2's INTER_LINEAR within 1; a frame already at that size is used as it
 is, as cv2 leaves it), and ``_mask_features`` measures masks with
@@ -258,14 +258,15 @@ class PipelineDriver:
             y1 = max(0, int(med[1]) - 50)
             x2 = min(w, int(med[2]) + 50)
             y2 = min(h, int(med[3]) + 50)
-            # I420 needs even dimensions
+            # mp4 codecs need even dimensions
             x2 -= (x2 - x1) % 2
             y2 -= (y2 - y1) % 2
         else:
             x1, y1, x2, y2 = 0, 0, w, h
         cropped = [f[y1:y2, x1:x2] for f in frames]
-        out_path = write_video(self.dirs.processed / f"{video_id}_cropped",
-                               cropped, info["fps"], device=self.device)
+        out_path = write_video(self.dirs.processed
+                               / f"{video_id}_cropped.mp4", cropped,
+                               info["fps"], device=self.device)
         payload = {
             "video_id": video_id, "processed_path": str(out_path),
             "crop_box": [x1, y1, x2, y2], "fps": info["fps"],

@@ -5,7 +5,11 @@ flags, the same files and JSON keys written), run as
     python -m lameness_tpu_torch.tools.<name> [args] [--device cuda|cpu]
 
 Each runs on the card (``--device cuda``, the default; it raises without
-one) unless ``--device cpu`` is passed.
+one) unless ``--device cpu`` is passed.  The tools:
+``analyze_training_orientation``, ``bulk_upload``, ``collect_cow_pose_data``,
+``compare_pose_models``, ``convert_videos``, ``convert_weights``,
+``prepare_pose_dataset``, ``profile_stages``, ``run_pipeline_example``,
+``train_detector`` and ``train_pose_model``.
 """
 from __future__ import annotations
 

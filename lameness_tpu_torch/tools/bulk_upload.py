@@ -2,8 +2,9 @@
 (port of ``scripts/bulk_upload.py``).  Walks ``<root>/{lame,sound,test}/``,
 submits every video through the app (the engine on ``--device``), records
 the labels, and with ``--train-after`` trains the tabular ensemble, the
-sequence heads and the graph heads.  Uploads are ``.y4m``; ``.mp4``,
-``.avi`` and ``.mov`` go through an ``ffmpeg`` binary:
+sequence heads and the graph heads.  Uploads are ``.y4m`` or mp4v in
+``.mp4``/``.mov``, which the port decodes itself; other codecs and
+``.avi`` go through an ``ffmpeg`` binary:
 
   python -m lameness_tpu_torch.tools.bulk_upload DATASET [--small] [--data DIR] [--train-after]
 """

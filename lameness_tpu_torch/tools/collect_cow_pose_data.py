@@ -2,8 +2,8 @@
 ``scripts/collect_cow_pose_data.py``):
 
 1. ``extract``: sample frames from the videos under the data root
-   (``.y4m``; ``.mp4`` through an ``ffmpeg`` binary), find the cow with the
-   motion detector (MOG2 on ``--device``), and write ``frames/*.jpg`` (the
+   (``.y4m`` and mp4v ``.mp4``; other codecs through an ``ffmpeg`` binary),
+   find the cow with the motion detector (MOG2 on ``--device``), and write ``frames/*.jpg`` (the
    port's JPEG encoder) plus a ``manifest.json`` with each frame's box and
    a heuristic 20-keypoint prefill, so annotators adjust rather than place.
 2. ``import``: read back the hand-corrected manifest and write the

@@ -3,9 +3,10 @@ of ``scripts/run_pipeline_example.py``).  Builds the full engine on
 ``--device`` (or the small test engine with ``--small``), restores the
 checkpoints under the data root's models directory, submits the clip
 through the reactive app and prints each pipeline's headline numbers.
-Uploads are ``.y4m`` (other containers through an ``ffmpeg`` binary):
+Uploads are mp4v ``.mp4`` or ``.y4m`` (other codecs through an ``ffmpeg``
+binary):
 
-  python -m lameness_tpu_torch.tools.run_pipeline_example VIDEO.y4m [--small] [--data DIR]
+  python -m lameness_tpu_torch.tools.run_pipeline_example VIDEO.mp4 [--small] [--data DIR]
 """
 from __future__ import annotations
 

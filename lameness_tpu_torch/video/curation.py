@@ -30,7 +30,8 @@ What runs where:
   ``core/streams.py``;
 - the canonical clip is resized to 1280x720 on the host by
   ``video/image.py``'s bilinear ``rows_at`` (cv2's INTER_LINEAR within 1), flipped when the
-  cow walks right to left, and written as ``<id>_canonical.y4m``.
+  cow walks right to left, and written as ``<id>_canonical.mp4`` (mp4v,
+  by the port's own encoder).
 
 Frames handed to a detector are BGR by the reference's convention
 (OpenCV's); the flip from RGB is a view.
@@ -870,8 +871,8 @@ class ClipCurator:
                                frames_cache: Optional[List[np.ndarray]] = None
                                ) -> Optional[Path]:
         """Write the window's frames at 25 fps, 1280x720, flipped when it
-        runs right to left, as ``output_path`` with the suffix ``.y4m``;
-        returns the path written (None for no frames).  ``frames_cache``:
+        runs right to left, as ``output_path`` (``video/decode.py``
+        ``write_video``: an ``.mp4`` name is mp4v); returns the path written (None for no frames).  ``frames_cache``:
         the track pass's decoded frames (indices contiguous from 0,
         matching the decode loop); the selection is the same either way,
         so the output bytes are too."""
@@ -930,7 +931,7 @@ class ClipCurator:
             # weight-free detector cannot segment): the whole clip unflipped
             # with detector-independent metrics, rather than a rejection
             selected = self._passthrough_candidate(info, visual_cache)
-        canonical = self.canonical_dir / f"{video_id}_canonical.y4m"
+        canonical = self.canonical_dir / f"{video_id}_canonical.mp4"
         if selected is None:
             status = "rejected"
             rejection = ("no valid walking pass of sufficient length"
@@ -949,7 +950,7 @@ class ClipCurator:
             if backup is not None and ok:
                 self.extract_canonical_clip(
                     video_path, backup,
-                    self.canonical_dir / f"{video_id}_backup.y4m", info,
+                    self.canonical_dir / f"{video_id}_backup.mp4", info,
                     frames_cache=fc)
 
         report = schemas.quality_report(

@@ -1,47 +1,76 @@
 """Video decode and encode without OpenCV (port of
 ``lameness_tpu/video/decode.py``).
 
-The port's container is YUV4MPEG2 (``.y4m``): a public raw format that
-ffmpeg and OpenCV read and write, which carries I420 frames as they are.
-A file is one header line, ``YUV4MPEG2 W<w> H<h> F<num>:<den> ...``, then
-for each frame a ``FRAME`` line and the Y, U and V planes.  Only 4:2:0 is
-accepted (a ``C420``, ``C420jpeg``, ``C420mpeg2`` or ``C420paldv`` tag, or
-none); any other colourspace raises.
+The JAX package reads with cv2's bundled FFmpeg and writes
+``cv2.VideoWriter(mp4v)`` files, re-encoded with libx264 when an
+``ffmpeg`` binary exists.  The card's machine has neither, so the port
+carries its own codecs for the two formats it writes:
 
-- ``VideoReader`` reads a ``.y4m`` file directly (a file's frame count
-  comes from its size, and ``read_selected`` seeks past unwanted frames).
-  Any other container is decoded by the ``ffmpeg`` binary into a Y4M pipe
-  (``ffmpeg -v error -i IN -f yuv4mpegpipe -pix_fmt yuv420p -``), with fps
-  and frame count from ``ffprobe``; without the binary it raises.
-- Frames come out as the raw I420 planes (``i420_chunks``, what curation
-  sends to the device) or as RGB converted on the reader's ``device`` by
-  ``yuv.i420_to_rgb`` (cv2's ``COLOR_YUV2RGB_I420``, bit for bit), a batch
-  at a time.
-- ``write_video`` always writes ``.y4m`` (the stem the caller names, with
-  that suffix), converting on ``device`` with ``yuv.rgb_to_i420`` (cv2's
-  ``COLOR_RGB2YUV_I420``); it returns the path it wrote.  A 720p frame is
-  1,382,400 bytes on disk.  mp4 encoding is not ported.
+- **MPEG-4 Part 2 in ``.mp4``** (``.m4v``, ``.mov``): a file whose video
+  track is ``mp4v`` is demuxed by ``video/mp4.py`` and decoded by
+  ``video/mpeg4.py`` (Simple Profile, I- and P-VOPs: what cv2's mp4v writer
+  writes), to the planes FFmpeg's decoder gives.  ``read_selected`` starts
+  at the sync sample before each wanted frame and decodes from there;
+  intra-only files (the port's own) decode only the wanted frames.  Any
+  other codec in such a file, and any other container, is decoded by the
+  ``ffmpeg`` binary into a Y4M pipe (``ffmpeg -v error -i IN -f
+  yuv4mpegpipe -pix_fmt yuv420p -``), with fps and frame count from
+  ``ffprobe``; without the binary it raises, naming the codec.
+- **YUV4MPEG2 (``.y4m``)**: a public raw format that ffmpeg and OpenCV
+  read and write, which carries I420 frames as they are.  A file is one
+  header line, ``YUV4MPEG2 W<w> H<h> F<num>:<den> ...``, then for each
+  frame a ``FRAME`` line and the Y, U and V planes.  Only 4:2:0 is accepted
+  (a ``C420``, ``C420jpeg``, ``C420mpeg2`` or ``C420paldv`` tag, or none);
+  any other colourspace raises.  A file's frame count comes from its size,
+  and ``read_selected`` seeks past unwanted frames.
+
+Frames come out as the raw I420 planes (``i420_chunks``, what curation
+sends to the device) or as RGB converted on the reader's ``device`` by
+``yuv.i420_to_rgb`` (cv2's ``COLOR_YUV2RGB_I420``, bit for bit), a batch
+at a time.
+
+``write_video`` writes by the suffix the caller names: ``.mp4``, ``.m4v``
+or ``.mov`` as an intra-only mp4v stream at ``mpeg4.QP``, any other
+name as ``.y4m`` (that suffix); frames are converted on ``device`` with
+``yuv.rgb_to_i420`` (cv2's ``COLOR_RGB2YUV_I420``).  With ``reencode``
+(the default, as in JAX) an ``.mp4`` is re-encoded by JAX's libx264
+command when ``shutil.which("ffmpeg")`` finds a binary.  It returns the
+path it wrote.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import fractions
 import json
+import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterator, List, Optional, Tuple, Union
+from typing import Dict, Iterable, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from . import mp4, mpeg4
 from .yuv import i420_shape, i420_to_rgb, rgb_to_i420
 
 MAGIC = b"YUV4MPEG2"
+# threads for the mp4 codec's host half (its library releases the GIL)
+HOST_THREADS = min(8, os.cpu_count() or 1)
+_pool: Optional[concurrent.futures.ThreadPoolExecutor] = None
 FRAME = b"FRAME"
 CHROMA_420 = ("420", "420jpeg", "420mpeg2", "420paldv")
 # frames converted to RGB on the device at once
 RGB_BATCH = 16
+
+
+def host_pool() -> concurrent.futures.ThreadPoolExecutor:
+    global _pool
+    if _pool is None:
+        _pool = concurrent.futures.ThreadPoolExecutor(
+            HOST_THREADS, thread_name_prefix="mp4-host")
+    return _pool
 
 
 def parse_header(line: bytes) -> Dict[str, float]:
@@ -71,16 +100,19 @@ class VideoReader:
     """``VideoReader(path, device=None)``: ``info`` ({"fps", "width",
     "height", "total_frames", "duration"}), ``frames``, ``read_sampled``,
     ``read_selected``, ``i420_chunks``, ``release`` and the context
-    manager.  ``device`` is where frames are converted to RGB (the card by
-    default)."""
+    manager.  ``device`` is where mp4v frames are reconstructed and frames
+    converted to RGB (the card by default)."""
 
     def __init__(self, path: Path, device=None):
         self.path = Path(path)
         self.device = resolve_device(device)
         self.proc: Optional[subprocess.Popen] = None
+        self.mp4: Optional[mp4.Mp4Reader] = None
+        self.stream = None
         if not self.path.exists():
             raise IOError(f"failed to open video: {path}")
-        if self.path.suffix.lower() == ".y4m":
+        suffix = self.path.suffix.lower()
+        if suffix == ".y4m":
             self.stream = open(self.path, "rb")
             try:
                 self._open_stream()
@@ -88,10 +120,40 @@ class VideoReader:
                 self.stream.close()
                 raise
             self.seekable = True
+        elif suffix in mp4.CONTAINERS and self._open_mp4():
+            self.seekable = True
         else:
             self._open_pipe()
             self.seekable = False
         self.pos = 0                          # index of the next frame
+
+    def _open_mp4(self) -> bool:
+        """An ISO base media file whose video track is mp4v: the port's own
+        demuxer and decoder.  False for another codec, or a file the
+        demuxer cannot read (both the pipe's)."""
+        try:
+            reader = mp4.Mp4Reader(self.path)
+        except mp4.Mp4Error as e:
+            self.codec = f"undemuxable file ({e})"
+            return False
+        try:
+            t = reader.track
+            if t.codec != "mp4v" or t.object_type != mp4.MPEG4_VISUAL:
+                self.codec = (t.codec if t.codec != "mp4v"
+                              else f"mp4v (object type 0x{t.object_type:02x})")
+                reader.close()
+                return False
+            config = t.config or (reader.sample(0) if t.count else b"")
+            layer = mpeg4.read_config(config, self.path.name)
+            self.decoder = mpeg4.Mpeg4Decoder(layer, self.device, RGB_BATCH)
+        except BaseException:
+            reader.close()
+            raise
+        self.mp4 = reader
+        self.meta = {"width": layer.width, "height": layer.height,
+                     "fps": t.fps}
+        self.total = t.count
+        return True
 
     def _open_stream(self):
         """A ``.y4m`` file: its header, and its frame count from its size
@@ -111,11 +173,14 @@ class VideoReader:
     def _open_pipe(self):
         ffmpeg, ffprobe = shutil.which("ffmpeg"), shutil.which("ffprobe")
         if ffmpeg is None or ffprobe is None:
+            codec = getattr(self, "codec", None)
+            what = f"its {codec} video" if codec else self.path.name
             raise RuntimeError(
                 f"cannot decode {self.path.name}: no "
                 f"{'ffmpeg' if ffmpeg is None else 'ffprobe'} binary on "
-                f"PATH; lameness_tpu_torch reads .y4m (YUV4MPEG2, 4:2:0) "
-                f"itself and other containers through ffmpeg")
+                f"PATH for {what}; lameness_tpu_torch reads mp4v in "
+                f".mp4/.m4v/.mov and .y4m (YUV4MPEG2, 4:2:0) itself, and "
+                f"other codecs and containers through ffmpeg")
         probe = subprocess.run(
             [ffprobe, "-v", "error", "-select_streams", "v:0",
              "-count_packets", "-show_entries",
@@ -184,9 +249,53 @@ class VideoReader:
                 return False
         return True
 
+    def _mp4_decode(self, wanted: Iterable[int]
+                    ) -> Iterator[Tuple[List[int], torch.Tensor]]:
+        """(indices, (n, H*3//2, W) uint8 I420 on the device) of the wanted
+        mp4v frames (ascending), RGB_BATCH decoded at a time.  Each starts
+        at the sync sample before it, unless decoding on from the last
+        frame gets there without passing one."""
+        samples: List[bytes] = []
+        keep: List[Optional[int]] = []
+        layer, name = self.decoder.layer, self.path.name
+
+        def flush():
+            if samples:
+                vops = list(host_pool().map(
+                    lambda s: mpeg4.decode_vop(layer, s, name), samples))
+                out = self.decoder.reconstruct(vops)
+                rows = [j for j, k in enumerate(keep) if k is not None]
+                if rows:
+                    yield [keep[j] for j in rows], out[rows]
+                samples.clear()
+                keep.clear()
+
+        for i in wanted:
+            if i >= self.total:
+                break
+            sync = self.mp4.sync_before(i)
+            if i < self.pos or sync > self.pos:
+                yield from flush()
+                self.decoder.reset()
+                self.pos = sync
+            while self.pos <= i:
+                samples.append(self.mp4.sample(self.pos))
+                keep.append(self.pos if self.pos == i else None)
+                self.pos += 1
+                if len(samples) >= RGB_BATCH:
+                    yield from flush()
+        yield from flush()
+
     def i420_chunks(self, size: int) -> Iterator[Tuple[int, np.ndarray]]:
         """(index of the first frame, (n <= size, H*3//2, W) uint8 I420)
         over the rest of the stream."""
+        if self.mp4 is not None:
+            while self.pos < self.total:
+                start = self.pos
+                parts = [f for _, f in self._mp4_decode(
+                    range(start, min(start + size, self.total)))]
+                yield start, torch.cat(parts).cpu().numpy()
+            return
         while True:
             start, rows = self.pos, []
             while len(rows) < size:
@@ -211,6 +320,13 @@ class VideoReader:
                ) -> Iterator[Tuple[int, np.ndarray]]:
         """Yield (frame_index, HWC uint8) every ``interval``-th frame (BGR
         with ``rgb=False``)."""
+        if self.mp4 is not None:
+            wanted = [i for i in range(self.pos, self.total)
+                      if i % interval == 0]
+            for got, i420 in self._mp4_decode(wanted):
+                for i, f in zip(got, i420_to_rgb(i420).cpu().numpy()):
+                    yield i, f if rgb else f[..., ::-1]
+            return
         for start, chunk in self.i420_chunks(RGB_BATCH * interval):
             keep = [i for i in range(len(chunk))
                     if (start + i) % interval == 0]
@@ -237,9 +353,16 @@ class VideoReader:
     def read_selected(self, indices, rgb: bool = True
                       ) -> Dict[int, np.ndarray]:
         """Decode only the requested frame indices: {index: (H, W, 3)
-        uint8}.  Unwanted frames are skipped (a seek in a ``.y4m`` file),
+        uint8}.  Unwanted frames are skipped (a seek in a ``.y4m`` file;
+        in an mp4v file, decoding starts at the sync sample before each),
         and the wanted ones converted as one batch."""
         wanted = sorted(set(int(i) for i in indices))
+        if self.mp4 is not None:
+            out = {}
+            for got, i420 in self._mp4_decode(wanted):
+                for i, f in zip(got, i420_to_rgb(i420).cpu().numpy()):
+                    out[i] = f if rgb else f[..., ::-1]
+            return out
         if not self.seekable:                 # a pipe cannot go back
             wanted = [i for i in wanted if i >= self.pos]
         got, raw = [], []
@@ -257,7 +380,9 @@ class VideoReader:
         return {i: f if rgb else f[..., ::-1] for i, f in zip(got, out)}
 
     def release(self):
-        if self.proc is not None:
+        if self.mp4 is not None:
+            self.mp4.close()
+        elif self.proc is not None:
             if self.proc.poll() is None:
                 self.proc.kill()
             self.proc.wait()
@@ -279,35 +404,96 @@ def sample_interval(fps: float, target_fps: float) -> int:
     return max(1, int(fps) // int(target_fps))
 
 
+def _rgb_batches(frames, is_rgb: bool, device) -> Iterator[torch.Tensor]:
+    """(n <= RGB_BATCH, H, W, 3) uint8 RGB batches of ``frames`` on
+    ``device``."""
+    for o in range(0, len(frames), RGB_BATCH):
+        batch = frames[o:o + RGB_BATCH]
+        if isinstance(batch, torch.Tensor):
+            rgb = batch.to(device)
+        else:
+            rgb = torch.from_numpy(np.ascontiguousarray(
+                np.stack(batch))).to(device)
+        yield rgb if is_rgb else rgb.flip(-1)
+
+
+def _write_y4m(path: Path, frames, fps: float, is_rgb: bool, device) -> None:
+    h, w = frames[0].shape[:2]
+    with open(path, "wb") as out:
+        out.write(header_line(w, h, fps))
+        for rgb in _rgb_batches(frames, is_rgb, device):
+            for f in rgb_to_i420(rgb).cpu().numpy():
+                out.write(FRAME + b"\n")
+                out.write(f.tobytes())
+
+
+def _write_mp4(path: Path, frames, fps: float, is_rgb: bool,
+               device) -> None:
+    """An intra-only mp4v stream: the transforms on ``device``, the bit
+    coding on the host, HOST_THREADS frames at once."""
+    h, w = frames[0].shape[:2]
+    i420_shape(h, w)
+    res, step = mp4.frame_rate(fps)
+    config = mpeg4.write_config(w, h, res)
+    t = 0
+    with mp4.Mp4Writer(path, w, h, fps, config) as out:
+        for rgb in _rgb_batches(frames, is_rgb, device):
+            enc = mpeg4.encode_forward(rgb_to_i420(rgb))
+            coefs = enc.coefs.cpu().numpy()
+            acpred = enc.acpred.cpu().numpy()
+            ticks = [(t + i) * step for i in range(len(coefs))]
+            for sample in host_pool().map(
+                    lambda k: mpeg4.encode_ivop(
+                        w, h, res, ticks[k] // res, ticks[k] % res,
+                        coefs[k], acpred[k]), range(len(coefs))):
+                out.add(sample)
+            t += len(coefs)
+
+
+def reencode_x264(path: Path) -> None:
+    """JAX's libx264 pass over ``path`` (``lameness_tpu/video/decode.py``),
+    when an ``ffmpeg`` binary exists; the mp4v file stays if it fails."""
+    if not shutil.which("ffmpeg"):
+        return
+    tmp = path.with_suffix(".temp.mp4")
+    path.rename(tmp)
+    try:
+        subprocess.run(
+            ["ffmpeg", "-y", "-i", str(tmp), "-c:v", "libx264",
+             "-preset", "medium", "-crf", "23", "-pix_fmt", "yuv420p",
+             str(path)], capture_output=True, check=True)
+        tmp.unlink()
+    except Exception:
+        if tmp.exists():
+            tmp.rename(path)
+
+
 def write_video(path: Path, frames: Union[List[np.ndarray], np.ndarray,
                                           torch.Tensor],
-                fps: float, is_rgb: bool = True, device=None
-                ) -> Optional[Path]:
+                fps: float, is_rgb: bool = True, reencode: bool = True,
+                device=None) -> Optional[Path]:
     """Write frames (HWC uint8, RGB or with ``is_rgb=False`` BGR) to
-    ``path`` with the suffix ``.y4m``, converted to I420 on ``device`` (a
-    tensor's own device; the card by default) ``RGB_BATCH`` frames at a
-    time.  Returns the path written, or None for no frames."""
+    ``path``: an ``.mp4``, ``.m4v`` or ``.mov`` name as intra-only mp4v
+    (then, with ``reencode``, JAX's libx264 pass when an
+    ``ffmpeg`` binary exists), any other name with the suffix ``.y4m``.
+    Frames are converted to I420 (and encoded) on ``device`` (a tensor's
+    own device; the card by default) ``RGB_BATCH`` at a time.  Returns the
+    path written, or None for no frames."""
     if len(frames) == 0:
         return None
-    path = Path(path).with_suffix(".y4m")
+    path = Path(path)
+    is_mp4 = path.suffix.lower() in mp4.CONTAINERS
+    if not is_mp4:
+        path = path.with_suffix(".y4m")
     path.parent.mkdir(parents=True, exist_ok=True)
     if isinstance(frames, torch.Tensor):
         device = frames.device
     else:
         device = resolve_device(device)
-    h, w = frames[0].shape[:2]
-    with open(path, "wb") as out:
-        out.write(header_line(w, h, fps))
-        for o in range(0, len(frames), RGB_BATCH):
-            batch = frames[o:o + RGB_BATCH]
-            if isinstance(batch, torch.Tensor):
-                rgb = batch.to(device)
-            else:
-                rgb = torch.from_numpy(np.ascontiguousarray(
-                    np.stack(batch))).to(device)
-            if not is_rgb:
-                rgb = rgb.flip(-1)
-            for f in rgb_to_i420(rgb).cpu().numpy():
-                out.write(FRAME + b"\n")
-                out.write(f.tobytes())
+    if is_mp4:
+        _write_mp4(path, frames, fps, is_rgb, device)
+        if reencode:
+            reencode_x264(path)
+    else:
+        _write_y4m(path, frames, fps, is_rgb, device)
     return path

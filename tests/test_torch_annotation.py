@@ -241,7 +241,7 @@ def test_render_matches_jax(tmp_path, monkeypatch):
     monkeypatch.setattr(tann, "write_video", keep)
     tr = tann.AnnotationRenderer(tcfg.dirs, device="cpu")
     out = tr.render("rv", video_path=path)
-    assert out == root_t / "annotated" / "rv_annotated.y4m"
+    assert out == root_t / "annotated" / "rv_annotated.mp4"
     assert tr.status["rv"] == {"status": "completed", "output": str(out),
                                "frames": 40}
     with VideoReader(out, device="cpu") as vr:

@@ -10,9 +10,10 @@ what-if, users, cows and Re-ID, health and system, the tutorial, the static
 SPA.  Status codes and JSON bodies must agree key by key once ids, tokens,
 timestamps and each side's data root are normalised (floats within 1e-9);
 a few volatile bodies (the host's disk and memory, the unseeded active
-pair) are compared by their keys.  The deviations the port's ``.y4m``
-intermediates force are checked on their own: ``.y4m`` uploads, their
-content type, the frame endpoint's PNG and the annotated ``.y4m``.  Also
+pair) are compared by their keys.  The port's own deviations are checked
+on their own: ``.y4m`` uploads and their content type, and the frame
+endpoint's PNG; and the annotated clip, JAX's ``<id>_annotated.mp4``
+served as ``video/mp4``.  Also
 the WS broadcast, every static file byte for byte, and two SPA flows (the
 login, every page executing) through tests/support_browser.py against
 the port's server.
@@ -503,10 +504,11 @@ def test_same_session_as_jax(sides):
 
 
 def test_port_deviations_for_y4m(sides):
-    """What the port's ``.y4m`` intermediates change: the stream's content
-    type, the frame endpoint's PNG (JAX's answers a JPEG) and the
-    annotated ``.y4m``, which the annotation-status and annotated routes
-    find."""
+    """A ``.y4m`` upload, which only the port takes: the stream's content
+    type, the frame endpoint's PNG (JAX's answers a JPEG); and its
+    annotated clip, ``<id>_annotated.mp4`` as in JAX, which the
+    annotation-status and annotated routes find and stream as
+    ``video/mp4``."""
     port = Session(sides["port"])
     jax = Session(sides["jax"])
     for s in (port, jax):
@@ -536,18 +538,24 @@ def test_port_deviations_for_y4m(sides):
         == jax.http.get(f"/api/videos/{vj}/frame?frame=99").status_code \
         == 404
     assert jax.http.get(f"/api/videos/{vj}/frame?frame=5").status_code == 200
-    # annotation: the same keys and frame count; the port writes .y4m
+    # annotation: the same keys, frame count and file name
     rp = port.call("POST", f"/api/videos/{vp}/annotate")
     rj = jax.call("POST", f"/api/videos/{vj}/annotate")
     assert rp.status_code == rj.status_code == 200
     assert set(rp.json()) == set(rj.json())
     assert rp.json()["frames"] == rj.json()["frames"] == 8
-    assert rp.json()["output"].endswith(f"{vp}_annotated.y4m")
+    assert rp.json()["output"].endswith(f"{vp}_annotated.mp4")
+    assert rj.json()["output"].endswith(f"{vj}_annotated.mp4")
     st = port.http.get(f"/api/videos/{vp}/annotation-status").json()
     assert st["status"] == "completed"
     r = port.http.get(f"/api/videos/{vp}/annotated")
-    assert r.status_code == 200 and r.headers["content-type"] == \
-        tapi.Y4M_TYPE
+    assert r.status_code == 200 and r.headers["content-type"] == "video/mp4"
+    assert r.content == Path(rp.json()["output"]).read_bytes()
+    with VideoReader(Path(rp.json()["output"]), device="cpu") as vr:
+        assert vr.info["total_frames"] == 8
+    r = port.http.get(f"/api/videos/{vp}/annotated",
+                      headers={"Range": "bytes=0-7"})
+    assert r.status_code == 206 and r.content[4:8] == b"ftyp"
     assert port.http.get(f"/api/videos/{vp}").json()["has_annotated"]
     r = port.call("DELETE", f"/api/videos/{vp}/annotation")
     assert r.json() == {"deleted": True}

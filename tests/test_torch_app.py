@@ -120,7 +120,7 @@ def test_app_matches_jax(tmp_path, monkeypatch, engines, counted_uuids):
     shap = json.loads((roots["port"] / "results/shap/vid_shap.json"
                        ).read_text())
     assert shap["status"] == "no_models"
-    assert (roots["port"] / "processed" / "vid_cropped.y4m").exists()
+    assert (roots["port"] / "processed" / "vid_cropped.mp4").exists()
 
 
 def test_batcher_matches_jax(tmp_path, monkeypatch, engines):

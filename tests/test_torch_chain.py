@@ -3,18 +3,18 @@
 subcommand) against the JAX package on the CPU.
 
 Both drivers take the same ``.y4m`` upload; the JAX side reads and writes
-through the cvtColor Y4M pair of tests/test_torch_decode.py, so both see
-the same pixels.  The engines are tests/test_torch_engine.py's tiny ones
+through the cvtColor pair of tests/test_torch_decode.py (its mp4 files by
+the port's encoder), so both see the same pixels.  The engines are tests/test_torch_engine.py's tiny ones
 (dropout 0, the JAX weights carried over by ``weights.from_jax_params``) at
 the geometry of the crop, so the engine reads the crop's frames unresized
 on both sides; the graph heads run the JAX runner's weights at dropout 0.
 
 - ``ingest``: the same copy and message.
-- ``preprocess``: the same crop box and the same cropped ``.y4m`` bytes,
+- ``preprocess``: the same crop box and the same cropped ``.mp4`` bytes,
   from curation's memo and frame cache, and with a detector and no cache.
 - ``process_video_file`` with the motion fallback and with a square
   detector: the quality report as in tests/test_torch_curation.py, the
-  canonical clip's frames and size, the six stage files within PERF.md
+  canonical clip's frames (as handed to the lossy writer) and size, the six stage files within PERF.md
   §2's 1e-4 (these runs' masks are equal), the analysis files (tracking,
   graph heads, ML, fusion, cow prediction) within 1e-4 and their
   timestamps apart, and the same bus subjects in the same order.
@@ -40,7 +40,8 @@ from lameness_tpu_torch.io import schemas as tschemas
 from lameness_tpu_torch.serve.driver import PipelineDriver
 from lameness_tpu_torch.video import curation as tcur
 from lameness_tpu_torch.video.decode import VideoReader, write_video
-from test_torch_curation import (assert_same_report, synthetic_walk_frames,
+from test_torch_curation import (_recording, assert_same_report,
+                                 synthetic_walk_frames,
                                  textured_walk)
 from test_torch_decode import swap_jax_io
 from test_torch_graph import N_PAD
@@ -156,8 +157,7 @@ def _same_json(got, want, name):
         if isinstance(x, float) or isinstance(y, float):
             assert abs(y - x) <= ATOL, (name, key, y, x)
         elif isinstance(x, str) and x.startswith("/"):    # a path
-            assert Path(y).name == Path(x).name.replace(".mp4", ".y4m"), \
-                (name, key)
+            assert Path(y).name == Path(x).name, (name, key)
         else:
             assert y == x, (name, key, y, x)
 
@@ -175,6 +175,10 @@ def counted_uuids(monkeypatch):
 def test_process_video_file_matches_jax(tmp_path, monkeypatch,
                                         counted_uuids, kind):
     swap_jax_io(monkeypatch)
+    written = {"jax": {}, "port": {}}
+    for mod, tag in ((jcur, "jax"), (tcur, "port")):
+        monkeypatch.setattr(mod, "write_video",
+                            _recording(mod.write_video, written[tag]))
     src = _upload(tmp_path, kind)
     h, w = _crop_geometry(tmp_path, src, kind, monkeypatch)
     jeng, teng = _engines(h, w)
@@ -198,14 +202,15 @@ def test_process_video_file_matches_jax(tmp_path, monkeypatch,
                        / "vid_quality.json").read_text())
     assert_same_report(got, want)
     assert got["status"] == "success"
-    # the crop and the canonical clip (a side output)
-    assert (roots["port"] / "processed" / "vid_cropped.y4m").read_bytes() \
-        == (roots["jax"] / "processed" / "vid_cropped.y4m").read_bytes()
-    a, b = (VideoReader(r / "canonical" / "vid_canonical.y4m",
-                        device="cpu").read_sampled()[0]
-            for r in (roots["jax"], roots["port"]))
+    # the crop and the canonical clip (a side output; mp4v, lossy: the
+    # frames each side handed its writer)
+    assert (roots["port"] / "processed" / "vid_cropped.mp4").read_bytes() \
+        == (roots["jax"] / "processed" / "vid_cropped.mp4").read_bytes()
+    a, b = (written[tag]["vid_canonical.mp4"] for tag in ("jax", "port"))
     assert a.shape == b.shape
     assert (np.maximum(a, b) - np.minimum(a, b)).max() <= 4
+    assert VideoReader(roots["port"] / "canonical" / "vid_canonical.mp4",
+                       device="cpu").read_sampled()[0].shape == b.shape
     names = sorted(p.relative_to(roots["jax"]).as_posix()
                    for p in (roots["jax"] / "results").glob("*/*.json"))
     assert names == sorted(
@@ -272,9 +277,9 @@ def test_preprocess_matches_jax(tmp_path, monkeypatch, memo):
     x1, y1, x2, y2 = pre["port"]["crop_box"]
     assert (x2 - x1) % 2 == 0 and (y2 - y1) % 2 == 0 and x2 - x1 < 320
     path = Path(pre["port"]["processed_path"])
-    assert path.name == "vid_cropped.y4m"
+    assert path.name == "vid_cropped.mp4"
     assert path.read_bytes() == (jdrv.dirs.processed
-                                 / "vid_cropped.y4m").read_bytes()
+                                 / "vid_cropped.mp4").read_bytes()
     assert tdrv.curator._frame_cache is None       # popped, or never kept
     assert tdrv.preprocess("missing") is None
 

@@ -14,17 +14,20 @@ the JAX package's (``lameness_tpu/video/curation.py``) on the CPU.
   masks at least 99.9% equal a frame (they are equal), the opening equal to
   ``cv2.morphologyEx``, and the motion detector's picks equal to JAX's.
 - ``ClipCurator.curate_video`` against JAX's on the same ``.y4m`` upload
-  (JAX reading and writing through the cvtColor Y4M pair of
+  (JAX reading and writing through the cvtColor pair of
   tests/test_torch_decode.py, so both see the same pixels): with the
   motion fallback, a serial detector and a streamed one, left to right and
   right to left, the frame cache on and off, and the pass-through.  Passes,
   windows, flips, status and the detector-only metrics are equal; the
   visual score (and so the overall one) within 1e-12 relative (the
   Laplacian variance is rounded once here, by numpy's summation there);
-  the canonical clips have the same frames and size, their pixels within
-  4 LSB (cv2's INTER_LINEAR against the port's bilinear resize, within 1,
-  through the I420 conversion).
+  the canonical clips (mp4v ``<id>_canonical.mp4``, both written by the
+  port's lossy encoder) have the same frames and size, the frames handed
+  to each writer within 4 LSB (cv2's INTER_LINEAR against the port's
+  bilinear resize, within 1, through the I420 conversion).
 """
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -387,8 +390,22 @@ def curate_both(tmp_path, monkeypatch, frames, fps, kind, cache=True):
                           detector=jdet, bus=Recorder())
     tc = tcur.ClipCurator(TDirs(root=str(tmp_path / "port")).ensure(),
                           detector=tdet, bus=Recorder(), device="cpu")
+    for mod, cur in ((jcur, jc), (tcur, tc)):
+        cur.written = {}
+        monkeypatch.setattr(mod, "write_video",
+                            _recording(mod.write_video, cur.written))
     return (jc.curate_video(src, "vid"), tc.curate_video(src, "vid"),
             jc, tc)
+
+
+def _recording(write, store):
+    """``write`` (a ``write_video``) keeping each file's frames by name:
+    the canonical clips are mp4v, lossy, so the two sides' frames are
+    compared before their encoder."""
+    def wrapped(path, frames, *args, **kwargs):
+        store[Path(path).name] = np.stack([np.asarray(f) for f in frames])
+        return write(path, frames, *args, **kwargs)
+    return wrapped
 
 
 def assert_same_report(got, want):
@@ -411,14 +428,20 @@ def assert_same_report(got, want):
 
 
 def assert_same_canonical(jc, tc, name="vid_canonical"):
+    """The same canonical frames, within 4 (the resize gap), as they went
+    into each side's writer, and files that read back at their count and
+    size."""
     from lameness_tpu_torch.video.decode import VideoReader
-    paths = [c.canonical_dir / f"{name}.y4m" for c in (jc, tc)]
+    paths = [c.canonical_dir / f"{name}.mp4" for c in (jc, tc)]
     assert all(p.exists() for p in paths)
-    (a, ai), (b, bi) = (VideoReader(p, device="cpu").read_sampled()
-                        for p in paths)
-    np.testing.assert_array_equal(ai, bi)
+    a, b = (c.written[f"{name}.mp4"] for c in (jc, tc))
     assert a.shape == b.shape and a.shape[1:3] == (720, 1280)
     assert (np.maximum(a, b) - np.minimum(a, b)).max() <= 4
+    for p in paths:
+        with VideoReader(p, device="cpu") as vr:
+            got, idx = vr.read_sampled()
+        assert got.shape == a.shape
+        np.testing.assert_array_equal(idx, np.arange(len(a)))
 
 
 @pytest.mark.parametrize("cache", [True, False], ids=["cache", "nocache"])
@@ -450,7 +473,7 @@ def test_curate_video_matches_jax(tmp_path, monkeypatch, kind, reverse,
             np.testing.assert_array_equal(a, b)
     (js, jm), (ts, tm) = jc.bus.history[0], tc.bus.history[0]
     assert ts == js == "video.curated"
-    assert tm["canonical_path"].endswith("vid_canonical.y4m")
+    assert tm["canonical_path"].endswith("vid_canonical.mp4")
     assert {k: v for k, v in tm.items() if not k.endswith("path")
             and k != "quality_report"} == \
         {k: v for k, v in jm.items() if not k.endswith("path")
@@ -485,7 +508,7 @@ def test_curate_rejection_matches_jax(tmp_path, monkeypatch):
     assert_same_report(got, want)
     assert got["status"] == "rejected"
     assert jc._frame_cache is not None and tc._frame_cache is not None
-    assert not (tc.canonical_dir / "vid_canonical.y4m").exists()
+    assert not (tc.canonical_dir / "vid_canonical.mp4").exists()
 
 
 def test_streamed_detector_ending_early_raises(tmp_path):

@@ -36,6 +36,7 @@ import torch
 
 from lameness_tpu.video import decode as jdecode
 from lameness_tpu_torch.video import decode as tdecode
+from lameness_tpu_torch.video import mp4 as tmp4
 from lameness_tpu_torch.video import yuv as tyuv
 
 
@@ -54,12 +55,25 @@ def one_torch_thread():
 # the JAX side's Y4M pair (numpy parsing, cv2 conversions)
 # ---------------------------------------------------------------------------
 class CvY4MCapture:
-    """A ``cv2.VideoCapture`` look-alike over a ``.y4m`` file (the path's
-    stem with that suffix), parsed with numpy and converted with
-    ``cv2.cvtColor(.., COLOR_YUV2BGR_I420)``."""
+    """A ``cv2.VideoCapture`` look-alike over the port's intermediates,
+    converted with ``cv2.cvtColor(.., COLOR_YUV2BGR_I420)``: a ``.y4m``
+    file (the path's stem with that suffix) parsed with numpy, or an mp4v
+    ``.mp4`` (``.m4v``, ``.mov``) decoded to its I420 planes by the port's
+    decoder (tests/test_torch_mp4.py holds those planes to cv2's)."""
 
     def __init__(self, path):
-        path = Path(path).with_suffix(".y4m")
+        path = Path(path)
+        self.planes = None
+        if path.suffix.lower() in tmp4.CONTAINERS and path.exists():
+            with tdecode.VideoReader(path, device="cpu") as vr:
+                info = vr.info
+                self.planes = [f for _, c in vr.i420_chunks(16) for f in c]
+            self.f = path
+            self.w, self.h, self.fps = (info["width"], info["height"],
+                                        info["fps"])
+            self.n = len(self.planes)
+            return
+        path = path.with_suffix(".y4m")
         self.f = open(path, "rb") if path.exists() else None
         if self.f is None:
             return
@@ -82,6 +96,11 @@ class CvY4MCapture:
 
     def grab(self):
         self._planes = None
+        if self.planes is not None:
+            if not self.planes:
+                return False
+            self._planes = self.planes.pop(0)
+            return True
         if self.f.readline() != b"FRAME\n":
             return False
         data = self.f.read(self.size)
@@ -97,7 +116,7 @@ class CvY4MCapture:
         return True, cv2.cvtColor(self._planes, cv2.COLOR_YUV2BGR_I420)
 
     def release(self):
-        if self.f is not None:
+        if self.planes is None and self.f is not None:
             self.f.close()
 
 
@@ -113,10 +132,17 @@ class JaxY4MReader(jdecode.VideoReader):
 
 
 def jax_write_y4m(path, frames, fps, is_rgb=True, reencode=True) -> bool:
-    """The JAX ``write_video`` signature, writing ``path`` with the suffix
-    ``.y4m`` through ``cv2.cvtColor(.., COLOR_RGB2YUV_I420)``."""
-    if not frames:
+    """The JAX ``write_video`` signature: an ``.mp4`` (``.m4v``, ``.mov``)
+    name written by the port's mp4v encoder, the bytes the port writes for
+    the same frames (the JAX package's cv2 writer is another encoder);
+    any other name with the suffix ``.y4m``, through
+    ``cv2.cvtColor(.., COLOR_RGB2YUV_I420)``."""
+    if not len(frames):
         return False
+    if Path(path).suffix.lower() in tmp4.CONTAINERS:
+        tdecode.write_video(path, np.stack(frames), fps, is_rgb=is_rgb,
+                            reencode=False, device="cpu")
+        return True
     path = Path(path).with_suffix(".y4m")
     path.parent.mkdir(parents=True, exist_ok=True)
     h, w = frames[0].shape[:2]
@@ -133,8 +159,9 @@ def jax_write_y4m(path, frames, fps, is_rgb=True, reencode=True) -> bool:
 
 
 def swap_jax_io(monkeypatch):
-    """The JAX curation and driver read and write ``.y4m`` through the
-    cvtColor pair (the test's only change to the JAX side)."""
+    """The JAX curation and driver read and write the port's intermediates
+    (``.y4m`` uploads, mp4v ``.mp4`` outputs) through the cvtColor pair
+    (the test's only change to the JAX side)."""
     from lameness_tpu.serve import driver as jdriver
     from lameness_tpu.video import curation as jcur
     for mod in (jcur, jdriver):
@@ -199,7 +226,7 @@ def test_rgb_to_i420_tensor_matches_host():
 # ---------------------------------------------------------------------------
 # the container
 # ---------------------------------------------------------------------------
-def _written(tmp_path, n=7, fps=30000 / 1001, name="clip.mp4"):
+def _written(tmp_path, n=7, fps=30000 / 1001, name="clip.y4m"):
     frames = seeded_frames(n)
     path = tdecode.write_video(tmp_path / name, list(frames), fps,
                                device="cpu")
@@ -239,7 +266,7 @@ def test_y4m_round_trip(tmp_path):
 def test_write_video_bgr_tensor_and_empty(tmp_path):
     frames = seeded_frames(3)
     a = tdecode.write_video(tmp_path / "a", torch.from_numpy(frames), 25)
-    b = tdecode.write_video(tmp_path / "b.mp4", frames[..., ::-1], 25,
+    b = tdecode.write_video(tmp_path / "b.avi", frames[..., ::-1], 25,
                             is_rgb=False, device="cpu")
     assert a.read_bytes() == b.read_bytes()
     assert tdecode.write_video(tmp_path / "c", [], 25, device="cpu") is None

@@ -17,6 +17,8 @@
   tensors of ``weights.from_jax_params`` of JAX's converter;
 - ``collect_cow_pose_data`` extract/import, ``profile_stages``,
   ``run_pipeline_example`` and ``bulk_upload`` on the tiny engine;
+- ``convert_videos`` on a folder of mp4v files (cv2's and the port's), a
+  broken one and entries it skips: JAX's lines, names and frame counts;
 - every tool refuses to run without a card unless ``--device cpu``.
 """
 import json
@@ -36,10 +38,10 @@ from lameness_tpu_torch.pipeline.checkpoint import load_params, \
 from lameness_tpu_torch.pipeline.engine import make_test_engine
 from lameness_tpu_torch.tools import (analyze_training_orientation,
                                       bulk_upload, collect_cow_pose_data,
-                                      compare_pose_models, convert_weights,
-                                      prepare_pose_dataset, profile_stages,
-                                      run_pipeline_example, train_detector,
-                                      train_pose_model)
+                                      compare_pose_models, convert_videos,
+                                      convert_weights, prepare_pose_dataset,
+                                      profile_stages, run_pipeline_example,
+                                      train_detector, train_pose_model)
 from lameness_tpu_torch.video.decode import write_video
 from lameness_tpu_torch.weights import from_jax_params
 
@@ -49,6 +51,7 @@ sys.path.insert(0, str(SCRIPTS))
 
 import analyze_training_orientation as j_analyze  # noqa: E402
 import compare_pose_models as j_compare  # noqa: E402
+import convert_videos as j_convert  # noqa: E402
 import prepare_pose_dataset as j_prepare  # noqa: E402
 import train_detector as j_detector  # noqa: E402
 from tests.test_scripts import _coco_dataset  # noqa: E402
@@ -399,6 +402,52 @@ def test_run_pipeline_example_and_bulk_upload_small(tmp_path, capsys):
     assert "uploaded 2 videos" in capsys.readouterr().out
 
 
+def test_convert_videos_matches_jax(tmp_path, monkeypatch, capsys):
+    """The same folder through the JAX script and the port's tool: the
+    same ``ok``/``FAIL`` lines (a FAIL's reason is each side's), the same
+    output names, and every output read by cv2 at the JAX output's frame
+    count, fps and size."""
+    from lameness_tpu.video.decode import write_video as jax_write
+    src = tmp_path / "src"
+    src.mkdir()
+    frames = walk_frames()
+    jax_write(src / "a_cv2.mp4", list(frames), 10, reencode=False)
+    write_video(src / "b_port.mov", frames[:7], 25, device="cpu")
+    (src / "c_broken.mkv").write_bytes(b"\0" * 64)
+    (src / "notes.txt").write_text("not a video")
+    (src / "d.mp4").mkdir()                    # a directory is skipped
+    monkeypatch.setattr(sys, "argv", ["convert_videos.py", str(src),
+                                      str(tmp_path / "jax")])
+    j_convert.main()
+    want = capsys.readouterr().out.splitlines()
+    assert convert_videos.main([str(src), str(tmp_path / "port"),
+                                "--device", "cpu"]) == 0
+    got = capsys.readouterr().out.splitlines()
+
+    def head(line):
+        return line.split(":")[0] if line.startswith("FAIL") else line
+    assert [head(x) for x in got] == [head(x) for x in want]
+    assert sum(x.startswith("ok") for x in got) == 2
+    names = sorted(p.name for p in (tmp_path / "jax").iterdir())
+    assert names == sorted(p.name for p in (tmp_path / "port").iterdir()) \
+        == ["a_cv2.mp4", "b_port.mp4"]
+    for name in names:
+        caps = [cv2.VideoCapture(str(tmp_path / side / name))
+                for side in ("jax", "port")]
+        props = [[c.get(k) for k in (cv2.CAP_PROP_FRAME_COUNT,
+                                     cv2.CAP_PROP_FPS,
+                                     cv2.CAP_PROP_FRAME_WIDTH,
+                                     cv2.CAP_PROP_FRAME_HEIGHT)]
+                 for c in caps]
+        assert props[1] == props[0], name
+        n = 0
+        while caps[1].read()[0]:
+            n += 1
+        assert n == props[0][0], name
+    assert convert_videos.main([]) == 1
+    assert "Usage" in capsys.readouterr().out
+
+
 @pytest.mark.parametrize("tool,argv", [
     (prepare_pose_dataset, ["coco", "a.json", "imgs", "--out", "o"]),
     (analyze_training_orientation, ["ds"]),
@@ -410,6 +459,7 @@ def test_run_pipeline_example_and_bulk_upload_small(tmp_path, capsys):
     (profile_stages, ["--small"]),
     (run_pipeline_example, ["v.y4m", "--small"]),
     (bulk_upload, ["ds", "--small"]),
+    (convert_videos, ["."]),
 ])
 def test_tools_need_a_card_unless_asked(tool, argv, tmp_path, monkeypatch):
     if torch.cuda.is_available():
